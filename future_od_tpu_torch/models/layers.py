@@ -1,0 +1,288 @@
+"""Attention primitives and small blocks (port of future_od_tpu/models/layers.py).
+
+Batch-first (B, N, D) throughout. Parameter names follow the reference
+PyTorch checkpoint that future_od_tpu/utils/checkpoint_convert.py reads
+(`query_content`, `fun.out_proj`, `attn.in_proj_weight`, `mlp.0`, ...), so
+`utils/jax_weights.py` is that converter's exact inverse.
+
+`attend_heads` keeps the JAX dispatch: the flash kernel runs only in
+inference, with >= FUTURE_OD_FLASH_MIN_KEYS (1024) keys and
+>= FUTURE_OD_FLASH_MIN_QUERIES (256) queries, unless FUTURE_OD_DISABLE_FLASH=1.
+Every other attention is a plain einsum + softmax.
+
+Flax's LayerNorm epsilon is 1e-6 (torch's default is 1e-5): every LayerNorm
+here passes LN_EPS.
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from future_od_tpu_torch.ops.flash_attention import flash_attention
+
+LN_EPS = 1e-6
+
+
+def layer_norm(dim: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+def init_linear_(weight: torch.Tensor, bias: Optional[torch.Tensor], generator) -> None:
+    """The JAX package's TorchLinear init: xavier-uniform weight and the
+    torch-default U(±1/sqrt(fan_in)) bias."""
+    fan_out, fan_in = weight.shape
+    a = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        weight.uniform_(-a, a, generator=generator)
+        if bias is not None:
+            bound = 1.0 / math.sqrt(fan_in)
+            bias.uniform_(-bound, bound, generator=generator)
+
+
+def flash_gate(num_queries: int, num_keys: int) -> bool:
+    """Whether inference attention goes to the flash kernel (the JAX gate,
+    layers.py:157-170, without its not-on-CPU check: on the CPU the
+    kernel's wrapper runs the plain version)."""
+    if os.environ.get("FUTURE_OD_DISABLE_FLASH", "0") == "1":
+        return False
+    min_keys = int(os.environ.get("FUTURE_OD_FLASH_MIN_KEYS", 1024))
+    min_q = int(os.environ.get("FUTURE_OD_FLASH_MIN_QUERIES", 256))
+    return num_keys >= min_keys and num_queries >= min_q
+
+
+def attention_core(scale: float, logits, v, dropout: nn.Dropout) -> torch.Tensor:
+    """softmax(logits * scale) @ v with attention-weight dropout.
+    logits (B, H, Nq, Nk); v (B, Nk, H, dv) -> (B, Nq, H*dv)."""
+    weights = dropout(torch.softmax(logits * scale, dim=-1))
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+    return out.reshape(*out.shape[:2], -1)
+
+
+def attend_heads(qh, kh, vh, scale: float, dropout: nn.Dropout) -> torch.Tensor:
+    """Multi-head attention core: qh, kh (B, N, H, d); vh (B, Nk, H, dv)
+    -> (B, Nq, H*dv)."""
+    if not dropout.training and flash_gate(qh.shape[1], kh.shape[1]):
+        out = flash_attention(
+            qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2), scale
+        )  # (B, H, Nq, dv)
+        out = out.transpose(1, 2)
+        return out.reshape(*out.shape[:2], -1)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
+    return attention_core(scale, logits, vh, dropout)
+
+
+class MLP(nn.Module):
+    """num_layers-deep ReLU MLP (`layers.{i}`)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
+        super().__init__()
+        dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.layers = nn.ModuleList(
+            nn.Linear(dims[i], dims[i + 1]) for i in range(num_layers)
+        )
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = F.relu(x)
+        return x
+
+
+class FeedForward(nn.Sequential):
+    """Linear -> ReLU -> Dropout -> Linear (-> Dropout): keys `0` and `3`."""
+
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.1,
+                 dropout_after: bool = False):
+        layers = [nn.Linear(dim, hidden_dim), nn.ReLU(), nn.Dropout(dropout),
+                  nn.Linear(hidden_dim, dim)]
+        if dropout_after:
+            layers.append(nn.Dropout(dropout))
+        super().__init__(*layers)
+
+
+class HeadOutput(nn.Module):
+    """The reference's input-projection-free MultiheadAttention, of which
+    only the output projection holds weights (`<attention>.fun.out_proj`)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.out_proj = nn.Linear(dim, dim)
+
+
+class SlotToSlotAttention(nn.Module):
+    """Decoder self-attention: separate content/pos projections for q and k,
+    value from content only."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        for name in ("query_content", "query_pos", "key_content", "key_pos", "value"):
+            setattr(self, name, nn.Linear(dim, dim))
+        self.fun = HeadOutput(dim)
+        self.attn_drop = nn.Dropout(dropout)
+
+    def forward(self, query_content, query_pos, key_content, key_pos):
+        D, H = self.dim, self.num_heads
+        q = self.query_content(query_content) + self.query_pos(query_pos)
+        k = self.key_content(key_content) + self.key_pos(key_pos)
+        v = self.value(key_content)
+        B, Nq, _ = q.shape
+        Nk = k.shape[1]
+        logits = torch.einsum(
+            "bqhd,bkhd->bhqk", q.reshape(B, Nq, H, D // H), k.reshape(B, Nk, H, D // H)
+        )
+        out = attention_core(
+            1.0 / math.sqrt(D // H), logits, v.reshape(B, Nk, H, D // H), self.attn_drop
+        )
+        return self.fun.out_proj(out)
+
+
+class EgodeepAttention(nn.Module):
+    """Cross-attention to the IMU embedding token(s). With `ff_dim` set,
+    appends the reference's norm(out + dropout(out)) -> norm(out + mlp(out))
+    block (encoder flavour); the "residual" really is out + dropout(out)."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1,
+                 ff_dim: Optional[int] = None):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        for name in ("query_content", "query_pos", "key", "value"):
+            setattr(self, name, nn.Linear(dim, dim))
+        self.fun = HeadOutput(dim)
+        self.attn_drop = nn.Dropout(dropout)
+        self.ff_dim = ff_dim
+        if ff_dim is not None:
+            self.drop = nn.Dropout(dropout)
+            self.norm1 = layer_norm(dim)
+            self.norm2 = layer_norm(dim)
+            self.mlp = FeedForward(dim, ff_dim, dropout, dropout_after=True)
+
+    def forward(self, query_content, query_pos, key):
+        D, H = self.dim, self.num_heads
+        q = self.query_content(query_content) + self.query_pos(query_pos)
+        k, v = self.key(key), self.value(key)
+        B, Nq, _ = q.shape
+        Nk = k.shape[1]
+        logits = torch.einsum(
+            "bqhd,bkhd->bhqk", q.reshape(B, Nq, H, D // H), k.reshape(B, Nk, H, D // H)
+        )
+        out = attention_core(
+            1.0 / math.sqrt(D // H), logits, v.reshape(B, Nk, H, D // H), self.attn_drop
+        )
+        out = self.fun.out_proj(out)
+        if self.ff_dim is not None:
+            out = self.norm1(out + self.drop(out))
+            out = self.norm2(out + self.mlp(out))
+        return out
+
+
+class SlotToImageAttention(nn.Module):
+    """Conditional cross-attention: per head, queries concat(content, sine)
+    and keys concat(content (+ sine on the first layer), sine), each D/H
+    wide, attending into D/H-wide values with scale 1/sqrt(2D/H).
+    `use_query_pos=False` is decoder layers >= 1, which have no query_pos
+    projection."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1,
+                 use_query_pos: bool = True):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.use_query_pos = use_query_pos
+        names = ["query_content", "query_sine", "key_content", "key_pos", "value"]
+        if use_query_pos:
+            names.append("query_pos")
+        for name in names:
+            setattr(self, name, nn.Linear(dim, dim))
+        self.fun = HeadOutput(dim)
+        self.attn_drop = nn.Dropout(dropout)
+
+    def forward(self, query_content, query_pos, query_sine, key_content,
+                key_pos_flag: bool, key_sine):
+        """key_pos_flag: add the projected key sine into the key content
+        (the first layer's `key_pos is not None` switch)."""
+        D, H = self.dim, self.num_heads
+        v = self.value(key_content)
+        k_content = self.key_content(key_content)
+        q_content = self.query_content(query_content)
+        if self.use_query_pos and query_pos is not None:
+            q_content = q_content + self.query_pos(query_pos)
+        q_sine = self.query_sine(query_sine)
+        k_sine = self.key_pos(key_sine)
+        if key_pos_flag:
+            k_content = k_content + k_sine
+        B, Nq, _ = q_content.shape
+        Nk = k_content.shape[1]
+        hd = D // H
+        qh = torch.cat(
+            [q_content.reshape(B, Nq, H, hd), q_sine.reshape(B, Nq, H, hd)], dim=-1
+        )
+        kh = torch.cat(
+            [k_content.reshape(B, Nk, H, hd), k_sine.reshape(B, Nk, H, hd)], dim=-1
+        )
+        out = attend_heads(
+            qh, kh, v.reshape(B, Nk, H, hd), 1.0 / math.sqrt(2 * D // H), self.attn_drop
+        )
+        return self.fun.out_proj(out)
+
+
+class SelfAttention(nn.Module):
+    """nn.MultiheadAttention-style attention with a packed (3D, D) input
+    projection; the caller adds positional encodings to q/k."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.1):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+        self.attn_drop = nn.Dropout(dropout)
+        self.reset_parameters(None)
+
+    def reset_parameters(self, generator) -> None:
+        """Each of q/k/v is its own (D, D) TorchLinear in the JAX package."""
+        D = self.dim
+        for i in range(3):
+            init_linear_(
+                self.in_proj_weight[i * D : (i + 1) * D],
+                self.in_proj_bias[i * D : (i + 1) * D],
+                generator,
+            )
+
+    def forward(self, query, key, value):
+        D, H = self.dim, self.num_heads
+        w, b = self.in_proj_weight, self.in_proj_bias
+        q = F.linear(query, w[:D], b[:D])
+        k = F.linear(key, w[D : 2 * D], b[D : 2 * D])
+        v = F.linear(value, w[2 * D :], b[2 * D :])
+        B, Nq, _ = q.shape
+        Nk = k.shape[1]
+        out = attend_heads(
+            q.reshape(B, Nq, H, D // H),
+            k.reshape(B, Nk, H, D // H),
+            v.reshape(B, Nk, H, D // H),
+            1.0 / math.sqrt(D // H),
+            self.attn_drop,
+        )
+        return self.out_proj(out)
+
+
+class EncoderAttention(nn.Module):
+    """Encoder attention block, post-norm: attention + dropout/norm, FFN + norm."""
+
+    def __init__(self, dim: int, num_heads: int, ff_dim: int, dropout: float = 0.1):
+        super().__init__()
+        self.attn = SelfAttention(dim, num_heads, dropout)
+        self.drop = nn.Dropout(dropout)
+        self.norm1 = layer_norm(dim)
+        self.norm2 = layer_norm(dim)
+        self.mlp = FeedForward(dim, ff_dim, dropout, dropout_after=True)
+
+    def forward(self, src, query_base, key_base, val_base):
+        src = self.norm1(src + self.drop(self.attn(query_base, key_base, val_base)))
+        return self.norm2(src + self.mlp(src))

@@ -1,0 +1,244 @@
+"""ResNet backbone with frozen BatchNorm (port of future_od_tpu/models/resnet.py).
+
+torchvision-v1 topology and parameter names (`conv1`, `bn1`,
+`layer{s}.{b}.conv{i}`, `layer{s}.{b}.downsample.{0,1}`), FrozenBatchNorm2d
+semantics (fixed statistics + affine, eps 1e-5), optional layer4 dilation
+whose block 0 keeps dilation 1, and a 1x1 `input_proj` to the transformer
+width. The public interface is NHWC; inside, tensors are NCHW in the
+channels_last memory format, so NHWC views cost nothing.
+
+Environment gates (names and semantics of the JAX package, read at each
+forward, inference only):
+- FUTURE_OD_FUSED_RESNET=1: stride-1, dilation-1 blocks of the stages listed
+  in FUTURE_OD_FUSE_STAGES (default "01", i.e. layer1 and layer2) whose input
+  height is a multiple of 8 run the fused bottleneck kernel;
+- FUTURE_OD_FUSED_STEM=1 (with FUTURE_OD_FUSED_RESNET=1): the stem runs the
+  fused stem kernel over space-to-depth input when H % 32 == 0 and
+  W % 4 == 0.
+Both fold frozen BN into the conv weights and biases as the JAX package does.
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from future_od_tpu_torch.ops.fused_resnet import fused_bottleneck, fused_stem
+
+# ImageNet statistics for the uint8 ingestion path (device_normalize).
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+STAGE_BLOCKS = {
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
+}
+
+
+def device_normalize(x: torch.Tensor, out_dtype) -> torch.Tensor:
+    """uint8 video -> normalized float on the device, in the host path's op
+    order. Accepts packed layouts (3, 12 or 48 channels, (di, dj, c) order)."""
+    reps = x.shape[-1] // 3
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device).repeat(reps)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device).repeat(reps)
+    return ((x.float() / 255.0 - mean) / std).to(out_dtype)
+
+
+def fused_resnet_allowed() -> bool:
+    """The fused bottleneck gate (opt-in FUTURE_OD_FUSED_RESNET=1)."""
+    return os.environ.get("FUTURE_OD_FUSED_RESNET", "0") == "1"
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/2, W/2, 4C), channel order (di, dj, c)."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // 2, 2, W // 2, 2, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H // 2, W // 2, 4 * C)
+
+
+def stem_weights_to_space_to_depth(w7: torch.Tensor) -> torch.Tensor:
+    """The (7, 7, 3, 64) HWIO stem kernel -> the exactly equivalent
+    (4, 4, 12, 64) kernel over space-to-depth input: packed-kernel index kp
+    and intra-pixel offset di map to unpacked index ki = 2·kp + di - 1
+    (outside [0, 7) -> zero weight)."""
+    kh, kw, c_in, c_out = w7.shape
+    assert (kh, kw) == (7, 7)
+    w4 = w7.new_zeros((4, 4, 2, 2, c_in, c_out))
+    for kp in range(4):
+        for lp in range(4):
+            for di in range(2):
+                for dj in range(2):
+                    ki, kj = 2 * kp + di - 1, 2 * lp + dj - 1
+                    if 0 <= ki < 7 and 0 <= kj < 7:
+                        w4[kp, lp, di, dj] = w7[ki, kj]
+    return w4.reshape(4, 4, 4 * c_in, c_out)
+
+
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+def _matrix(conv: nn.Conv2d) -> torch.Tensor:
+    """1x1 conv weight as an (in, out) matrix."""
+    return conv.weight[:, :, 0, 0].t()
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm with constant statistics and affine (buffers, never
+    updated): y = (x - mean) * weight / sqrt(var + eps) + bias."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def scale_shift(self):
+        """The affine (scale, shift) applied — folded into the preceding
+        conv by the fused kernels."""
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return scale, self.bias - self.running_mean * scale
+
+    def forward(self, x):  # NCHW
+        scale, shift = self.scale_shift()
+        return x * scale[:, None, None] + shift[:, None, None]
+
+
+class Bottleneck(nn.Module):
+    """torchvision-v1 bottleneck: 1x1 -> 3x3(stride, dilation) -> 1x1 (x4)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
+                 downsample: bool = False, stage: int = 0):
+        super().__init__()
+        self.stride, self.dilation, self.stage = stride, dilation, stage
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=dilation,
+                               dilation=dilation, bias=False)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, 4 * planes, 1, bias=False)
+        self.bn3 = FrozenBatchNorm2d(4 * planes)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, 4 * planes, 1, stride=stride, bias=False),
+                FrozenBatchNorm2d(4 * planes),
+            )
+
+    def use_fused(self, x) -> bool:
+        return (
+            not self.training
+            and self.stride == 1
+            and self.dilation == 1
+            and x.shape[2] % 8 == 0
+            and str(self.stage) in os.environ.get("FUTURE_OD_FUSE_STAGES", "01")
+            and fused_resnet_allowed()
+        )
+
+    def forward(self, x):  # NCHW, channels_last
+        if self.use_fused(x):
+            s1, t1 = self.bn1.scale_shift()
+            s2, t2 = self.bn2.scale_shift()
+            s3, t3 = self.bn3.scale_shift()
+            wd = bd = None
+            if self.downsample is not None:
+                sd, bd = self.downsample[1].scale_shift()
+                wd = _matrix(self.downsample[0]) * sd
+            out = fused_bottleneck(
+                x.permute(0, 2, 3, 1),
+                _matrix(self.conv1) * s1, t1,
+                _hwio(self.conv2) * s2, t2,
+                _matrix(self.conv3) * s3, t3,
+                wd, bd,
+            )
+            return out.permute(0, 3, 1, 2)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    """ResNet trunk returning the layer4 feature map (stride 32, or 16 with
+    dilation)."""
+
+    def __init__(self, name_id: str = "resnet50", dilation: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm2d(64)
+        inplanes, planes = 64, 64
+        for stage_idx, num_blocks in enumerate(STAGE_BLOCKS[name_id]):
+            stride = 1 if stage_idx == 0 else 2
+            dil = 1
+            if stage_idx == 3 and dilation:
+                stride, dil = 1, 2
+            blocks = []
+            for block_idx in range(num_blocks):
+                # torchvision: a dilated stage's first block keeps the
+                # previous dilation (1)
+                blocks.append(Bottleneck(
+                    inplanes, planes,
+                    stride=stride if block_idx == 0 else 1,
+                    dilation=1 if block_idx == 0 else dil,
+                    downsample=(block_idx == 0),
+                    stage=stage_idx,
+                ))
+                inplanes = 4 * planes
+            setattr(self, f"layer{stage_idx + 1}", nn.Sequential(*blocks))
+            planes *= 2
+        self.num_stages = len(STAGE_BLOCKS[name_id])
+
+    def use_fused_stem(self, x) -> bool:
+        return (
+            not self.training
+            and os.environ.get("FUTURE_OD_FUSED_STEM", "0") == "1"
+            and x.shape[1] % 32 == 0
+            and x.shape[2] % 4 == 0
+            and fused_resnet_allowed()
+        )
+
+    def forward(self, x):
+        """x: (B, H, W, 3) float or uint8 -> NCHW (channels_last) features."""
+        dtype = self.conv1.weight.dtype
+        x = device_normalize(x, dtype) if x.dtype == torch.uint8 else x.to(dtype)
+        if self.use_fused_stem(x):
+            scale, shift = self.bn1.scale_shift()
+            w4 = stem_weights_to_space_to_depth(_hwio(self.conv1)) * scale
+            x = fused_stem(space_to_depth(x), w4, shift).permute(0, 3, 1, 2)
+        else:
+            x = x.permute(0, 3, 1, 2)
+            x = F.relu(self.bn1(self.conv1(x)))
+            x = F.max_pool2d(x, 3, 2, 1)
+        for i in range(self.num_stages):
+            x = getattr(self, f"layer{i + 1}")(x)
+        return x
+
+
+class CDetrBackbone(nn.Module):
+    """ResNet trunk + 1x1 projection to hidden_dim: (B, H, W, 3) ->
+    (B, H/32, W/32, hidden_dim)."""
+
+    def __init__(self, hidden_dim: int = 256, name_id: str = "resnet50",
+                 dilation: bool = False):
+        super().__init__()
+        self.body = ResNet(name_id, dilation)
+        self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
+
+    def forward(self, x):
+        return self.input_proj(self.body(x)).permute(0, 2, 3, 1)
+
+
+def init_conv_(conv: nn.Conv2d, generator) -> None:
+    """The JAX package's conv init: variance_scaling(2.0, fan_out, normal),
+    zero bias."""
+    fan_out = conv.out_channels * conv.kernel_size[0] * conv.kernel_size[1]
+    with torch.no_grad():
+        conv.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+        if conv.bias is not None:
+            conv.bias.zero_()

@@ -1,0 +1,127 @@
+"""SpatioTemporalDETR task wrapper and post-processing (port of the inference
+half of future_od_tpu/models/st_detr.py).
+
+`SpatioTemporalDETRArgs` is this package's own copy of the JAX dataclass
+(the port imports nothing of the JAX package); the criterion settings stay
+as fields so one args object describes a model for both packages.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from future_od_tpu_torch.ops.misc import video_hw
+
+IMU_KEYS = ("translation", "acceleration", "rotation", "rotation_rate")
+# per-frame widths of the IMU keys (rotation is a quaternion)
+IMU_WIDTHS = {"translation": 3, "acceleration": 3, "rotation": 4, "rotation_rate": 3, "speed": 1}
+
+
+@dataclass(frozen=True)
+class SpatioTemporalDETRArgs:
+    """All model/loss hyperparameters (copy of the JAX package's)."""
+
+    num_classes: int
+    masks: bool = False
+
+    # Optimization
+    lr_backbone: float = 1e-5
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    max_norm: float = 0.1
+
+    # Backbone
+    backbone: str = "resnet50"
+    dilation: bool = False
+    position_embedding: str = "sine"
+    pretrained_backbone: bool = True
+
+    # Transformer settings
+    enc_layers: int = 6
+    dec_layers: int = 6
+    dim_feedforward: int = 2048
+    hidden_dim: int = 256
+    dropout: float = 0.1
+    enc_nheads: int = 8
+    nheads: int = 8
+    num_queries: int = 300
+    pre_norm: bool = False
+
+    # Matcher settings
+    set_cost_class: float = 2.0
+    set_cost_bbox: float = 5.0
+    set_cost_giou: float = 2.0
+
+    # Loss settings
+    aux_loss: bool = True
+    cls_loss_coef: float = 2.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    focal_alpha: float = 0.25
+
+    # Data settings
+    no_imu_speed: bool = False
+    encode_offset: bool = False
+
+    # Extras of the JAX package
+    matcher: str = "auction"
+    cost_slots: int = 128
+    space_to_depth: bool = False
+    int8_backbone: bool = False
+    int8_static: bool = False
+    freeze_stem: bool = True
+
+    def imu_keys(self) -> Tuple[str, ...]:
+        return IMU_KEYS + (() if self.no_imu_speed else ("speed",))
+
+    def imu_dim(self) -> int:
+        return sum(IMU_WIDTHS[k] for k in self.imu_keys())
+
+
+class SpatioTemporalDETR(nn.Module):
+    """Assembles the IMU input from the batch and runs the core (`_model`,
+    the reference checkpoint's prefix)."""
+
+    def __init__(self, core: nn.Module, args: SpatioTemporalDETRArgs):
+        super().__init__()
+        self._model = core
+        self.args = args
+
+    def forward(self, data: Dict[str, torch.Tensor]):
+        imu = None
+        if data.get("translation") is not None:
+            imu = torch.cat([data[k] for k in self.args.imu_keys()], dim=2)
+        return self._model(data["video"], imu)
+
+
+def normalize_outputs(outputs):
+    """(annotated-frame output, pred_logits, pred_boxes) from a core's
+    single-frame output dict; logits/boxes gain the L_out axis at dim 1."""
+    if outputs["pred_logits"].ndim != 3:
+        raise ValueError(f"cannot interpret output of shape {tuple(outputs['pred_logits'].shape)}")
+    return outputs, outputs["pred_logits"][:, None], outputs["pred_boxes"][:, None]
+
+
+def post_process(pred_logits, pred_boxes, data):
+    """Sigmoid scores + generic-object class + pixel xyxy boxes.
+    pred_logits (B, 1, M, C), pred_boxes (B, 1, M, 4) cxcywh in [0, 1] (one
+    output frame, the predicted one). Returns (output dict, its scores, its
+    boxes)."""
+    H, W = video_hw(data["video"])
+    scores = torch.sigmoid(pred_logits)
+    scores = torch.cat([scores, scores.amax(dim=3, keepdim=True)], dim=3)
+    boxes = pred_boxes * torch.tensor(
+        [W, H, W, H], dtype=pred_boxes.dtype, device=pred_boxes.device
+    )
+    boxes = torch.cat(
+        [boxes[..., 0:2] - 0.5 * boxes[..., 2:4], boxes[..., 0:2] + 0.5 * boxes[..., 2:4]],
+        dim=-1,
+    )
+    output = {
+        "class_scores": scores[:, :, None],  # (B, 1, 1, M, C+1)
+        "boxes": boxes[:, :, None],
+    }
+    return output, scores[:, 0], boxes[:, 0]

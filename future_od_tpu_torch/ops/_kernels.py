@@ -1,0 +1,165 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Every kernel is CUDA C++ for Hopper under `future_od_tpu_torch/csrc/`, with a
+plain C entry point. At first use all kernel libraries are compiled from
+those sources — one `nvcc` per source, all started together — into
+`build/torch_kernels/` at the root of the checkout (listed in .gitignore),
+and loaded with ctypes. The port runs from a checkout: an installed copy
+would have neither the sources nor a writable build directory beside it. A library's file name carries a hash of its sources and flags,
+so an edited source is rebuilt and an unchanged one is reused.
+
+Each entry point returns the `cudaGetLastError()` code of its launch; the
+wrappers raise when it is not 0. `launch_counts` holds one counter per
+kernel, which each wrapper increments where it launches its kernel and
+nowhere else; `chip_smoke.py` reads them to show the main path went through
+the kernels.
+
+Nothing here runs at import time: the CPU tests import every module, and
+this machine has no nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel library (csrc/<name>.cu) -> {C entry point: argtypes}
+KERNELS: Dict[str, Dict[str, list]] = {
+    # q, k, v, out, bh, nq, nk, d, dv, scale*log2(e), dtype, stream
+    "flash_attention": {
+        "fod_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    },
+    # x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, cin, cmid, cout, dtype, stream
+    "fused_bottleneck": {
+        "fod_fused_bottleneck": [_P] * 10 + [_I] * 7 + [_P],
+    },
+    # x_s2d, w, bias, out, B, Hc, Wc, dtype, stream
+    "fused_stem": {
+        "fod_fused_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (neither on PATH nor under CUDA_HOME); the port's "
+            "CUDA kernels are built from csrc/ at first use"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256()
+    for src in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every kernel library that is not built yet, one nvcc process
+    per source, all running at once. Returns the wall seconds spent. The
+    compiler's output (ptxas register and shared-memory report included)
+    goes to build/torch_kernels/<name>.log."""
+    missing = [name for name in KERNELS if not library_path(name).exists()]
+    if not missing:
+        return 0.0
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    start = time.perf_counter()
+    jobs = []
+    for name in missing:
+        out = library_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log[-4000:]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - start
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, building all libraries first if
+    needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, argtypes in KERNELS[name].items():
+            entry = getattr(lib, fn)
+            entry.argtypes = argtypes
+            entry.restype = ctypes.c_int
+        lib.fod_error_string.argtypes = [ctypes.c_int]
+        lib.fod_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def call(name: str, fn: str, *args) -> None:
+    """Launch through entry point `fn` of library `name`; raise on a
+    non-zero launch status (a refused launch never runs, and a later
+    synchronize would not report it)."""
+    lib = library(name)
+    code = getattr(lib, fn)(*args)
+    if code != 0:
+        msg = lib.fod_error_string(code).decode()
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {code}: {msg}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name}: operands must share one CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")

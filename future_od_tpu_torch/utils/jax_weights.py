@@ -1,0 +1,173 @@
+"""Weight bridge: the JAX package's flagship variables -> this port's state_dict.
+
+Input: `{"params": ..., "frozen": ...}` as nested dicts of numpy arrays (what
+`jax.tree.map(np.asarray, variables)` gives for `build_flagship(args)`).
+Output: a state_dict keyed by the reference PyTorch checkpoint's names, which
+are this port's parameter names — the exact inverse of
+future_od_tpu/utils/checkpoint_convert.py::convert_reference_checkpoint.
+Layout changes:
+- flax kernel (in, out) -> Linear weight (out, in);
+- conv kernel HWIO -> OIHW;
+- LayerNorm `scale` -> `weight`;
+- separate q/k/v projections -> packed `in_proj_weight` / `in_proj_bias`;
+- frozen BN statistics -> the FrozenBatchNorm2d buffers.
+A reference `.pth.tar`'s `net` state_dict loads into the port directly with
+`load_state_dict`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from future_od_tpu_torch.utils.device import DeviceLike, resolve_device
+
+Tree = Mapping[str, Any]
+BN_KEYS = ("weight", "bias", "running_mean", "running_var")
+
+
+def _linear(sd: Dict[str, np.ndarray], prefix: str, p: Tree) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _layernorm(sd, prefix, p: Tree) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["scale"])
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _mlp(sd, prefix, p: Tree) -> None:
+    for name, layer in p.items():  # layer{i}
+        _linear(sd, f"{prefix}.layers.{int(name[len('layer'):])}", layer)
+
+
+def _feedforward(sd, prefix, p: Tree) -> None:
+    _linear(sd, f"{prefix}.0", p["fc1"])
+    _linear(sd, f"{prefix}.3", p["fc2"])
+
+
+def _conv(sd, prefix, kernel) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(kernel).transpose(3, 2, 0, 1)
+
+
+def _bn(sd, prefix, frozen: Tree) -> None:
+    for key in BN_KEYS:
+        sd[f"{prefix}.{key}"] = np.asarray(frozen[key])
+
+
+def _head_attention(sd, prefix, p: Tree) -> None:
+    """SlotToSlot / SlotToImage / Egodeep attention: the caller-side
+    projections as they are, `out_proj` under the reference's `fun.`."""
+    for name, sub in p.items():
+        if name == "out_proj":
+            _linear(sd, f"{prefix}.fun.out_proj", sub)
+        elif name in ("norm1", "norm2"):
+            _layernorm(sd, f"{prefix}.{name}", sub)
+        elif name == "mlp":
+            _feedforward(sd, f"{prefix}.mlp", sub)
+        else:
+            _linear(sd, f"{prefix}.{name}", sub)
+
+
+def _encoder_attention(sd, prefix, p: Tree) -> None:
+    attn = p["attn"]
+    qkv = [attn[k] for k in ("q_proj", "k_proj", "v_proj")]
+    sd[f"{prefix}.attn.in_proj_weight"] = np.concatenate(
+        [np.asarray(x["kernel"]).T for x in qkv], axis=0
+    )
+    sd[f"{prefix}.attn.in_proj_bias"] = np.concatenate([np.asarray(x["bias"]) for x in qkv])
+    _linear(sd, f"{prefix}.attn.out_proj", attn["out_proj"])
+    _layernorm(sd, f"{prefix}.norm1", p["norm1"])
+    _layernorm(sd, f"{prefix}.norm2", p["norm2"])
+    _feedforward(sd, f"{prefix}.mlp", p["mlp"])
+
+
+def _resnet_body(sd, prefix, params: Tree, frozen: Tree) -> None:
+    if np.shape(params["conv1"]["kernel"]) != (7, 7, 3, 64):
+        raise ValueError("only the 7x7 stem is bridged (space_to_depth=False)")
+    _conv(sd, f"{prefix}.conv1", params["conv1"]["kernel"])
+    _bn(sd, f"{prefix}.bn1", frozen["bn1"])
+    for name, block in params.items():
+        if not name.startswith("layer"):
+            continue
+        stage, idx = name[len("layer"):].split("_block")
+        out = f"{prefix}.layer{stage}.{idx}"
+        for i in (1, 2, 3):
+            _conv(sd, f"{out}.conv{i}", block[f"conv{i}"]["kernel"])
+            _bn(sd, f"{out}.bn{i}", frozen[name][f"bn{i}"])
+        if "downsample_conv" in block:
+            _conv(sd, f"{out}.downsample.0", block["downsample_conv"]["kernel"])
+            _bn(sd, f"{out}.downsample.1", frozen[name]["downsample_bn"])
+
+
+def _encoder_layer(sd, prefix, p: Tree) -> None:
+    _encoder_attention(sd, f"{prefix}.self_attn", p["self_attn"])
+    if "egodeep_attend" in p:
+        _head_attention(sd, f"{prefix}.egodeep_attend", p["egodeep_attend"])
+        _layernorm(sd, f"{prefix}.norm_eda", p["norm_eda"])
+
+
+def _decoder_layer(sd, prefix, p: Tree) -> None:
+    _head_attention(sd, f"{prefix}.self_attend", p["self_attend"])
+    _layernorm(sd, f"{prefix}.norm_sa", p["norm_sa"])
+    _feedforward(sd, f"{prefix}.feedforward", p["feedforward"])
+    _layernorm(sd, f"{prefix}.norm_out", p["norm_out"])
+    j = 0
+    while f"image_attend{j}" in p:
+        _head_attention(sd, f"{prefix}.image_attend.{j}", p[f"image_attend{j}"])
+        _layernorm(sd, f"{prefix}.norm_ia.{j}", p[f"norm_ia{j}"])
+        j += 1
+    if "egodeep_attend" in p:
+        _head_attention(sd, f"{prefix}.egodeep_attend", p["egodeep_attend"])
+        _layernorm(sd, f"{prefix}.norm_eda", p["norm_eda"])
+
+
+def flagship_state_arrays(variables: Tree) -> Dict[str, np.ndarray]:
+    """The port's state_dict for the JAX flagship's variables, as numpy
+    arrays (the layout work; `jax_to_state_dict` makes tensors of it)."""
+    core_p = variables["params"]["core"]
+    core_f = variables["frozen"]["core"]
+    sd: Dict[str, np.ndarray] = {}
+
+    sep, sep_p = "_model.separate_encoder", core_p["separate_encoder"]
+    _resnet_body(sd, f"{sep}.backbone.body", sep_p["backbone"]["body"],
+                 core_f["separate_encoder"]["backbone"]["body"])
+    _conv(sd, f"{sep}.backbone.input_proj", sep_p["backbone"]["input_proj"]["kernel"])
+    sd[f"{sep}.backbone.input_proj.bias"] = np.asarray(sep_p["backbone"]["input_proj"]["bias"])
+    _linear(sd, f"{sep}.imu_layers.0", sep_p["imu_layers"]["fc1"])
+    _linear(sd, f"{sep}.imu_layers.2", sep_p["imu_layers"]["fc2"])
+    for name, layer in sep_p.get("transformer", {}).items():
+        _encoder_layer(sd, f"{sep}.transformer.layers.{int(name[len('layer'):])}", layer)
+
+    det, det_p = "_model.detector", core_p["detector"]
+    _linear(sd, f"{det}.class_embed", det_p["class_embed"])
+    _mlp(sd, f"{det}.bbox_embed", det_p["bbox_embed"])
+    sd[f"{det}.query_embed.weight"] = np.asarray(det_p["query_embed"]["embedding"])
+    dec, dec_p = f"{det}.decoder", det_p["decoder"]
+    _mlp(sd, f"{dec}.query_scale", dec_p["query_scale"])
+    _mlp(sd, f"{dec}.ref_point_head", dec_p["ref_point_head"])
+    _layernorm(sd, f"{dec}.norm", dec_p["norm"])
+    for name, layer in dec_p.items():
+        if name.startswith("layer"):
+            _decoder_layer(sd, f"{dec}.layers.{int(name[len('layer'):])}", layer)
+    return sd
+
+
+def jax_to_state_dict(variables: Tree, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for the JAX flagship's variables, as tensors on
+    `device` (default CUDA; raises without a card)."""
+    device = resolve_device(device)
+    return {
+        k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+        for k, v in flagship_state_arrays(variables).items()
+    }
+
+
+def load_jax_variables(model: torch.nn.Module, variables: Tree) -> torch.nn.Module:
+    """Load the JAX flagship's variables into a port flagship (strict: every
+    parameter and buffer must be matched) on the model's own device."""
+    device = next(model.parameters()).device
+    model.load_state_dict(jax_to_state_dict(variables, device=device), strict=True)
+    return model

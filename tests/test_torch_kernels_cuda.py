@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA device (the kernels are CUDA C++ with no CPU
+mode) and skips without one. This file imports only torch, numpy and the
+port, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
+
+(`--noconftest`: tests/conftest.py configures JAX.) The first test builds the
+kernels with nvcc.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from future_od_tpu_torch.models.build import build_flagship
+from future_od_tpu_torch.models.resnet import space_to_depth, stem_weights_to_space_to_depth
+from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+from future_od_tpu_torch.ops import _kernels
+from future_od_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from future_od_tpu_torch.ops.fused_resnet import (
+    bottleneck_plain,
+    fused_bottleneck,
+    fused_stem,
+    stem_plain,
+)
+from future_od_tpu_torch.train.step import make_inference_fn
+
+pytestmark = pytest.mark.cuda
+
+# Elementwise: |out - plain| <= RTOL * |plain| + ATOL * max |plain|. f32:
+# reassociated sums. bf16: the plain versions compute in f32 from the same
+# bf16 values and round where the kernels round, so both sides round f32
+# values once (one bf16 ulp, 2^-7 relative, apart), plus 1e-3 of the output's
+# scale for a fused bottleneck intermediate rounded to the other side of a
+# bf16 boundary.
+RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0**-7}
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ with no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def np_rng():
+    return np.random.default_rng(0)
+
+
+def on(device, dtype, *arrays):
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype) for a in arrays]
+
+
+def assert_close(out, ref, dtype):
+    assert out.dtype == ref.dtype == dtype
+    out, ref = out.float(), ref.float()
+    tol = RTOL[dtype] * ref.abs() + ATOL[dtype] * ref.abs().max()
+    diff = (out - ref).abs()
+    assert bool((diff <= tol).all()), (diff.max().item(), ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,Nq,Nk,d,dv",
+    [(4, 8, 1400, 1400, 32, 32), (1, 2, 70, 130, 64, 32), (1, 1, 17, 65, 32, 32)],
+)
+def test_flash_attention(cuda, np_rng, dtype, B, H, Nq, Nk, d, dv):
+    q, k, v = on(cuda, dtype, np_rng.normal(size=(B, H, Nq, d)),
+                 np_rng.normal(size=(B, H, Nk, d)), np_rng.normal(size=(B, H, Nk, dv)))
+    before = _kernels.launch_counts["flash_attention"]
+    out = flash_attention(q, k, v, 1.0 / math.sqrt(d))
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == (B, H, Nq, dv)
+    assert_close(out, reference_attention(q, k, v, 1.0 / math.sqrt(d)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,W,cin,cmid,cout,downsample",
+    [(2, 12, 20, 64, 64, 256, True), (1, 9, 11, 256, 64, 256, False),
+     (1, 16, 16, 512, 128, 512, False)],
+)
+def test_fused_bottleneck(cuda, np_rng, dtype, B, H, W, cin, cmid, cout, downsample):
+    (x,) = on(cuda, dtype, np.abs(np_rng.normal(size=(B, H, W, cin))))
+    shapes = dict(w1=(cin, cmid), b1=(cmid,), w2=(3, 3, cmid, cmid), b2=(cmid,),
+                  w3=(cmid, cout), b3=(cout,))
+    if downsample:
+        shapes.update(wd=(cin, cout), bd=(cout,))
+    w = {
+        k: on(cuda, torch.float32 if k.startswith("b") else dtype,
+              np_rng.normal(size=s) * math.sqrt(1.0 / s[0]))[0]
+        for k, s in shapes.items()
+    }
+    before = _kernels.launch_counts["fused_bottleneck"]
+    out = fused_bottleneck(x, **w)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fused_bottleneck"] == before + 1
+    assert_close(out, bottleneck_plain(x, **w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W", [(2, 64, 96), (1, 40, 72)])
+def test_fused_stem(cuda, np_rng, dtype, B, H, W):
+    x = torch.from_numpy(np_rng.normal(size=(B, H, W, 3)).astype(np.float32))
+    w7 = torch.from_numpy((np_rng.normal(size=(7, 7, 3, 64)) * 0.1).astype(np.float32))
+    (bias,) = on(cuda, torch.float32, np_rng.normal(size=(64,)) * 0.1)
+    xs = space_to_depth(x).to(cuda, dtype)
+    w4 = stem_weights_to_space_to_depth(w7).to(cuda, dtype)
+    before = _kernels.launch_counts["fused_stem"]
+    out = fused_stem(xs, w4, bias)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fused_stem"] == before + 1
+    assert_close(out, stem_plain(xs, w4, bias), dtype)
+
+
+def test_small_flagship_kernels_vs_plain(cuda, np_rng, monkeypatch):
+    """A narrow flagship at 64x96 with every kernel gate open (flash lowered
+    to this size's 6 tokens) equals the same model with every gate shut."""
+    args = SpatioTemporalDETRArgs(
+        num_classes=4, hidden_dim=64, enc_nheads=2, nheads=2, enc_layers=2, dec_layers=2,
+        dim_feedforward=96, num_queries=8, dropout=0.0,
+    )
+    model = build_flagship(args, device=cuda)
+    # the init's zero bbox-delta layer would make boxes independent of the image
+    last, gen = model._model.detector.bbox_embed.layers[-1], torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in (last.weight, last.bias, model._model.detector.class_embed.bias):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    infer = make_inference_fn(model, device=cuda)
+    batch = {"video": np_rng.normal(size=(2, 3, 64, 96, 3)).astype(np.float32)}
+    for key, width in {"translation": 3, "acceleration": 3, "rotation": 4,
+                       "rotation_rate": 3, "speed": 1}.items():
+        batch[key] = np_rng.normal(size=(2, 3, width)).astype(np.float32)
+    monkeypatch.setenv("FUTURE_OD_DISABLE_FLASH", "1")
+    plain = infer(batch)
+    monkeypatch.delenv("FUTURE_OD_DISABLE_FLASH")
+    for name, value in {"FUTURE_OD_FLASH_MIN_KEYS": "1", "FUTURE_OD_FLASH_MIN_QUERIES": "1",
+                        "FUTURE_OD_FUSED_RESNET": "1", "FUTURE_OD_FUSED_STEM": "1"}.items():
+        monkeypatch.setenv(name, value)
+    _kernels.reset_launch_counts()
+    fused = infer(batch)
+    torch.cuda.synchronize()
+    # D=64 over 2 heads: head dim 32 (encoder) and 64/32 (conditional heads)
+    assert _kernels.launch_counts == {
+        "flash_attention": 2 + 2 * 2, "fused_bottleneck": 6, "fused_stem": 1,
+    }
+    for key, tol in (("class_scores", 1e-4), ("boxes", 1e-2)):  # boxes in pixels
+        assert (fused[key] - plain[key]).abs().max().item() <= tol
