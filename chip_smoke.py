@@ -22,6 +22,29 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    output, the decoder's output, the scores and the boxes equal to an
    all-plain forward's (every kernel gate off) within the stated tolerances
    in f32; then bf16 forwards, timed.
+1b. the training flash kernels K4-K6 (and K7, the dropout mask inside them)
+   against their plain versions at the stage-1 training shapes (448x800:
+   350 tokens, batch 4; the encoder's self-attention and the decoder's image
+   cross-attention), f32 and bf16, dropout 0 and 0.1: out, lse, dq, dk and
+   dv within the stated tolerance, the device mask equal to the plain one bit
+   for bit, and the plain version with another seed failing the check (a
+   negative control). Then, at logits of about 1e6 (as the random-init
+   backbone feeds the encoder), K5 and K6 given K4's lse keep p <= 1: dv
+   equal to an f64 reference, dq and dk at rounding level. Times as in
+   phase 1; the library figure is F.scaled_dot_product_attention's forward
+   (K4) and backward (K5 + K6).
+5. the flagship's train step at full width (phase 2's model with
+   freeze_stem, the auction matcher and 128 cost slots) on 4 clips x 3
+   frames at 448x800 with 256 target slots filled as bench_train.py fills
+   them, f32 with TF32 off: (a) at dropout 0 the loss and every parameter's
+   gradient with FUTURE_OD_TRAIN_FLASH=1 equal those of plain autograd
+   attention within the stated tolerances, with the matcher's indices solved
+   once and injected into both, and K4-K6 launch 18 times each per step;
+   (b) five `make_train_step` steps at dropout 0.1 with the gate on (the
+   main path of this phase, counted), then five with it off: losses finite,
+   matcher rounds below 1000, the frozen stem+layer1 bit-identical, every
+   trainable tensor moved; step times, peak memory, forward stage times and
+   one profiled step.
 4. a `kernels` JSON line, then the device JSON line, last.
 
 Phases 2 and 3 also say where a request's time goes: the device time of the
@@ -37,6 +60,7 @@ repo.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -54,6 +78,7 @@ PEAK_BYTES = 3.35e12
 GATES = (
     "FUTURE_OD_DISABLE_FLASH", "FUTURE_OD_FLASH_MIN_KEYS", "FUTURE_OD_FLASH_MIN_QUERIES",
     "FUTURE_OD_FUSED_RESNET", "FUTURE_OD_FUSED_STEM", "FUTURE_OD_FUSE_STAGES",
+    "FUTURE_OD_TRAIN_FLASH",
 )
 BATCH, FRAMES, HEIGHT, WIDTH = 2, 3, 896, 1600
 REQUESTS = 3
@@ -73,6 +98,32 @@ KERNEL_ATOL = {"float32": 2e-5, "bfloat16": 1e-3}
 # 10x the gap measured on an H100 (1.05e-4, 1.04e-6, 9.5e-7, 9.8e-4 px).
 ENCODER_RTOL, DECODER_RTOL, SCORE_TOL, BOX_TOL_PX = 1e-3, 1e-5, 1e-5, 1e-2
 TOP_KERNELS = 8
+# Training: bench_train.py's stage-1 config (448x800, 3 frames, 256 target
+# slots) at batch 4 instead of 32.
+TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS, TRAIN_STEPS = 4, 448, 800, 256, 5
+TRAIN_TOKENS = (TRAIN_HEIGHT // 32) * (TRAIN_WIDTH // 32)
+# (label, BH, Nq, Nk, d, dv, calls per train step): 6 encoder self-attentions
+# over 4 clips x 2 past frames x 8 heads; 6 decoder layers x 2 image memories
+# of conditional cross-attention, 128 queries, concat heads.
+TRAIN_ATTENTIONS = (
+    ("encoder", TRAIN_BATCH * 2 * 8, TRAIN_TOKENS, TRAIN_TOKENS, 32, 32, 6),
+    ("decoder", TRAIN_BATCH * 8, 128, TRAIN_TOKENS, 64, 32, 12),
+)
+TRAIN_KERNELS = ("flash_train_fwd", "flash_train_dq", "flash_train_dkv")
+# Train step, flash kernels vs plain autograd attention, f32 (TF32 off), at
+# dropout 0 with injected matcher indices: |loss difference| over |loss|,
+# and per parameter max |grad difference| over max(max |grad|, GRAD_FLOOR x
+# the largest max |grad| of the model). The floor covers gradients that are
+# zero but for rounding: key biases (softmax is shift-invariant), the
+# egodeep attention's q/k (one key), decoder layer 0's self-attention q/k
+# (its values are all equal). Per part of the model, 10x the gap measured on
+# an H100: 7.08e-3 in the separate encoder (the random-init backbone
+# amplifies f32 rounding in its gradients; the phase also reports how far
+# each f32 path lies from the plain path in f64) and 6.72e-5 in the
+# detector. The losses were equal to the bit; LOSS_RTOL allows a few f32
+# ulps.
+LOSS_RTOL, GRAD_FLOOR = 1e-6, 1e-4
+GRAD_RTOL = {"separate_encoder": 0.071, "detector": 6.7e-4}
 
 
 def log(phase: str, **fields) -> None:
@@ -229,6 +280,133 @@ def kernel_phase(torch, dev):
     return records
 
 
+def train_kernel_phase(torch, dev):
+    """Phase 1b on device `dev`: K4-K7 against their plain versions at the
+    stage-1 training shapes. Returns per-kernel records."""
+    import torch.nn.functional as F
+
+    from future_od_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    seed = 12345
+    records = {name: [] for name in TRAIN_KERNELS}
+    for label, BH, Nq, Nk, d, dv, per_step in TRAIN_ATTENTIONS:
+        q32, k32, do32 = (torch.randn(*s, generator=gen, device=dev)
+                          for s in ((BH, Nq, d), (BH, Nk, d), (BH, Nq, dv)))
+        v32 = torch.randn(BH, Nk, dv, generator=gen, device=dev)
+        nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+        scale = 1.0 / math.sqrt(d)
+        costs = fa.train_attention_cost(BH, Nq, Nk, d, dv, 4)
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, do = (t.to(getattr(torch, dtype)) for t in (q32, k32, v32, do32))
+            for rate in (0.0, 0.1):
+                args = (seed, scale, rate, nq_pad, nk_pad)
+                tag = f"{label} {dtype} rate {rate}"
+                ref_out, ref_lse = fa.flash_train_fwd_plain(q, k, v, *args)
+                delta = (do.float() * ref_out.float()).sum(-1)
+                out, lse = fa.flash_train_fwd(q, k, v, *args)
+                errs = {"flash_train_fwd": max(
+                    check_close(f"flash_train_fwd out {tag}", out, ref_out, dtype)[0],
+                    check_close(f"flash_train_fwd lse {tag}", lse, ref_lse, "float32")[0])}
+                dq = fa.flash_dq(q, k, v, do, ref_lse, delta, *args)
+                errs["flash_train_dq"] = check_close(
+                    f"flash_train_dq {tag}", dq, fa.flash_dq_plain(q, k, v, do, ref_lse, delta, *args),
+                    dtype)[0]
+                dk, dvv = fa.flash_dkv(q, k, v, do, ref_lse, delta, *args)
+                ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
+                errs["flash_train_dkv"] = max(
+                    check_close(f"flash_train_dkv dk {tag}", dk, ref_dk, dtype)[0],
+                    check_close(f"flash_train_dkv dv {tag}", dvv, ref_dv, dtype)[0])
+                if rate > 0:
+                    mask = fa.dropout_keep_mask_kernel(seed, BH, Nq, Nk, rate, nq_pad, nk_pad, dev)
+                    plain_mask = fa.dropout_keep_mask(
+                        seed, torch.arange(BH, device=dev)[:, None, None],
+                        torch.arange(Nq, device=dev)[None, :, None],
+                        torch.arange(Nk, device=dev)[None, None, :], rate, nq_pad, nk_pad)
+                    if not torch.equal(mask, plain_mask):
+                        raise AssertionError(f"dropout mask {tag}: device hash differs from plain")
+                    wrong, _ = fa.flash_train_fwd_plain(q, k, v, seed + 1, *args[1:])
+                    try:
+                        check_close(f"negative control {tag}", out, wrong, dtype)
+                    except AssertionError:
+                        pass
+                    else:
+                        raise AssertionError(f"negative control {tag}: seed+1 passed the check")
+                timed = dtype == "float32" and rate > 0  # the main path's setting
+                for name in TRAIN_KERNELS:
+                    rec = dict(attention=label, shape=[BH, Nq, Nk, d, dv], dtype=dtype, rate=rate,
+                               per_step=per_step, max_abs_err=errs[name],
+                               ops=costs[name][0], bytes=costs[name][1])
+                    if timed:
+                        kernel, plain = {
+                            "flash_train_fwd": (lambda: fa.flash_train_fwd(q, k, v, *args),
+                                                lambda: fa.flash_train_fwd_plain(q, k, v, *args)),
+                            "flash_train_dq": (
+                                lambda: fa.flash_dq(q, k, v, do, ref_lse, delta, *args),
+                                lambda: fa.flash_dq_plain(q, k, v, do, ref_lse, delta, *args)),
+                            "flash_train_dkv": (
+                                lambda: fa.flash_dkv(q, k, v, do, ref_lse, delta, *args),
+                                lambda: fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)),
+                        }[name]
+                        rec.update(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain))
+                    records[name].append(rec)
+                    log("kernel", kernel=name, **rec)
+        log("kernel-saturated-logits", attention=label,
+            **saturated_logits_check(torch, fa, gen, BH, Nq, Nk, d, dv, seed))
+        # library yardstick at rate 0, f32: SDPA forward; its backward
+        # (forward + backward minus forward) for K5 and K6 together
+        qs, ks, vs = (t[None].clone().requires_grad_(True) for t in (q32, k32, v32))
+        dos = do32[None]
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale)  # noqa: E731
+        fwd_ms = time_ms(torch, sdpa)
+        fwd_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), dos))
+        for name, lib in (("flash_train_fwd", fwd_ms), ("flash_train_dq", fwd_bwd_ms - fwd_ms),
+                          ("flash_train_dkv", fwd_bwd_ms - fwd_ms)):
+            for rec in records[name]:
+                if rec["attention"] == label:
+                    rec["library_ms"] = lib
+    torch.cuda.synchronize()
+    return records
+
+
+def saturated_logits_check(torch, fa, gen, BH, Nq, Nk, d, dv, seed, rate=0.1):
+    """K4-K6 in f32 at logits of about 1e6, where every row's softmax is
+    one-hot. K5 and K6 get K4's lse, as on the main path, and must recompute
+    p <= 1: dv within 2e-5 of its scale of the f64 reference, and dq, dk
+    below 1e-6 of the most a gradient with p <= 1 could be (a recompute
+    rounded otherwise put p far above 1 here, and a train step's gradient
+    went non-finite). Returns the measured ratios."""
+    dev = gen.device
+    q, k = (torch.randn(BH, n, d, generator=gen, device=dev) * 1e3 for n in (Nq, Nk))
+    v = torch.randn(BH, Nk, dv, generator=gen, device=dev)
+    do = torch.randn(BH, Nq, dv, generator=gen, device=dev)
+    nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+    args = (seed, 1.0 / math.sqrt(d), rate, nq_pad, nk_pad)
+    logits = args[1] * q.double() @ k.double().transpose(1, 2)
+    top2 = logits.topk(2, dim=-1).values
+    # only rows whose top two logits lie 30 apart: their softmax is one-hot
+    # in f32 as in f64 (an f32 lse of 1e6 cannot hold log(1 + e^-gap) < 2^-5)
+    do = do * (top2[..., 0] - top2[..., 1] > 30.0)[..., None]
+    out, lse = fa.flash_train_fwd(q, k, v, *args)
+    delta = (do * out).sum(-1)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, *args)
+    dk, dvv = fa.flash_dkv(q, k, v, do, lse, delta, *args)
+    if not all(bool(torch.isfinite(t).all()) for t in (out, lse, dq, dk, dvv)):
+        raise AssertionError(f"saturated logits {BH, Nq, Nk, d, dv}: non-finite output")
+    p = torch.softmax(logits, -1) * fa._mask(seed, BH, Nq, Nk, rate, nq_pad, nk_pad, dev).double()
+    ref_dv = p.transpose(1, 2) @ do.double()
+    dlogit_max = 2 * fa.dropout_keep_scale(rate) * dv * do.abs().max() * v.abs().max()
+    ratios = {
+        "logit_absmax": logits.abs().max().item(),
+        "dv_err": ((dvv.double() - ref_dv).abs().max() / ref_dv.abs().max()).item(),
+        "dq_over_bound": (dq.abs().max() / (Nk * args[1] * k.abs().max() * dlogit_max)).item(),
+        "dk_over_bound": (dk.abs().max() / (Nq * args[1] * q.abs().max() * dlogit_max)).item(),
+    }
+    if ratios["dv_err"] > 2e-5 or max(ratios["dq_over_bound"], ratios["dk_over_bound"]) > 1e-6:
+        raise AssertionError(f"saturated logits {BH, Nq, Nk, d, dv}: p above 1? {ratios}")
+    return ratios
+
+
 def make_batch(seed: int):
     rng = np.random.default_rng(seed)
     batch = {
@@ -238,6 +416,250 @@ def make_batch(seed: int):
     for key, width in widths.items():
         batch[key] = rng.standard_normal((BATCH, FRAMES, width), dtype=np.float32)
     return batch
+
+
+def make_train_batch(seed: int):
+    """bench_train.py's fabricated stage-1 batch at TRAIN_BATCH clips:
+    centers scattered over the image, log-normal sizes, 10% of the 256
+    slots active, 8 classes."""
+    B, L, H, W, N = TRAIN_BATCH, FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS
+    rng = np.random.default_rng(seed)
+    cxy = rng.uniform(0.05, 0.95, size=(B, N, 2)).astype(np.float32) * [W, H]
+    wh = np.exp(rng.normal(4.0, 0.6, size=(B, N, 2))).astype(np.float32)
+    wh = np.clip(wh, 8, [W * 0.5, H * 0.5])
+    data = {
+        "video": rng.normal(size=(B, L, H, W, 3)).astype(np.float32),
+        "boxes": np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32),
+        "classes": rng.integers(0, 8, size=(B, N)),
+        "active": (rng.uniform(size=(B, N)) < 0.1).astype(np.int64),
+        "annotated_frame_idx": np.full((B,), L - 1),
+    }
+    for key, width in [("translation", 3), ("acceleration", 3), ("rotation", 4),
+                       ("rotation_rate", 3), ("speed", 1)]:
+        data[key] = rng.normal(size=(B, L, width)).astype(np.float32)
+    return data
+
+
+def launched(kernels) -> dict:
+    """The launch counters that are not 0."""
+    return {name: n for name, n in kernels.launch_counts.items() if n}
+
+
+def set_dropout(torch, model, rate: float) -> None:
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = rate
+
+
+def injected_indices(torch, model, cfg, batch):
+    """The matcher's (levels, B, N) indices on a forward with every kernel
+    gate off, to inject into both sides of phase 5a."""
+    from future_od_tpu_torch.models.set_criterion import matching_costs_all
+    from future_od_tpu_torch.models.st_detr import normalize_outputs
+    from future_od_tpu_torch.ops.matching import SOLVERS
+    from future_od_tpu_torch.ops.misc import video_hw
+    from future_od_tpu_torch.ops.target_utils import to_detr_targets
+
+    with torch.no_grad():
+        annotated, _, _ = normalize_outputs(model(batch))
+        H, W = video_hw(batch["video"])
+        targets = to_detr_targets(H, W, batch["active"], batch["boxes"], batch["classes"])
+        costs, active = matching_costs_all(annotated, targets, cfg)
+        idx = SOLVERS[cfg.matcher](costs, active)
+    return idx.reshape(-1, TRAIN_BATCH, idx.shape[-1])
+
+
+def gradient_gaps(grads, ref):
+    """Per parameter, max |grads - ref| over max(max |ref|, GRAD_FLOOR x the
+    largest max |ref| of the model)."""
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in ref.values())
+    return {name: (grads[name].double() - g.double()).abs().max().item()
+            / max(g.abs().max().item(), floor) for name, g in ref.items()}
+
+
+def worst_per_group(gaps):
+    """{part of the model: (largest gap, its parameter)}."""
+    worst = {}
+    for name, gap in gaps.items():
+        group = name.split(".")[1]
+        worst[group] = max(worst.get(group, (0.0, "")), (gap, name))
+    return worst
+
+
+def loss_and_grads(torch, model, cfg, batch, pred_idx_all):
+    from future_od_tpu_torch.train.step import forward_and_loss
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = forward_and_loss(model, cfg, batch, pred_idx_all)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def step_stages(torch, model, cfg, optimizer, data):
+    """Host ms of each stage of one train step, `make_train_step`'s body
+    replayed with a synchronize after each stage: the batch copy, forward,
+    matching (costs and the solver), criterion, backward, clip + AdamW, and
+    post-processing + mAP intermediaries. The syncs add a little."""
+    from future_od_tpu_torch.models.set_criterion import matching_costs_all
+    from future_od_tpu_torch.models.st_detr import compute_loss, normalize_outputs
+    from future_od_tpu_torch.ops.matching import SOLVERS
+    from future_od_tpu_torch.ops.misc import video_hw
+    from future_od_tpu_torch.ops.target_utils import to_detr_targets
+    from future_od_tpu_torch.train.optimizer import clip_by_global_norm_, global_norm
+    from future_od_tpu_torch.train.step import postproc_and_map, to_device_batch
+
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    mark("start")
+    batch = to_device_batch(data, torch.device("cuda"))
+    mark("copy")
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    annotated, pred_logits, pred_boxes = normalize_outputs(model(batch))
+    mark("forward")
+    H, W = video_hw(batch["video"])
+    targets = to_detr_targets(H, W, batch["active"], batch["boxes"], batch["classes"])
+    costs, active = matching_costs_all(annotated, targets, cfg)
+    idx, rounds = SOLVERS[cfg.matcher](costs, active, return_rounds=True)
+    mark("matching")
+    loss, _ = compute_loss(annotated, batch, cfg, idx.reshape(-1, TRAIN_BATCH, idx.shape[-1]))
+    mark("criterion")
+    loss.backward()
+    mark("backward")
+    grads = [p.grad for p in optimizer.parameters() if p.grad is not None]
+    norm = global_norm(grads)
+    if bool(torch.isfinite(norm)):
+        clip_by_global_norm_(grads, norm, optimizer.max_norm)
+        optimizer.step()
+    mark("optimizer")
+    postproc_and_map(pred_logits.detach(), pred_boxes.detach(), batch)
+    mark("postproc_map")
+    ms = {name: 1e3 * (t - marks[i][1]) for i, (name, t) in enumerate(marks[1:])}
+    return {**ms, "total": 1e3 * (marks[-1][1] - marks[0][1]),
+            "matcher_rounds": int(rounds.max())}
+
+
+def train_phase(torch):
+    """Phase 5. Returns (records, main-path launch counts)."""
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.train.optimizer import build_optimizer
+    from future_od_tpu_torch.train.step import make_train_step, to_device_batch
+
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4,
+                                  freeze_stem=True, matcher="auction", cost_slots=128)
+    cfg = args.criterion_config()
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    taps = Taps(torch, model)
+    data = make_train_batch(seed=0)
+    batch = to_device_batch(data, torch.device("cuda"))
+
+    # (a) dropout 0, one set of weights, injected indices: kernels vs plain
+    model.train()
+    set_dropout(torch, model, 0.0)
+    set_gates()
+    pred_idx_all = injected_indices(torch, model, cfg, batch)
+    loss_off, grads_off = loss_and_grads(torch, model, cfg, batch, pred_idx_all)
+    set_gates(FUTURE_OD_TRAIN_FLASH="1")
+    _kernels.reset_launch_counts()
+    loss_on, grads_on = loss_and_grads(torch, model, cfg, batch, pred_idx_all)
+    torch.cuda.synchronize()
+    step_counts = {name: _kernels.launch_counts[name] for name in TRAIN_KERNELS}
+    want = sum(per_step for *_, per_step in TRAIN_ATTENTIONS)
+    if step_counts != {name: want for name in TRAIN_KERNELS}:
+        raise AssertionError(f"train flash launches per step {step_counts}, want {want} each")
+    if set(grads_on) != set(grads_off):
+        raise AssertionError("gate on and off give gradients for different parameters")
+    loss_gap = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
+    grad_gaps = gradient_gaps(grads_on, grads_off)
+    worst = worst_per_group(grad_gaps)
+    # the f32 noise floor of these gradients: both f32 paths against the
+    # plain path in f64 (gate off: the kernels take f32 and bf16 only)
+    set_gates()
+    model64 = copy.deepcopy(model).double()
+    batch64 = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+               for k, v in batch.items()}
+    _, grads64 = loss_and_grads(torch, model64, cfg, batch64, pred_idx_all)
+    del model64
+    vs_f64 = {path: worst_per_group(gradient_gaps(grads, grads64))
+              for path, grads in (("kernels", grads_on), ("plain", grads_off))}
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    log("5a-train-kernels-vs-plain-autograd", loss_on=loss_on.item(), loss_off=loss_off.item(),
+        loss_rel_gap=loss_gap, max_grad_rel_gap=worst, f32_vs_f64_max_grad_rel_gap=vs_f64,
+        grads=len(grads_off), frozen_params=len(frozen), launches_per_step=step_counts,
+        tolerances={"loss": LOSS_RTOL, "grad": GRAD_RTOL, "grad_floor": GRAD_FLOOR},
+        median_grad_rel_gap=sorted(grad_gaps.values())[len(grad_gaps) // 2])
+    if loss_gap > LOSS_RTOL or any(gap > GRAD_RTOL[g] for g, (gap, _) in worst.items()):
+        raise AssertionError("train step through the kernels differs from plain autograd")
+    if any(n in grads_off for n in frozen) or not frozen:
+        raise AssertionError("the frozen stem+layer1 got gradients (or none is frozen)")
+    del grads_on, grads_off, grads64
+
+    # (b) real steps at dropout 0.1: gate on (the main path), then off
+    set_dropout(torch, model, 0.1)
+    optimizer = build_optimizer(model, args.lr, args.lr_backbone, args.weight_decay,
+                                args.max_norm, args.freeze_stem)
+    step = make_train_step(model, cfg, optimizer)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    main_counts = None
+    live = set()  # parameters that got a nonzero gradient in some step
+    # on (the main path, counted), off, on again: warm-up lands on the first
+    for gate in ("on", "off", "on again"):
+        set_gates(**({} if gate == "off" else {"FUTURE_OD_TRAIN_FLASH": "1"}))
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        seconds, losses, rounds = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss, stats, od_map, output = step(data, 0)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            rounds.append(stats["matcher_rounds"].item())
+            if not math.isfinite(losses[-1]) or stats["nonfinite_skipped"].item() != 0:
+                raise AssertionError(f"gate {gate}: non-finite train step, loss {losses[-1]}")
+            if rounds[-1] >= 1000:
+                raise AssertionError(f"gate {gate}: auction hit its round cap")
+            live.update(n for n, p in model.named_parameters()
+                        if p.grad is not None and bool(p.grad.any()))
+        counts = launched(_kernels)
+        if gate == "on":
+            main_counts = counts
+        runs[gate] = dict(
+            step_ms=[1e3 * x for x in seconds], losses=losses, matcher_rounds=rounds,
+            launches=counts,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            forward_stage_ms=taps.stage_ms(),
+            profile=profile_request(torch, lambda b: step(b, 0), data),
+            step_stage_ms=step_stages(torch, model, cfg, optimizer, data),
+        )
+        log(f"5b-train-steps-gate-{gate.replace(' ', '-')}", **runs[gate])
+    if main_counts != {name: want * TRAIN_STEPS for name in TRAIN_KERNELS}:
+        raise AssertionError(f"gate-on steps launched {main_counts}")
+    if runs["off"]["launches"]:
+        raise AssertionError(f"gate-off steps launched {runs['off']['launches']}")
+    # a trainable tensor whose gradient is exactly zero at every step (the
+    # egodeep attention's q projections: softmax over one key) may stay put
+    for name, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        if name in frozen and not same:
+            raise AssertionError(f"{name}: frozen parameter moved")
+        if name in live and same:
+            raise AssertionError(f"{name}: trainable parameter with a gradient did not move")
+    check = {"trainable_with_gradient": len(live), "frozen": len(frozen),
+             "parameters": len(before), "od_map_shapes": [list(t.shape) for t in od_map],
+             "boxes_shape": list(output["boxes"].shape)}
+    return runs, main_counts, check
 
 
 def forward(torch, infer, batch, requests: int):
@@ -379,6 +801,9 @@ def main() -> int:
     t0 = time.perf_counter()
     records = kernel_phase(torch, torch.device("cuda"))
     log("1-kernels-vs-plain", ok=True, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train_records = train_kernel_phase(torch, torch.device("cuda"))
+    log("1b-train-kernels-vs-plain", ok=True, seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128)
@@ -390,10 +815,9 @@ def main() -> int:
     set_gates()
     _kernels.reset_launch_counts()
     out, seconds = forward(torch, infer, batch, REQUESTS)
-    main_counts = dict(_kernels.launch_counts)
+    main_counts = launched(_kernels)
     check_output(torch, out, args.num_queries, args.num_classes)
-    if main_counts["flash_attention"] != 6 * REQUESTS or main_counts["fused_bottleneck"] \
-            or main_counts["fused_stem"]:
+    if main_counts != {"flash_attention": 6 * REQUESTS}:
         raise AssertionError(f"default gates: launches {main_counts}, want flash 6/forward")
     log("2-flagship-f32", ok=True, requests=REQUESTS, request_s=seconds,
         launches=main_counts, stage_ms=taps.stage_ms(),
@@ -404,7 +828,7 @@ def main() -> int:
     set_gates(FUTURE_OD_FUSED_RESNET="1", FUTURE_OD_FUSED_STEM="1")
     _kernels.reset_launch_counts()
     fused, fused_s = forward(torch, infer, batch, REQUESTS)
-    fused_counts = dict(_kernels.launch_counts)
+    fused_counts = launched(_kernels)
     want = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1}
     if fused_counts != {k: n * REQUESTS for k, n in want.items()}:
         raise AssertionError(f"fused gates: launches {fused_counts}, want {want} per forward")
@@ -436,7 +860,7 @@ def main() -> int:
     set_gates(FUTURE_OD_FUSED_RESNET="1", FUTURE_OD_FUSED_STEM="1")
     _kernels.reset_launch_counts()
     bf16, bf16_s = forward(torch, infer, batch, REQUESTS)
-    bf16_counts = dict(_kernels.launch_counts)
+    bf16_counts = launched(_kernels)
     if bf16_counts != {k: n * REQUESTS for k, n in want.items()}:
         raise AssertionError(f"bf16 fused: launches {bf16_counts}")
     check_output(torch, bf16, args.num_queries, args.num_classes)
@@ -446,6 +870,12 @@ def main() -> int:
         box_diff_vs_f32_px=(bf16["boxes"].float() - fused["boxes"]).abs().max().item(),
         profile=profile_request(torch, infer, batch), seconds=time.perf_counter() - t0)
     torch.cuda.synchronize()
+    del model, infer, taps
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train_runs, train_counts, train_check = train_phase(torch)
+    log("5-train-step", ok=True, **train_check, seconds=time.perf_counter() - t0)
 
     sources = {
         "flash_attention": "future_od_tpu/ops/flash_attention.py:68",
@@ -475,6 +905,33 @@ def main() -> int:
                    f"x {HEIGHT}x{WIDTH}",
             "calls": recs,
         })
+    train_sources = {
+        "flash_train_fwd": "future_od_tpu/ops/flash_attention.py:260",
+        "flash_train_dq": "future_od_tpu/ops/flash_attention.py:309",
+        "flash_train_dkv": "future_od_tpu/ops/flash_attention.py:350",
+    }
+    for name, recs in train_records.items():
+        timed = [r for r in recs if "ms" in r]  # f32, rate 0.1, one per attention
+        f32 = [r for r in recs if r["dtype"] == "float32"]
+        per_step = lambda key: sum(r[key] * r["per_step"] for r in timed)  # noqa: E731
+        b_ms, b_by = bound(per_step("ops"), per_step("bytes"), "float32")
+        row = {
+            "name": name, "route": "cuda",
+            "source": "future_od_tpu_torch/csrc/flash_attention_train.cu",
+            "replaces": train_sources[name], "launches": train_counts[name],
+            "max_abs_err": max(r["max_abs_err"] for r in f32),
+            "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": per_step("library_ms"),
+            "per": f"one f32 train step's launches at dropout 0.1, {TRAIN_BATCH} clips x "
+                   f"{FRAMES - 1} past frames x {TRAIN_HEIGHT}x{TRAIN_WIDTH}",
+            "calls": recs,
+        }
+        if name == "flash_train_fwd":
+            row["includes"] = ("the dropout mask future_od_tpu_torch/csrc/dropout_mask.cuh "
+                               "(replaces future_od_tpu/ops/flash_attention.py:242)")
+        else:
+            row["library_covers"] = "SDPA backward, dq and dk/dv together"
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,8 @@ def build_flagship(
 ) -> SpatioTemporalDETR:
     """The paper's spatiotemporal + IMU model: ResNet + IMU MLP + per-frame
     egodeep encoder, no joint encoder, recurrent decoder over 2 frames with
-    first_layer_special "always". Weights are drawn on the CPU from
+    first_layer_special "always"; `aux_loss` and the stem+layer1
+    `freeze_stem` cut as `args` sets them. Weights are drawn on the CPU from
     `generator` (default: seed 0), then moved to `device` (default CUDA;
     raises without a card). Returned in eval mode."""
     device = resolve_device(device)
@@ -58,6 +59,7 @@ def build_flagship(
             dropout=args.dropout,
             backbone_name=args.backbone,
             backbone_dilation=args.dilation,
+            freeze_stem=args.freeze_stem,
         ),
         detector=CDetrDetectorSpatioTemporal(
             num_classes=args.num_classes,
@@ -68,6 +70,7 @@ def build_flagship(
             ff_dim=args.dim_feedforward,
             dropout=args.dropout,
             num_images=2,
+            aux_loss=args.aux_loss,
         ),
     )
     model = SpatioTemporalDETR(core, args)

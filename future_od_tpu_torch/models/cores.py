@@ -39,9 +39,10 @@ class SeparateEncoder(nn.Module):
 
     def __init__(self, hidden_dim: int, imu_dim: int, enc_layers: int = 6,
                  enc_heads: int = 8, ff_dim: int = 2048, dropout: float = 0.1,
-                 backbone_name: str = "resnet50", backbone_dilation: bool = False):
+                 backbone_name: str = "resnet50", backbone_dilation: bool = False,
+                 freeze_stem: bool = False):
         super().__init__()
-        self.backbone = CDetrBackbone(hidden_dim, backbone_name, backbone_dilation)
+        self.backbone = CDetrBackbone(hidden_dim, backbone_name, backbone_dilation, freeze_stem)
         self.imu_layers = ImuEncoder(imu_dim, hidden_dim)
         self.transformer = None
         if enc_layers > 0:
@@ -67,14 +68,16 @@ class CDetrDetectorSpatioTemporal(nn.Module):
     """Recurrent conditional-DETR detection head in "attend one at a time"
     mode, first layer special "always": learned query embeddings, one decoder
     pass per frame over the current frame plus up to num_images-1 remembered
-    ones; only the final frame's prediction (final decoder level) is
-    returned."""
+    ones; only the final frame's prediction is returned: its final decoder
+    level, and in training with `aux_loss` also the earlier levels
+    (`aux_outputs`)."""
 
     def __init__(self, num_classes: int, hidden_dim: int, num_queries: int = 300,
                  dec_layers: int = 6, dec_heads: int = 8, ff_dim: int = 2048,
-                 dropout: float = 0.1, num_images: int = 1):
+                 dropout: float = 0.1, num_images: int = 1, aux_loss: bool = False):
         super().__init__()
         self.num_queries, self.hidden_dim, self.num_images = num_queries, hidden_dim, num_images
+        self.aux_loss = aux_loss
         self.decoder = TransformerDecoder(
             dec_layers, hidden_dim, dec_heads, ff_dim, dropout, num_images=num_images
         )
@@ -116,13 +119,24 @@ class CDetrDetectorSpatioTemporal(nn.Module):
             query_content, query_pos, image_content_lst, image_pos_lst,
             first_layer_special=True, egodeep=egodeep,
         )  # hs (num_layers, B, M, D); reference (B, M, 2)
-        # the heads on the final level only: inference reads no aux level
-        final = hs[-1]
-        deltas = self.bbox_embed(final)
-        coords = torch.cat(
-            [deltas[..., :2] + inverse_sigmoid(reference), deltas[..., 2:]], dim=-1
-        )
-        return {"pred_logits": self.class_embed(final), "pred_boxes": torch.sigmoid(coords)}
+        ref_logit = inverse_sigmoid(reference)
+
+        def heads(levels):  # (..., B, M, D) -> logits, sigmoid boxes
+            deltas = self.bbox_embed(levels)
+            coords = torch.cat([deltas[..., :2] + ref_logit, deltas[..., 2:]], dim=-1)
+            return self.class_embed(levels), torch.sigmoid(coords)
+
+        # the final level alone in inference; the aux levels in one batched
+        # call in training
+        final_class, final_coord = heads(hs[-1])
+        out = {"pred_logits": final_class, "pred_boxes": final_coord}
+        if self.aux_loss and self.training:
+            aux_class, aux_coord = heads(hs[:-1])
+            out["aux_outputs"] = [
+                {"pred_logits": aux_class[i], "pred_boxes": aux_coord[i]}
+                for i in range(hs.shape[0] - 1)
+            ]
+        return out
 
 
 class FuturePredCore(nn.Module):

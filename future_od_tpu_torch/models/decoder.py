@@ -78,7 +78,9 @@ class TransformerDecoder(nn.Module):
                  dropout: float = 0.1, num_images: int = 1):
         super().__init__()
         self.dim = dim
-        self.query_scale = MLP(dim, dim, dim, 2)
+        # only layers after the special first one scale the query sine: a
+        # one-layer decoder has no query_scale, as in the JAX package
+        self.query_scale = MLP(dim, dim, dim, 2) if num_layers > 1 else None
         self.ref_point_head = MLP(dim, dim, 2, 2)
         self.norm = layer_norm(dim)
         self.layers = nn.ModuleList(
@@ -102,6 +104,8 @@ class TransformerDecoder(nn.Module):
         for layer_id, layer in enumerate(self.layers):
             if layer_id == 0 and first_layer_special:
                 query_sine = unscaled_query_sine
+            elif self.query_scale is None:
+                raise ValueError("a one-layer decoder runs only with first_layer_special")
             else:
                 query_sine = self.query_scale(x) * unscaled_query_sine
             x = layer(

@@ -5,10 +5,12 @@ PyTorch checkpoint that future_od_tpu/utils/checkpoint_convert.py reads
 (`query_content`, `fun.out_proj`, `attn.in_proj_weight`, `mlp.0`, ...), so
 `utils/jax_weights.py` is that converter's exact inverse.
 
-`attend_heads` keeps the JAX dispatch: the flash kernel runs only in
-inference, with >= FUTURE_OD_FLASH_MIN_KEYS (1024) keys and
->= FUTURE_OD_FLASH_MIN_QUERIES (256) queries, unless FUTURE_OD_DISABLE_FLASH=1.
-Every other attention is a plain einsum + softmax.
+`attend_heads` keeps the JAX dispatch, unless FUTURE_OD_DISABLE_FLASH=1:
+in inference the flash kernel runs with >= FUTURE_OD_FLASH_MIN_KEYS (1024)
+keys and >= FUTURE_OD_FLASH_MIN_QUERIES (256) queries; in training the
+differentiable flash kernels with in-kernel dropout run when
+FUTURE_OD_TRAIN_FLASH=1 (default off) and there are >= TRAIN_FLASH_MIN_KEYS
+(256) keys. Every other attention is a plain einsum + softmax (+ dropout).
 
 Flax's LayerNorm epsilon is 1e-6 (torch's default is 1e-5): every LayerNorm
 here passes LN_EPS.
@@ -23,9 +25,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from future_od_tpu_torch.ops.flash_attention import flash_attention
+from future_od_tpu_torch.ops.flash_attention import flash_attention, flash_attention_train
 
 LN_EPS = 1e-6
+TRAIN_FLASH_MIN_KEYS = 256
+# the JAX kernels' blocks, which fix the in-kernel dropout mask's geometry
+TRAIN_FLASH_BLOCKS = (256, 512)
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
@@ -55,6 +60,23 @@ def flash_gate(num_queries: int, num_keys: int) -> bool:
     return num_keys >= min_keys and num_queries >= min_q
 
 
+def train_flash_gate(num_keys: int) -> bool:
+    """Whether training attention goes to the differentiable flash kernels
+    (the JAX gate, layers.py:171-176, without its not-on-CPU check)."""
+    if os.environ.get("FUTURE_OD_DISABLE_FLASH", "0") == "1":
+        return False
+    return os.environ.get("FUTURE_OD_TRAIN_FLASH", "0") == "1" and num_keys >= TRAIN_FLASH_MIN_KEYS
+
+
+def draw_dropout_seed(rate: float) -> int:
+    """The per-call int32 seed of the in-kernel dropout, in [0, 2^31 - 1) as
+    the JAX package draws it, from torch's default CPU generator (which the
+    train step seeds), so drawing it costs no device sync. 0 at rate 0."""
+    if rate <= 0.0:
+        return 0
+    return int(torch.randint(0, 2**31 - 1, ()))
+
+
 def attention_core(scale: float, logits, v, dropout: nn.Dropout) -> torch.Tensor:
     """softmax(logits * scale) @ v with attention-weight dropout.
     logits (B, H, Nq, Nk); v (B, Nk, H, dv) -> (B, Nq, H*dv)."""
@@ -66,10 +88,16 @@ def attention_core(scale: float, logits, v, dropout: nn.Dropout) -> torch.Tensor
 def attend_heads(qh, kh, vh, scale: float, dropout: nn.Dropout) -> torch.Tensor:
     """Multi-head attention core: qh, kh (B, N, H, d); vh (B, Nk, H, dv)
     -> (B, Nq, H*dv)."""
-    if not dropout.training and flash_gate(qh.shape[1], kh.shape[1]):
-        out = flash_attention(
-            qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2), scale
-        )  # (B, H, Nq, dv)
+    q, k, v = qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2)  # (B, H, N, d)
+    out = None
+    if dropout.training:
+        if train_flash_gate(kh.shape[1]):
+            rate = float(dropout.p)
+            out = flash_attention_train(q, k, v, draw_dropout_seed(rate), scale, rate,
+                                        *TRAIN_FLASH_BLOCKS)
+    elif flash_gate(qh.shape[1], kh.shape[1]):
+        out = flash_attention(q, k, v, scale)
+    if out is not None:  # (B, H, Nq, dv)
         out = out.transpose(1, 2)
         return out.reshape(*out.shape[:2], -1)
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)

@@ -16,9 +16,15 @@ forward, inference only):
   fused stem kernel over space-to-depth input when H % 32 == 0 and
   W % 4 == 0.
 Both fold frozen BN into the conv weights and biases as the JAX package does.
+
+`freeze_stem` is the stem+layer1 freeze cut: those parameters never train
+(requires_grad False) and, in training, the stem and layer1 run under
+torch.no_grad(), so no graph is built below the cut — the counterpart of the
+JAX package's stop_gradient after layer1.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -168,8 +174,10 @@ class ResNet(nn.Module):
     """ResNet trunk returning the layer4 feature map (stride 32, or 16 with
     dilation)."""
 
-    def __init__(self, name_id: str = "resnet50", dilation: bool = False):
+    def __init__(self, name_id: str = "resnet50", dilation: bool = False,
+                 freeze_stem: bool = False):
         super().__init__()
+        self.freeze_stem = freeze_stem
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         inplanes, planes = 64, 64
@@ -193,6 +201,9 @@ class ResNet(nn.Module):
             setattr(self, f"layer{stage_idx + 1}", nn.Sequential(*blocks))
             planes *= 2
         self.num_stages = len(STAGE_BLOCKS[name_id])
+        if freeze_stem:
+            for module in (self.conv1, self.layer1):
+                module.requires_grad_(False)
 
     def use_fused_stem(self, x) -> bool:
         return (
@@ -207,15 +218,19 @@ class ResNet(nn.Module):
         """x: (B, H, W, 3) float or uint8 -> NCHW (channels_last) features."""
         dtype = self.conv1.weight.dtype
         x = device_normalize(x, dtype) if x.dtype == torch.uint8 else x.to(dtype)
-        if self.use_fused_stem(x):
-            scale, shift = self.bn1.scale_shift()
-            w4 = stem_weights_to_space_to_depth(_hwio(self.conv1)) * scale
-            x = fused_stem(space_to_depth(x), w4, shift).permute(0, 3, 1, 2)
-        else:
-            x = x.permute(0, 3, 1, 2)
-            x = F.relu(self.bn1(self.conv1(x)))
-            x = F.max_pool2d(x, 3, 2, 1)
-        for i in range(self.num_stages):
+        below_cut = (torch.no_grad() if self.freeze_stem and self.training
+                     else contextlib.nullcontext())
+        with below_cut:
+            if self.use_fused_stem(x):
+                scale, shift = self.bn1.scale_shift()
+                w4 = stem_weights_to_space_to_depth(_hwio(self.conv1)) * scale
+                x = fused_stem(space_to_depth(x), w4, shift).permute(0, 3, 1, 2)
+            else:
+                x = x.permute(0, 3, 1, 2)
+                x = F.relu(self.bn1(self.conv1(x)))
+                x = F.max_pool2d(x, 3, 2, 1)
+            x = self.layer1(x)
+        for i in range(1, self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
         return x
 
@@ -225,9 +240,9 @@ class CDetrBackbone(nn.Module):
     (B, H/32, W/32, hidden_dim)."""
 
     def __init__(self, hidden_dim: int = 256, name_id: str = "resnet50",
-                 dilation: bool = False):
+                 dilation: bool = False, freeze_stem: bool = False):
         super().__init__()
-        self.body = ResNet(name_id, dilation)
+        self.body = ResNet(name_id, dilation, freeze_stem)
         self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
 
     def forward(self, x):

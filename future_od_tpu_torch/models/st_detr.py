@@ -1,19 +1,21 @@
-"""SpatioTemporalDETR task wrapper and post-processing (port of the inference
-half of future_od_tpu/models/st_detr.py).
+"""SpatioTemporalDETR task wrapper, loss and post-processing (port of
+future_od_tpu/models/st_detr.py).
 
 `SpatioTemporalDETRArgs` is this package's own copy of the JAX dataclass
-(the port imports nothing of the JAX package); the criterion settings stay
-as fields so one args object describes a model for both packages.
+(the port imports nothing of the JAX package), so one args object describes
+a model for both packages.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from future_od_tpu_torch.models.set_criterion import CriterionConfig, set_criterion, weighted_total
 from future_od_tpu_torch.ops.misc import video_hw
+from future_od_tpu_torch.ops.target_utils import to_detr_targets
 
 IMU_KEYS = ("translation", "acceleration", "rotation", "rotation_rate")
 # per-frame widths of the IMU keys (rotation is a quaternion)
@@ -74,11 +76,34 @@ class SpatioTemporalDETRArgs:
     int8_static: bool = False
     freeze_stem: bool = True
 
+    def criterion_config(self, matching_mode: str = "per level") -> CriterionConfig:
+        return CriterionConfig(
+            num_classes=self.num_classes,
+            cls_loss_coef=self.cls_loss_coef,
+            bbox_loss_coef=self.bbox_loss_coef,
+            giou_loss_coef=self.giou_loss_coef,
+            focal_alpha=self.focal_alpha,
+            set_cost_class=self.set_cost_class,
+            set_cost_bbox=self.set_cost_bbox,
+            set_cost_giou=self.set_cost_giou,
+            matching_mode=matching_mode,
+            matcher=self.matcher,
+            aux_loss=self.aux_loss,
+            masks=self.masks,
+            cost_slots=self.cost_slots,
+        )
+
     def imu_keys(self) -> Tuple[str, ...]:
         return IMU_KEYS + (() if self.no_imu_speed else ("speed",))
 
     def imu_dim(self) -> int:
         return sum(IMU_WIDTHS[k] for k in self.imu_keys())
+
+
+STAT_IDFS = (
+    "labels", "box_l1", "box_giou", "cardinality", "class_error",
+    "matcher_rounds", "matcher_unmatched", "matcher_dropped",
+)
 
 
 class SpatioTemporalDETR(nn.Module):
@@ -99,10 +124,34 @@ class SpatioTemporalDETR(nn.Module):
 
 def normalize_outputs(outputs):
     """(annotated-frame output, pred_logits, pred_boxes) from a core's
-    single-frame output dict; logits/boxes gain the L_out axis at dim 1."""
+    single-frame output dict (its `aux_outputs`, in training, pass through
+    in the first); logits/boxes gain the L_out axis at dim 1."""
     if outputs["pred_logits"].ndim != 3:
         raise ValueError(f"cannot interpret output of shape {tuple(outputs['pred_logits'].shape)}")
     return outputs, outputs["pred_logits"][:, None], outputs["pred_boxes"][:, None]
+
+
+def compute_loss(annotated_output: Dict[str, Any], data: Dict[str, torch.Tensor],
+                 criterion_cfg: CriterionConfig, pred_idx_all: Optional[torch.Tensor] = None,
+                 num_boxes: Optional[torch.Tensor] = None):
+    """(weighted total loss, the stats named by STAT_IDFS) of an annotated
+    output against the batch's dense xyxy pixel targets."""
+    H, W = video_hw(data["video"])
+    targets = to_detr_targets(H, W, data["active"], data["boxes"], data["classes"])
+    losses = set_criterion(annotated_output, targets, criterion_cfg, pred_idx_all, num_boxes)
+    num_aux = len(annotated_output.get("aux_outputs", []))
+    total, weights = weighted_total(losses, criterion_cfg, num_aux)
+    stats = {
+        "labels": losses["loss_ce"] * weights["loss_ce"],
+        "box_l1": losses["loss_bbox"] * weights["loss_bbox"],
+        "box_giou": losses["loss_giou"] * weights["loss_giou"],
+        "cardinality": losses["cardinality_error"],
+        "class_error": losses["class_error"],
+        "matcher_rounds": losses["matcher_rounds"],
+        "matcher_unmatched": losses["matcher_unmatched"],
+        "matcher_dropped": losses["matcher_dropped"],
+    }
+    return total, stats
 
 
 def post_process(pred_logits, pred_boxes, data):

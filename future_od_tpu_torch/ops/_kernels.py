@@ -10,9 +10,9 @@ so an edited source is rebuilt and an unchanged one is reused.
 
 Each entry point returns the `cudaGetLastError()` code of its launch; the
 wrappers raise when it is not 0. `launch_counts` holds one counter per
-kernel, which each wrapper increments where it launches its kernel and
-nowhere else; `chip_smoke.py` reads them to show the main path went through
-the kernels.
+kernel entry point (its name without the `fod_` prefix), which its wrapper
+increments where it launches the kernel and nowhere else; `chip_smoke.py`
+reads them to show the main path went through the kernels.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine has no nvcc.
@@ -38,7 +38,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+# dropout: seed, threshold, keep value, nq_pad, nk_pad
+_DROPOUT = [_U, _U, _F, _I, _I]
 # kernel library (csrc/<name>.cu) -> {C entry point: argtypes}
 KERNELS: Dict[str, Dict[str, list]] = {
     # q, k, v, out, bh, nq, nk, d, dv, scale*log2(e), dtype, stream
@@ -53,11 +55,23 @@ KERNELS: Dict[str, Dict[str, list]] = {
     "fused_stem": {
         "fod_fused_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "flash_attention_train": {
+        # q, k, v, out, lse, bh, nq, nk, d, dv, scale, dropout..., dtype, stream
+        "fod_flash_train_fwd": [_P] * 5 + [_I] * 5 + [_F] + _DROPOUT + [_I, _P],
+        # q, k, v, do, lse, delta, dq, bh, nq, nk, d, dv, scale, dropout..., dtype, stream
+        "fod_flash_train_dq": [_P] * 7 + [_I] * 5 + [_F] + _DROPOUT + [_I, _P],
+        # q, k, v, do, lse, delta, dk, dv, bh, nq, nk, d, dv, scale, dropout..., dtype, stream
+        "fod_flash_train_dkv": [_P] * 8 + [_I] * 5 + [_F] + _DROPOUT + [_I, _P],
+        # out, bh, nq, nk, dropout..., stream
+        "fod_dropout_keep_mask": [_P, _I, _I, _I] + _DROPOUT + [_P],
+    },
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+launch_counts: Dict[str, int] = {
+    fn[len("fod_"):]: 0 for entries in KERNELS.values() for fn in entries
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

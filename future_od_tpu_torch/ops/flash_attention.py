@@ -1,18 +1,32 @@
-"""Flash attention (port of future_od_tpu/ops/flash_attention.py::flash_attention).
+"""Flash attention (port of future_od_tpu/ops/flash_attention.py).
 
-`flash_attention` launches the CUDA kernel `csrc/flash_attention.cu`, which
-replaces the Pallas TPU kernel `_flash_kernel`: softmax(q·kᵀ·scale)·v with an
-online softmax over key tiles, f32 dots and sums, output in q's dtype. The
+Inference: `flash_attention` launches the CUDA kernel `csrc/flash_attention.cu`,
+which replaces the Pallas TPU kernel `_flash_kernel`: softmax(q·kᵀ·scale)·v with
+an online softmax over key tiles, f32 dots and sums, output in q's dtype. The
 (Nq, Nk) logits never reach device memory. On a CPU tensor it runs
 `reference_attention`, the plain version of the same function.
+
+Training: `flash_attention_train` is the differentiable counterpart with
+attention-weight dropout inside the kernels (`FlashAttentionTrain`). Its
+forward, dq and dk/dv kernels (`csrc/flash_attention_train.cu`) replace the
+Pallas kernels `_flash_fwd_kernel`, `_flash_dq_kernel` and `_flash_dkv_kernel`;
+all three regenerate one dropout mask, a hash of each element's flat index
+in the JAX kernels' padded (nq_pad, nk_pad) geometry and of the seed
+(`dropout_keep_mask`, `csrc/dropout_mask.cuh`). The geometry comes from the
+JAX block sizes (`train_shapes`), never from the CUDA tiles, so the mask is
+the TPU kernels' bit for bit. On CPU tensors the plain versions run.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from future_od_tpu_torch.ops import _kernels
 
 NAME = "flash_attention"
+TRAIN_NAME = "flash_attention_train"
 LOG2E = 1.4426950408889634
 # (head dim of q/k, head dim of v) the kernel is instantiated for: the
 # encoder's 32/32 and the conditional cross-attention's concat heads 64/32
@@ -62,3 +76,260 @@ def attention_cost(B: int, H: int, Nq: int, Nk: int, d: int, dv: int, itemsize: 
     ops = 2 * B * H * Nq * Nk * (d + dv)
     nbytes = itemsize * B * H * (Nq * d + Nk * d + Nk * dv + Nq * dv)
     return ops, nbytes
+
+
+# ---------------------------------------------------------------------------
+# Differentiable flash attention with in-kernel dropout (training path)
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def dropout_threshold(rate: float) -> int:
+    """The uint32 threshold below which a hash drops its element."""
+    return min(int(rate * (2**32)), 2**32 - 1)
+
+
+def dropout_keep_scale(rate: float) -> float:
+    """The value of a kept element of the mask: 1 / (1 - rate) in f32."""
+    return float(np.float32(1.0) / np.float32(1.0 - rate))
+
+
+def dropout_keep_mask(seed: int, bh, row, col, rate: float, nq_pad: int, nk_pad: int):
+    """Plain K7: the dropout mask value (0 or 1/(1-rate), f32) of the
+    elements at batch·head `bh`, query `row`, key `col` (integer tensors that
+    broadcast together). A PCG-style hash of the flat index
+    (bh·nq_pad + row)·nk_pad + col XOR seed·0x9E3779B9 in wrapping uint32,
+    emulated in int64 masked to 32 bits (torch has no uint32 arithmetic)."""
+    bh, row, col = (torch.as_tensor(x, dtype=torch.int64) for x in (bh, row, col))
+    idx = ((bh * nq_pad + row) * nk_pad + col) & _MASK32
+    x = idx ^ ((int(seed) * 0x9E3779B9) & _MASK32)
+    x = (x * 747796405 + 2891336453) & _MASK32
+    w = (((x >> ((x >> 28) + 4)) ^ x) * 277803737) & _MASK32
+    bits = (w >> 22) ^ w
+    keep = bits >= dropout_threshold(rate)
+    return keep.to(torch.float32) * dropout_keep_scale(rate)
+
+
+def train_shapes(Nq: int, Nk: int, block_q: int, block_k: int) -> Tuple[int, int]:
+    """(nq_pad, nk_pad): the padded geometry of the JAX kernels
+    (`_train_shapes`), which fixes the dropout mask's flat index."""
+    block_q = min(block_q, max(8, Nq))
+    block_k = min(block_k, max(128, Nk))
+    return -(-Nq // block_q) * block_q, -(-Nk // block_k) * block_k
+
+
+def _mask(seed, BH, Nq, Nk, rate, nq_pad, nk_pad, device):
+    bh = torch.arange(BH, device=device)[:, None, None]
+    row = torch.arange(Nq, device=device)[None, :, None]
+    col = torch.arange(Nk, device=device)[None, None, :]
+    return dropout_keep_mask(seed, bh, row, col, rate, nq_pad, nk_pad)
+
+
+def flash_train_fwd_plain(q, k, v, seed: int, scale: float, rate: float, nq_pad: int,
+                          nk_pad: int):
+    """Plain K4. q (BH, Nq, d), k (BH, Nk, d), v (BH, Nk, dv) -> (out
+    (BH, Nq, dv) in q's dtype, lse (BH, Nq) f32). The row sum is taken before
+    the mask multiplies p, as in the TPU kernel."""
+    logits = torch.matmul(q.float() * scale, k.float().transpose(1, 2))
+    row_max = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - row_max)
+    row_sum = p.sum(dim=-1, keepdim=True)
+    if rate > 0.0:
+        p = p * _mask(seed, *logits.shape, rate, nq_pad, nk_pad, q.device)
+    out = torch.matmul(p, v.float()) / row_sum
+    return out.to(q.dtype), (row_max + torch.log(row_sum))[..., 0]
+
+
+def _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad):
+    """p = exp(scale·q·kᵀ - lse), the mask, and dlogits = p ⊙ (dS ⊙ mask - δ)
+    with dS = do·vᵀ, in f32 — what K5 and K6 recompute per tile. The logits
+    are rounded as the forward rounds them ((q·scale)·kᵀ), so p <= 1 however
+    large they are."""
+    logits = torch.matmul(q.float() * scale, k.float().transpose(1, 2))
+    p = torch.exp(logits - lse[..., None])
+    ds = torch.matmul(do.float(), v.float().transpose(1, 2))
+    mask = None
+    if rate > 0.0:
+        mask = _mask(seed, *logits.shape, rate, nq_pad, nk_pad, q.device)
+        ds = ds * mask
+    return p, mask, p * (ds - delta[..., None])
+
+
+def flash_dq_plain(q, k, v, do, lse, delta, seed: int, scale: float, rate: float,
+                   nq_pad: int, nk_pad: int):
+    """Plain K5: dq = Σ p ⊙ (dS ⊙ mask - δ) · k · scale, in q's dtype."""
+    _, _, dlogits = _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
+    return (torch.matmul(dlogits, k.float()) * scale).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta, seed: int, scale: float, rate: float,
+                    nq_pad: int, nk_pad: int):
+    """Plain K6: dk = (p ⊙ (dS ⊙ mask - δ))ᵀ · q · scale and
+    dv = (p ⊙ mask)ᵀ · do, in k's and v's dtypes."""
+    p, mask, dlogits = _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
+    p_dropped = p if mask is None else p * mask
+    dv = torch.matmul(p_dropped.transpose(1, 2), do.float())
+    dk = torch.matmul(dlogits.transpose(1, 2), q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _train_kernel_args(q, k, v, name):
+    BH, Nq, d = q.shape
+    Nk, dv = k.shape[1], v.shape[2]
+    if k.shape != (BH, Nk, d) or v.shape[:2] != (BH, Nk):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if (d, dv) not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dims (d={d}, dv={dv}) not in {SUPPORTED_HEAD_DIMS}")
+    if q.dtype not in _kernels.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; want one of f32, bf16")
+    return BH, Nq, Nk, d, dv
+
+
+def _dropout_args(seed: int, rate: float, nq_pad: int, nk_pad: int):
+    """(seed, threshold, keep value, nq_pad, nk_pad) as the kernels take
+    them. The threshold is computed here, exactly as the TPU kernel computes
+    it; threshold 0 (rate 0) keeps every element at value 1."""
+    if rate <= 0.0:
+        return 0, 0, 1.0, nq_pad, nk_pad
+    return int(seed) & _MASK32, dropout_threshold(rate), dropout_keep_scale(rate), nq_pad, nk_pad
+
+
+def flash_train_fwd(q, k, v, seed: int, scale: float, rate: float, nq_pad: int, nk_pad: int):
+    """K4: (out, lse) of `flash_train_fwd_plain`; CPU tensors run the plain
+    version, CUDA tensors launch `fod_flash_train_fwd` or raise."""
+    if q.device.type == "cpu":
+        return flash_train_fwd_plain(q, k, v, seed, scale, rate, nq_pad, nk_pad)
+    BH, Nq, Nk, d, dv = _train_kernel_args(q, k, v, "flash_train_fwd")
+    _kernels.check_cuda_operands("flash_train_fwd", q, k, v)
+    out = torch.empty((BH, Nq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
+    _kernels.call(
+        TRAIN_NAME, "fod_flash_train_fwd",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        BH, Nq, Nk, d, dv, float(scale), *_dropout_args(seed, rate, nq_pad, nk_pad),
+        _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
+    )
+    _kernels.launch_counts["flash_train_fwd"] += 1
+    return out, lse
+
+
+def flash_dq(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_pad: int,
+             nk_pad: int):
+    """K5: dq of `flash_dq_plain`; CPU tensors run the plain version, CUDA
+    tensors launch `fod_flash_train_dq` or raise."""
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
+    BH, Nq, Nk, d, dv = _train_kernel_args(q, k, v, "flash_dq")
+    _check_grad_operands("flash_dq", q, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _kernels.call(
+        TRAIN_NAME, "fod_flash_train_dq",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(),
+        BH, Nq, Nk, d, dv, float(scale), *_dropout_args(seed, rate, nq_pad, nk_pad),
+        _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
+    )
+    _kernels.launch_counts["flash_train_dq"] += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_pad: int,
+              nk_pad: int):
+    """K6: (dk, dv) of `flash_dkv_plain`; CPU tensors run the plain version,
+    CUDA tensors launch `fod_flash_train_dkv` or raise."""
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
+    BH, Nq, Nk, d, dv = _train_kernel_args(q, k, v, "flash_dkv")
+    _check_grad_operands("flash_dkv", q, v, do, lse, delta)
+    dk, dvv = torch.empty_like(k), torch.empty_like(v)
+    _kernels.call(
+        TRAIN_NAME, "fod_flash_train_dkv",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+        BH, Nq, Nk, d, dv, float(scale), *_dropout_args(seed, rate, nq_pad, nk_pad),
+        _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
+    )
+    _kernels.launch_counts["flash_train_dkv"] += 1
+    return dk, dvv
+
+
+def _check_grad_operands(name, q, v, do, lse, delta):
+    BH, Nq, _ = q.shape
+    if do.shape != (BH, Nq, v.shape[2]) or do.dtype != q.dtype:
+        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype}")
+    if lse.shape != (BH, Nq) or delta.shape != (BH, Nq) \
+            or lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(f"{name}: lse/delta must be (BH, Nq) f32")
+    _kernels.check_cuda_operands(name, q, v, do, lse, delta)
+
+
+def dropout_keep_mask_kernel(seed: int, BH: int, Nq: int, Nk: int, rate: float, nq_pad: int,
+                             nk_pad: int, device) -> torch.Tensor:
+    """K7 on the card: the (BH, Nq, Nk) f32 keep-mask the kernels apply,
+    written by `fod_dropout_keep_mask` (only to hold the device hash
+    against `dropout_keep_mask` bit for bit)."""
+    out = torch.empty((BH, Nq, Nk), dtype=torch.float32, device=device)
+    _kernels.check_cuda_operands("dropout_keep_mask", out)
+    _kernels.call(
+        TRAIN_NAME, "fod_dropout_keep_mask", out.data_ptr(), BH, Nq, Nk,
+        *_dropout_args(seed, rate, nq_pad, nk_pad), _kernels.stream_of(out),
+    )
+    _kernels.launch_counts["dropout_keep_mask"] += 1
+    return out
+
+
+class FlashAttentionTrain(torch.autograd.Function):
+    """softmax(q·kᵀ·scale) with dropout, times v, and its gradient, through
+    K4 (forward) and K5/K6 (backward); δ = rowsum(do ⊙ out) is plain torch,
+    as in the JAX package. q, k (BH, N, d); v (BH, Nk, dv)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed: int, scale: float, rate: float, nq_pad: int, nk_pad: int):
+        out, lse = flash_train_fwd(q, k, v, seed, scale, rate, nq_pad, nk_pad)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (seed, scale, rate, nq_pad, nk_pad)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * out.float()).sum(dim=-1)
+        dq = flash_dq(q, k, v, do, lse, delta, *ctx.args)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_train(q, k, v, seed: int, scale: float, dropout_rate: float = 0.0,
+                          block_q: int = 256, block_k: int = 512) -> torch.Tensor:
+    """Differentiable fused attention with in-kernel attention-weight
+    dropout. q, k (B, H, N, d); v (B, H, Nk, dv); seed an int in [0, 2^31)
+    (unused at rate 0). block_q/block_k are the JAX kernels' blocks, which
+    set the dropout mask's geometry only. Returns (B, H, Nq, dv)."""
+    B, H, Nq, d = q.shape
+    Nk, dv = k.shape[2], v.shape[3]
+    nq_pad, nk_pad = train_shapes(Nq, Nk, block_q, block_k)
+    out = FlashAttentionTrain.apply(
+        q.reshape(B * H, Nq, d).contiguous(), k.reshape(B * H, Nk, d).contiguous(),
+        v.reshape(B * H, Nk, dv).contiguous(), int(seed), float(scale), float(dropout_rate),
+        nq_pad, nk_pad,
+    )
+    return out.reshape(B, H, Nq, dv)
+
+
+def train_attention_cost(BH: int, Nq: int, Nk: int, d: int, dv: int, itemsize: int):
+    """{kernel: (operations, bytes)} one call of K4, K5 and K6 needs at
+    least: the products each computes (dropout and the exponentials not
+    counted), each input read once and each output written once."""
+    qk, pv = 2 * BH * Nq * Nk * d, 2 * BH * Nq * Nk * dv
+    q_b, k_b = itemsize * BH * Nq * d, itemsize * BH * Nk * d
+    v_b, o_b, row_b = itemsize * BH * Nk * dv, itemsize * BH * Nq * dv, 4 * BH * Nq
+    return {
+        # q·kᵀ, p·v; reads q, k, v; writes out, lse
+        "flash_train_fwd": (qk + pv, q_b + k_b + v_b + o_b + row_b),
+        # q·kᵀ, do·vᵀ, dlogits·k; reads q, k, v, do, lse, δ; writes dq
+        "flash_train_dq": (2 * qk + pv, 2 * q_b + k_b + v_b + o_b + 2 * row_b),
+        # q·kᵀ, do·vᵀ, pᵀ·do, dlogitsᵀ·q; reads q, k, v, do, lse, δ; writes dk, dv
+        "flash_train_dkv": (2 * qk + 2 * pv, q_b + 2 * k_b + 2 * v_b + o_b + 2 * row_b),
+    }

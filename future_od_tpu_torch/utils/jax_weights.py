@@ -13,6 +13,10 @@ Layout changes:
 - frozen BN statistics -> the FrozenBatchNorm2d buffers.
 A reference `.pth.tar`'s `net` state_dict loads into the port directly with
 `load_state_dict`.
+
+`load_jax_train_state` carries a JAX training run over: the weights, and
+optax's AdamW moments and step count into the torch optimizer, through the
+same name map, so the run continues in the port.
 """
 from __future__ import annotations
 
@@ -146,7 +150,8 @@ def flagship_state_arrays(variables: Tree) -> Dict[str, np.ndarray]:
     _mlp(sd, f"{det}.bbox_embed", det_p["bbox_embed"])
     sd[f"{det}.query_embed.weight"] = np.asarray(det_p["query_embed"]["embedding"])
     dec, dec_p = f"{det}.decoder", det_p["decoder"]
-    _mlp(sd, f"{dec}.query_scale", dec_p["query_scale"])
+    if "query_scale" in dec_p:  # absent from a one-layer decoder
+        _mlp(sd, f"{dec}.query_scale", dec_p["query_scale"])
     _mlp(sd, f"{dec}.ref_point_head", dec_p["ref_point_head"])
     _layernorm(sd, f"{dec}.norm", dec_p["norm"])
     for name, layer in dec_p.items():
@@ -171,3 +176,70 @@ def load_jax_variables(model: torch.nn.Module, variables: Tree) -> torch.nn.Modu
     device = next(model.parameters()).device
     model.load_state_dict(jax_to_state_dict(variables, device=device), strict=True)
     return model
+
+
+def _is_array(x) -> bool:
+    return hasattr(x, "shape") and hasattr(x, "dtype")
+
+
+def _adam_states(node):
+    """Every optax ScaleByAdamState (a node with count, mu and nu) inside an
+    opt_state, found by walking its tuples, NamedTuples and dicts."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        yield node
+    elif isinstance(node, dict):
+        for child in node.values():
+            yield from _adam_states(child)
+    elif isinstance(node, (tuple, list)):
+        for child in node:
+            yield from _adam_states(child)
+
+
+def _merge(trees, like):
+    """One params-shaped tree from per-group moment trees, whose leaves are
+    arrays where the group trains the parameter and optax MaskedNodes
+    elsewhere; a parameter no group trains gets zeros."""
+    if isinstance(like, Mapping):
+        return {k: _merge([t[k] for t in trees], v) for k, v in like.items()}
+    for t in trees:
+        if _is_array(t):
+            return np.asarray(t)
+    return np.zeros(np.shape(like), np.float32)
+
+
+def load_jax_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                         variables: Tree, opt_state: Any) -> None:
+    """Load the JAX flagship's variables ({"params", "frozen"}) into `model`
+    and the state of the JAX package's optimizer (`build_optimizer`'s
+    opt_state after some steps) into `optimizer` (the port's
+    `build_optimizer` over that model): per parameter, optax's mu / nu
+    become exp_avg / exp_avg_sq and its count the step; the injected
+    learning rates become the groups' lrs."""
+    load_jax_variables(model, variables)
+    adam = list(_adam_states(opt_state))
+    if not adam:
+        raise ValueError("no AdamW state (count, mu, nu) in opt_state")
+    params = variables["params"]
+    moments = {
+        key: flagship_state_arrays(
+            {"params": _merge([getattr(s, key) for s in adam], params),
+             "frozen": variables["frozen"]}
+        )
+        for key in ("mu", "nu")
+    }
+    step = float(np.asarray(adam[0].count))
+    names = {p: n for n, p in model.named_parameters()}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[p]
+            optimizer.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": torch.from_numpy(np.array(moments["mu"][name], np.float32)).to(p.device),
+                "exp_avg_sq": torch.from_numpy(np.array(moments["nu"][name], np.float32)).to(p.device),
+            }
+    hyper = getattr(opt_state, "hyperparams", None)
+    if hyper:
+        rates = {"main": hyper.get("lr_main"), "backbone": hyper.get("lr_bb")}
+        for group in optimizer.param_groups:
+            if rates.get(group.get("name")) is not None:
+                group["lr"] = float(np.asarray(rates[group["name"]]))

@@ -19,6 +19,7 @@ from future_od_tpu_torch.models.build import build_flagship
 from future_od_tpu_torch.models.resnet import space_to_depth, stem_weights_to_space_to_depth
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
 from future_od_tpu_torch.ops import _kernels
+from future_od_tpu_torch.ops import flash_attention as fa
 from future_od_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from future_od_tpu_torch.ops.fused_resnet import (
     bottleneck_plain,
@@ -121,6 +122,88 @@ def test_fused_stem(cuda, np_rng, dtype, B, H, W):
     assert_close(out, stem_plain(xs, w4, bias), dtype)
 
 
+# The stage-1 training shapes (448x800: 350 tokens) at batch 4: the encoder's
+# self-attention over 4 clips x 2 past frames x 8 heads, and the decoder's
+# image cross-attention with concat heads over 4 clips x 8 heads.
+TRAIN_SHAPES = [(64, 350, 350, 32, 32), (32, 128, 350, 64, 32)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES)
+def test_flash_train_kernels(cuda, np_rng, dtype, rate, BH, Nq, Nk, d, dv):
+    """K4, K5 and K6 against their plain versions on the same inputs (K5 and
+    K6 given the plain forward's lse and delta)."""
+    q, k, v, do = on(cuda, dtype, np_rng.normal(size=(BH, Nq, d)), np_rng.normal(size=(BH, Nk, d)),
+                     np_rng.normal(size=(BH, Nk, dv)), np_rng.normal(size=(BH, Nq, dv)))
+    nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+    args = (777, 1.0 / math.sqrt(d), rate, nq_pad, nk_pad)
+    ref_out, ref_lse = fa.flash_train_fwd_plain(q, k, v, *args)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    before = dict(_kernels.launch_counts)
+    out, lse = fa.flash_train_fwd(q, k, v, *args)
+    dq = fa.flash_dq(q, k, v, do, ref_lse, delta, *args)
+    dk, dv_ = fa.flash_dkv(q, k, v, do, ref_lse, delta, *args)
+    torch.cuda.synchronize()
+    for name in ("flash_train_fwd", "flash_train_dq", "flash_train_dkv"):
+        assert _kernels.launch_counts[name] == before[name] + 1, name
+    assert_close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=2e-5 * ref_lse.abs().max().item())
+    assert_close(dq, fa.flash_dq_plain(q, k, v, do, ref_lse, delta, *args), dtype)
+    ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
+    assert_close(dk, ref_dk, dtype)
+    assert_close(dv_, ref_dv, dtype)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES)
+def test_flash_train_saturated_logits(cuda, np_rng, rate, BH, Nq, Nk, d, dv):
+    """Logits of about 1e6, as a randomly initialised backbone feeds the
+    encoder: every row's softmax is one-hot. K5 and K6, given K4's lse, must
+    recompute p <= 1, so that dv equals the f64 reference and dq, dk stay at
+    rounding level (a recompute rounded otherwise put p far above 1 here)."""
+    q, k, v, do = on(cuda, torch.float32, np_rng.normal(size=(BH, Nq, d)) * 1e3,
+                     np_rng.normal(size=(BH, Nk, d)) * 1e3, np_rng.normal(size=(BH, Nk, dv)),
+                     np_rng.normal(size=(BH, Nq, dv)))
+    nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+    args = (777, 1.0 / math.sqrt(d), rate, nq_pad, nk_pad)
+    logits = args[1] * q.double() @ k.double().transpose(1, 2)
+    top2 = logits.topk(2, dim=-1).values
+    # only rows whose top two logits lie 30 apart: their softmax is one-hot
+    # in f32 as in f64 (an f32 lse of 1e6 cannot hold log(1 + e^-gap) < 2^-5)
+    do = do * (top2[..., 0] - top2[..., 1] > 30.0)[..., None]
+    out, lse = fa.flash_train_fwd(q, k, v, *args)
+    delta = (do * out).sum(-1)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, *args)
+    dk, dv_ = fa.flash_dkv(q, k, v, do, lse, delta, *args)
+    assert all(bool(torch.isfinite(t).all()) for t in (out, lse, dq, dk, dv_))
+    p = torch.softmax(logits, -1)
+    if rate > 0:
+        p = p * fa._mask(777, BH, Nq, Nk, rate, nq_pad, nk_pad, cuda).double()
+    ref_dv = p.transpose(1, 2) @ do.double()
+    torch.testing.assert_close(dv_.double(), ref_dv, rtol=0, atol=2e-5 * ref_dv.abs().max().item())
+    # the most |dlogits| can be with p <= 1, times the largest row of the
+    # other operand and the number of terms summed
+    dlogit_max = 2 * fa.dropout_keep_scale(rate) * dv * do.abs().max() * v.abs().max()
+    for grad, other, terms in ((dq, k, Nk), (dk, q, Nq)):
+        bound = terms * args[1] * other.abs().max() * dlogit_max
+        assert grad.abs().max() <= 1e-6 * bound, (grad.abs().max().item(), bound.item())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES)
+def test_dropout_mask_kernel_bits(cuda, rate, BH, Nq, Nk, d, dv):
+    """K7 on the card equals the plain hash bit for bit."""
+    nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+    for seed in (0, 777, 2**31 - 2):
+        out = fa.dropout_keep_mask_kernel(seed, BH, Nq, Nk, rate, nq_pad, nk_pad, cuda)
+        bh = torch.arange(BH, device=cuda)[:, None, None]
+        row = torch.arange(Nq, device=cuda)[None, :, None]
+        col = torch.arange(Nk, device=cuda)[None, None, :]
+        ref = fa.dropout_keep_mask(seed, bh, row, col, rate, nq_pad, nk_pad)
+        assert torch.equal(out, ref)
+
+
 def test_small_flagship_kernels_vs_plain(cuda, np_rng, monkeypatch):
     """A narrow flagship at 64x96 with every kernel gate open (flash lowered
     to this size's 6 tokens) equals the same model with every gate shut."""
@@ -150,6 +233,7 @@ def test_small_flagship_kernels_vs_plain(cuda, np_rng, monkeypatch):
     torch.cuda.synchronize()
     # D=64 over 2 heads: head dim 32 (encoder) and 64/32 (conditional heads)
     assert _kernels.launch_counts == {
+        **{name: 0 for name in _kernels.launch_counts},
         "flash_attention": 2 + 2 * 2, "fused_bottleneck": 6, "fused_stem": 1,
     }
     for key, tol in (("class_scores", 1e-4), ("boxes", 1e-2)):  # boxes in pixels
