@@ -33,6 +33,16 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    equal to an f64 reference, dq and dk at rounding level. Times as in
    phase 1; the library figure is F.scaled_dot_product_attention's forward
    (K4) and backward (K5 + K6).
+1c. the kernel-study tools (future_od_tpu_torch/tools, the main path of
+   their slice): bench_softmax_floor and bench_fused_bottleneck run whole
+   at their full bf16 shapes with the launch counts reset before and read
+   after (T1, T2 v2 and T2 v3 must each launch); then each of the three
+   kernels against its plain version elementwise at the tools' shapes cut
+   to one image, f32 (TF32 off) and bf16: T1 in all three modes on inputs
+   whose logits are exact in f32, v2 over tile_h 8/16/32 x im2col at
+   layer1 and at tile 8 at block 0, layer2 and layer3, v3 at tile 8 and 16;
+   and each kernel's time at the tools' full bf16 shapes beside its plain
+   version's and, for T1, SDPA's forward.
 5. the flagship's train step at full width (phase 2's model with
    freeze_stem, the auction matcher and 128 cost slots) on 4 clips x 3
    frames at 448x800 with 256 target slots filled as bench_train.py fills
@@ -124,6 +134,22 @@ TRAIN_KERNELS = ("flash_train_fwd", "flash_train_dq", "flash_train_dkv")
 # ulps.
 LOSS_RTOL, GRAD_FLOOR = 1e-6, 1e-4
 GRAD_RTOL = {"separate_encoder": 0.071, "detector": 6.7e-4}
+# Phase 1c: the kernel-study tools' kernels, with the TPU tools' file:line.
+TOOL_KERNELS = {
+    "attention_floor": "tools/bench_softmax_floor.py:55",
+    "bottleneck_v2": "tools/bench_fused_bottleneck.py:76",
+    "fused_layer1": "tools/bench_fused_bottleneck.py:215",
+}
+TOOL_SOURCES = {"attention_floor": "attention_floor.cu", "bottleneck_v2": "bottleneck_variants.cu",
+                "fused_layer1": "bottleneck_variants.cu"}
+# T2 in bf16 at the tools' data: an intermediate (h1 or h2) rounded to the
+# other side of a bf16 boundary moves an output by a few thousandths of max
+# |plain| (K2 in phase 1 on an H100: 3.1e-3; v2 at layer2 there: 5.9e-3
+# absolute, past 1e-3 of max), bounded by one ulp of the largest output,
+# 2^-8 of max |plain|. In layer1 each of the three blocks' outputs can round
+# so, and the later blocks' identity residuals carry it on: 3 x 2^-8 (v3 at
+# tile 8 on an H100: 1.17e-2 absolute, past 2^-8 of max).
+BOTTLENECK_BF16_ATOL = {"bottleneck_v2": 2.0**-8, "fused_layer1": 3 * 2.0**-8}
 
 
 def log(phase: str, **fields) -> None:
@@ -165,12 +191,14 @@ def bound(ops: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_close(name, out, ref, dtype):
+def check_close(name, out, ref, dtype, atol=None):
     """(max abs error, its tolerance at that element's worst case); raises
-    where any element is outside RTOL * |plain| + ATOL * max |plain|."""
+    where any element is outside RTOL * |plain| + ATOL * max |plain| (ATOL
+    the dtype's unless given)."""
     out, ref = out.float(), ref.float()
     diff = (out - ref).abs()
-    tol = KERNEL_RTOL[dtype] * ref.abs() + KERNEL_ATOL[dtype] * ref.abs().max()
+    atol = KERNEL_ATOL[dtype] if atol is None else atol
+    tol = KERNEL_RTOL[dtype] * ref.abs() + atol * ref.abs().max()
     if not bool((diff <= tol).all()):
         worst = int(((diff - tol) / tol).argmax())
         raise AssertionError(
@@ -405,6 +433,128 @@ def saturated_logits_check(torch, fa, gen, BH, Nq, Nk, d, dv, seed, rate=0.1):
     if ratios["dv_err"] > 2e-5 or max(ratios["dq_over_bound"], ratios["dk_over_bound"]) > 1e-6:
         raise AssertionError(f"saturated logits {BH, Nq, Nk, d, dv}: p above 1? {ratios}")
     return ratios
+
+
+def tools_phase(torch, dev):
+    """Phase 1c on device `dev`. Returns (per-kernel records, launch counts
+    of the tools' run)."""
+    import torch.nn.functional as F
+
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.ops import attention_floor as af
+    from future_od_tpu_torch.ops import flash_attention as fa
+    from future_od_tpu_torch.ops import fused_resnet as fr
+    from future_od_tpu_torch.tools import bench_fused_bottleneck as t2
+    from future_od_tpu_torch.tools import bench_softmax_floor as t1
+    from future_od_tpu_torch.utils.jax_weights import blocks_from_numpy
+
+    # the main path: both tools whole, counted
+    _kernels.reset_launch_counts()
+    ladder = t1.run()
+    rows = t2.run()
+    torch.cuda.synchronize()
+    counts = {name: _kernels.launch_counts[name] for name in TOOL_KERNELS}
+    if not all(counts.values()):
+        raise AssertionError(f"the tools' run launched {counts}")
+    log("1c-tools", launches=counts, softmax_floor=ladder, fused_bottleneck=rows)
+
+    records = {name: [] for name in TOOL_KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def record(name, label, dtype, out, ref, tol_dtype=None, **extra):
+        atol = BOTTLENECK_BF16_ATOL.get(name) if dtype == "bfloat16" else None
+        err, tol = check_close(f"{name} {label}", out, ref, tol_dtype or dtype, atol)
+        records[name].append(dict(check=label, dtype=dtype, max_abs_err=err, tol=tol, **extra))
+
+    # T1 per image: all modes, on inputs whose logits are exact in f32. The
+    # function rounds to bf16 inside in every storage type (bf16sm's block row
+    # sum: an f32 sum in another order can round to the next bf16 value), so
+    # f32 outputs are held to the bf16 tolerance too.
+    B, H, T, d = t1.SHAPE
+    scale = 1.0 / math.sqrt(d)
+    qkv = af.exact_logit_inputs(1, H, T, T, scale, gen)
+    for dtype, dt in dtypes.items():
+        q, k, v = (a.to(dt) for a in qkv)
+        for mode in af.MODES:
+            record("attention_floor", f"{mode} {(1, H, T, d)}", dtype,
+                   af.attention_floor(q, k, v, scale, mode, t1.BLOCK_K),
+                   af.attention_floor_plain(q, k, v, scale, mode, t1.BLOCK_K),
+                   tol_dtype="bfloat16")
+
+    # T2 per image, the tool's sections
+    def weights(cin, cmid, cout, ds):
+        r = lambda *s: rng.normal(size=s).astype(np.float32) * 0.1  # noqa: E731
+        w = dict(w1=r(cin, cmid), b1=r(cmid), w2=r(3, 3, cmid, cmid), b2=r(cmid),
+                 w3=r(cmid, cout), b3=r(cout))
+        if ds:
+            w.update(wd=r(cin, cout), bd=r(cout))
+        return w
+
+    sections = [("layer1 inner", t2.HEIGHT, t2.WIDTH, 256, 64, False, t2.TILES),
+                ("layer1 block0", t2.HEIGHT, t2.WIDTH, 64, 64, True, (8,))]
+    sections += [(name, h, w, cin, cmid, False, (8,)) for name, (h, w, cin, cmid)
+                 in t2.STAGES.items()]
+    for label, h, w, cin, cmid, ds, tiles in sections:
+        x32 = torch.randn(1, h, w, cin, generator=gen, device=dev) * 0.1
+        w32 = weights(cin, cmid, 256 if ds else cin, ds)
+        for dtype, dt in dtypes.items():
+            x = x32.to(dt)
+            wt = {k: torch.from_numpy(v).to(dev, dt) for k, v in w32.items()}
+            ref = fr.bottleneck_plain(x, **wt)
+            for tile in tiles:
+                for im2col in ((False, True) if len(tiles) > 1 else (True,)):
+                    record("bottleneck_v2", f"{label} tile {tile} im2col {int(im2col)}", dtype,
+                           fr.fused_bottleneck_v2(x, **wt, tile_h=tile, im2col=im2col), ref,
+                           plan=fr.bottleneck_plan(False, tile, cmid, im2col, dt))
+    blocks_np = t2.make_layer1_blocks(rng)
+    x32 = torch.randn(1, t2.HEIGHT, t2.WIDTH, 64, generator=gen, device=dev) * 0.1
+    for dtype, dt in dtypes.items():
+        blocks, x = blocks_from_numpy(blocks_np, dt, dev), x32.to(dt)
+        ref = fr.layer1_plain(x, blocks)
+        for tile in t2.V3_TILES:
+            record("fused_layer1", f"tile {tile}", dtype, fr.fused_layer1(x, blocks, tile_h=tile),
+                   ref, plan=fr.bottleneck_plan(True, tile, 64, True, dt))
+
+    # times at the tools' full bf16 shapes: one configuration a kernel
+    bf16 = torch.bfloat16
+    q, k, v = (torch.randn(t1.SHAPE, generator=gen, device=dev).to(bf16) for _ in range(3))
+    floor = {mode: time_ms(torch, lambda m=mode: af.attention_floor(q, k, v, scale, m, t1.BLOCK_K))
+             for mode in af.MODES}
+    floor["full"] = time_ms(torch, lambda: fa.flash_attention(q, k, v, scale))  # K1, the top rung
+    x1 = (torch.randn(t2.BATCH, t2.HEIGHT, t2.WIDTH, 256, generator=gen, device=dev) * 0.1).to(bf16)
+    w1 = {k_: torch.from_numpy(v_).to(dev, bf16) for k_, v_ in weights(256, 64, 256, False).items()}
+    x0 = (torch.randn(t2.BATCH, t2.HEIGHT, t2.WIDTH, 64, generator=gen, device=dev) * 0.1).to(bf16)
+    blocks = blocks_from_numpy(blocks_np, bf16, dev)
+    timed = {
+        "attention_floor": dict(
+            per=f"one bf16sm call at {t1.SHAPE}, block_k {t1.BLOCK_K}; library: SDPA forward "
+                "(the full softmax, a yardstick: no library call computes the stripped rungs)",
+            ms=floor["bf16sm"], mode_ms=floor,
+            plain_ms=time_ms(torch, lambda: af.attention_floor_plain(q, k, v, scale, "bf16sm",
+                                                                     t1.BLOCK_K)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+            cost=af.floor_cost(B, H, T, T, t1.BLOCK_K, 2)),
+        "bottleneck_v2": dict(
+            per=f"one call at layer1's inner block {tuple(x1.shape)} -> 256, tile 8, im2col",
+            ms=time_ms(torch, lambda: fr.fused_bottleneck_v2(x1, **w1, tile_h=8, im2col=True)),
+            plain_ms=time_ms(torch, lambda: fr.bottleneck_plain(x1, **w1)), library_ms=None,
+            cost=fr.bottleneck_cost(t2.BATCH, t2.HEIGHT, t2.WIDTH, 256, 64, 256, False, 2)),
+        "fused_layer1": dict(
+            per=f"one call over layer1's 3 blocks {tuple(x0.shape)} -> 256, tile 8",
+            ms=time_ms(torch, lambda: fr.fused_layer1(x0, blocks, tile_h=8)),
+            plain_ms=time_ms(torch, lambda: fr.layer1_plain(x0, blocks)), library_ms=None,
+            cost=fr.layer1_cost(t2.BATCH, t2.HEIGHT, t2.WIDTH, 64, 2)),
+    }
+    torch.cuda.synchronize()
+    for name, row in timed.items():
+        ops, nbytes = row.pop("cost")
+        row["bound_ms"], row["bound_by"] = bound(ops, nbytes, "bfloat16")
+        row.update(ops=ops, bytes=nbytes)
+        log("kernel", kernel=name, **row)
+        records[name] = dict(row, calls=records[name])
+    return records, counts
 
 
 def make_batch(seed: int):
@@ -806,6 +956,10 @@ def main() -> int:
     log("1b-train-kernels-vs-plain", ok=True, seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
+    tool_records, tool_counts = tools_phase(torch, torch.device("cuda"))
+    log("1c-tools-kernels-vs-plain", ok=True, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
     args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128)
     model = build_flagship(args, generator=torch.Generator().manual_seed(0))
     randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
@@ -932,6 +1086,15 @@ def main() -> int:
         else:
             row["library_covers"] = "SDPA backward, dq and dk/dv together"
         kernels.append(row)
+    for name, rec in tool_records.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"future_od_tpu_torch/csrc/{TOOL_SOURCES[name]}",
+            "replaces": TOOL_KERNELS[name], "launches": tool_counts[name],
+            "max_abs_err": max(c["max_abs_err"] for c in rec["calls"] if c["dtype"] == "bfloat16"),
+            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per")},
+            "calls": rec["calls"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

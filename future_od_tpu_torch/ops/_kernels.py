@@ -65,12 +65,27 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # out, bh, nq, nk, dropout..., stream
         "fod_dropout_keep_mask": [_P, _I, _I, _I] + _DROPOUT + [_P],
     },
+    # q, k, v, out, bh, nq, nk, nk_pad, block_k, scale*log2(e), mode, dtype, stream
+    "attention_floor": {
+        "fod_attention_floor": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
+    },
+    "bottleneck_variants": {
+        # x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, cin, cmid, cout, tile_h,
+        # im2col, dtype, stream
+        "fod_bottleneck_v2": [_P] * 10 + [_I] * 9 + [_P],
+        # x, 24 weight pointers, out, scratch, grid, B, H, W, cin, tile_h, dtype, stream
+        "fod_fused_layer1": [_P] * 4 + [_I] * 7 + [_P],
+        # layer1, tile_h, cmid, im2col, dtype, int[4] out (launches nothing)
+        "fod_bottleneck_plan": [_I] * 5 + [_P],
+    },
 }
+# entry points that launch no kernel, so have no launch counter
+QUERIES = ("fod_bottleneck_plan",)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts: Dict[str, int] = {
-    fn[len("fod_"):]: 0 for entries in KERNELS.values() for fn in entries
+    fn[len("fod_"):]: 0 for entries in KERNELS.values() for fn in entries if fn not in QUERIES
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -7,14 +7,21 @@
 - `fused_stem` launches `csrc/fused_stem.cu`, which replaces `_stem_kernel`:
   the 7x7/2 stem conv as a 4x4/1 conv over 2x2 space-to-depth input, + bias,
   ReLU and the 3x3/2 max pool (padding -inf), the conv output kept on chip.
+- `fused_bottleneck_v2` and `fused_layer1` launch `csrc/bottleneck_variants.cu`,
+  which replaces the kernel-study tool's `_v2_kernel` and `_v3_kernel`
+  (tools/bench_fused_bottleneck.py): the bottleneck with a choice of row tile
+  and of im2col for the 3x3, and all of layer1's three chained bottlenecks in
+  one kernel.
 
-Both take NHWC tensors and HWIO / (in, out) weights as the JAX functions do.
-On CPU tensors they run `bottleneck_plain` / `stem_plain`, the plain versions
-of the same functions; on CUDA tensors they launch the kernel or raise.
+All take NHWC tensors and HWIO / (in, out) weights as the JAX functions do.
+On CPU tensors they run `bottleneck_plain` / `stem_plain` / `layer1_plain`,
+the plain versions of the same functions; on CUDA tensors they launch the
+kernel or raise.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +33,9 @@ STEM = "fused_stem"
 BOTTLENECK_CMIDS = (64, 128)  # widths the kernel is instantiated for
 BOTTLENECK_COUT_STEP = 128  # the kernel writes output channels 128 at a time
 BOTTLENECK_CIN_STEP = 16  # its reduction slice
+VARIANTS = "bottleneck_variants"
+V2_CMIDS = (64, 128, 256)  # widths fod_bottleneck_v2 is instantiated for
+LAYER1_CMID, LAYER1_COUT, LAYER1_BLOCKS = 64, 256, 3  # the shape fod_fused_layer1 takes
 STEM_CIN, STEM_COUT = 12, 64
 STEM_TAPS = 7 * 7 * 3  # taps of the 7x7/2 conv; the s2d 4x4 kernel's other 45 are zeros
 
@@ -54,6 +64,46 @@ def bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None) -> torch.Tenso
     return F.relu(h + res).to(dt).permute(0, 2, 3, 1)
 
 
+def _check_bottleneck(name, cin, dtype, w1, w2, w3, wd, bd, cmids) -> None:
+    """Raise unless the kernels take these shapes and this dtype of x."""
+    cmid, cout = w1.shape[1], w3.shape[1]
+    if (
+        cmid not in cmids
+        or cin % BOTTLENECK_CIN_STEP
+        or cout % BOTTLENECK_COUT_STEP
+        or w1.shape != (cin, cmid)
+        or w2.shape != (3, 3, cmid, cmid)
+        or w3.shape != (cmid, cout)
+        or (wd is None) != (bd is None)
+        or (wd is None and cin != cout)
+        or (wd is not None and wd.shape != (cin, cout))
+    ):
+        raise ValueError(
+            f"{name}: unsupported shapes cin {cin} w1 {tuple(w1.shape)} "
+            f"w3 {tuple(w3.shape)} (cmid in {cmids}, cin % "
+            f"{BOTTLENECK_CIN_STEP} == 0, cout % {BOTTLENECK_COUT_STEP} == 0)"
+        )
+    if dtype not in _kernels.DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {dtype}; want f32 or bf16")
+
+
+def _bottleneck_operands(dt, w1, b1, w2, b2, w3, b3, wd=None, bd=None) -> List:
+    """The weights as the kernels read them: matrices in the storage type
+    (w2 as the (9*cmid, cmid) im2col matrix, rows in (dy, dx, c) order),
+    f32 biases, contiguous; None for an absent downsample."""
+    cmid = w1.shape[1]
+    mats = [w.to(dt).contiguous() for w in (w1, w2.reshape(9 * cmid, cmid), w3)]
+    vecs = [b.float().contiguous() for b in (b1, b2, b3)]
+    ops = [mats[0], vecs[0], mats[1], vecs[1], mats[2], vecs[2]]
+    if wd is None:
+        return ops + [None, None]
+    return ops + [wd.to(dt).contiguous(), bd.float().contiguous()]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def fused_bottleneck(
     x: torch.Tensor,  # (B, H, W, cin)
     w1: torch.Tensor,  # (cin, cmid)  BN-folded
@@ -69,47 +119,131 @@ def fused_bottleneck(
     NHWC in and out, in x's dtype."""
     if x.device.type == "cpu":
         return bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
+    _check_bottleneck(BOTTLENECK, x.shape[3], x.dtype, w1, w2, w3, wd, bd, BOTTLENECK_CMIDS)
     B, H, W, cin = x.shape
     cmid, cout = w1.shape[1], w3.shape[1]
-    if (
-        cmid not in BOTTLENECK_CMIDS
-        or cin % BOTTLENECK_CIN_STEP
-        or cout % BOTTLENECK_COUT_STEP
-        or w1.shape != (cin, cmid)
-        or w2.shape != (3, 3, cmid, cmid)
-        or w3.shape != (cmid, cout)
-        or (wd is None) != (bd is None)
-        or (wd is None and cin != cout)
-        or (wd is not None and wd.shape != (cin, cout))
-    ):
-        raise ValueError(
-            f"{BOTTLENECK}: unsupported shapes x {tuple(x.shape)} w1 {tuple(w1.shape)} "
-            f"w3 {tuple(w3.shape)} (cmid in {BOTTLENECK_CMIDS}, cin % "
-            f"{BOTTLENECK_CIN_STEP} == 0, cout % {BOTTLENECK_COUT_STEP} == 0)"
-        )
-    if x.dtype not in _kernels.DTYPE_CODES:
-        raise ValueError(f"{BOTTLENECK}: dtype {x.dtype}; want f32 or bf16")
-    dt = x.dtype
     x = x.contiguous()
-    w1, w3 = w1.to(dt).contiguous(), w3.to(dt).contiguous()
-    w2 = w2.to(dt).reshape(9 * cmid, cmid).contiguous()
-    b1, b2, b3 = (b.float().contiguous() for b in (b1, b2, b3))
-    ops = [x, w1, b1, w2, b2, w3, b3]
-    if wd is not None:
-        wd, bd = wd.to(dt).contiguous(), bd.float().contiguous()
-        ops += [wd, bd]
-    _kernels.check_cuda_operands(BOTTLENECK, *ops)
-    out = torch.empty((B, H, W, cout), dtype=dt, device=x.device)
+    ops = _bottleneck_operands(x.dtype, w1, b1, w2, b2, w3, b3, wd, bd)
+    _kernels.check_cuda_operands(BOTTLENECK, x, *(t for t in ops if t is not None))
+    out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
     _kernels.call(
         BOTTLENECK, "fod_fused_bottleneck",
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(),
-        None if wd is None else wd.data_ptr(), None if bd is None else bd.data_ptr(),
-        out.data_ptr(), B, H, W, cin, cmid, cout,
-        _kernels.DTYPE_CODES[dt], _kernels.stream_of(x),
+        x.data_ptr(), *(_ptr(t) for t in ops), out.data_ptr(), B, H, W, cin, cmid, cout,
+        _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x),
     )
     _kernels.launch_counts[BOTTLENECK] += 1
     return out
+
+
+def bottleneck_plan(layer1: bool, tile_h: int, cmid: int, im2col: bool,
+                    dtype: torch.dtype) -> Dict[str, int]:
+    """How `fused_bottleneck_v2` (layer1 False) or `fused_layer1` (True)
+    lays out a launch on the current card: the column tile a block owns with
+    its tile_h rows, the patch-matrix columns staged at once (0: nine tap
+    products), shared memory bytes a block, and blocks resident at once."""
+    out = (ctypes.c_int * 4)()
+    _kernels.call(VARIANTS, "fod_bottleneck_plan", int(layer1), tile_h, cmid, int(im2col),
+                  _kernels.DTYPE_CODES[dtype], ctypes.addressof(out))
+    return dict(zip(("tile_w", "k_chunk", "smem_bytes", "resident_blocks"), out))
+
+
+def fused_bottleneck_v2(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, tile_h: int = 8,
+                        im2col: bool = True) -> torch.Tensor:
+    """`fused_bottleneck`'s function (its plain version is `bottleneck_plain`),
+    with the study tool's choices: a block owns tile_h output rows (by a
+    column tile `bottleneck_plan` gives), and the 3x3 runs as one product
+    over a patch matrix staged in shared memory (im2col) or as 9 tap
+    products. cmid 64, 128 or 256."""
+    if x.device.type == "cpu":
+        return bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
+    name = "bottleneck_v2"
+    _check_bottleneck(name, x.shape[3], x.dtype, w1, w2, w3, wd, bd, V2_CMIDS)
+    if tile_h <= 0:
+        raise ValueError(f"{name}: tile_h {tile_h}")
+    B, H, W, cin = x.shape
+    cmid, cout = w1.shape[1], w3.shape[1]
+    x = x.contiguous()
+    ops = _bottleneck_operands(x.dtype, w1, b1, w2, b2, w3, b3, wd, bd)
+    _kernels.check_cuda_operands(name, x, *(t for t in ops if t is not None))
+    out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
+    _kernels.call(
+        VARIANTS, "fod_bottleneck_v2",
+        x.data_ptr(), *(_ptr(t) for t in ops), out.data_ptr(), B, H, W, cin, cmid, cout,
+        tile_h, int(im2col), _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x),
+    )
+    _kernels.launch_counts[name] += 1
+    return out
+
+
+def _block_args(bk):
+    return (bk["w1"], bk["b1"], bk["w2"], bk["b2"], bk["w3"], bk["b3"], bk.get("wd"),
+            bk.get("bd"))
+
+
+def layer1_plain(x, blocks) -> torch.Tensor:
+    """Plain version of `fused_layer1`: the blocks' `bottleneck_plain` in
+    turn, each output rounded to x's dtype as the TPU kernel rounds it."""
+    for bk in blocks:
+        x = bottleneck_plain(x, *_block_args(bk))
+    return x
+
+
+def fused_layer1(x, blocks, tile_h: int = 8) -> torch.Tensor:
+    """ResNet-50 layer1 in one kernel: x (B, H, W, cin) through three chained
+    stride-1 bottlenecks (`blocks`: dicts w1, b1, w2 (3, 3, 64, 64), b2, w3,
+    b3, and wd, bd in block 0 only; cmid 64, cout 256), each block's output
+    rounded to x's dtype. A block of the kernel owns tile_h output rows by
+    `bottleneck_plan`'s column tile; the two inner outputs live in a scratch
+    this wrapper allocates, one region per resident block."""
+    if x.device.type == "cpu":
+        return layer1_plain(x, blocks)
+    name = "fused_layer1"
+    if len(blocks) != LAYER1_BLOCKS or "wd" not in blocks[0] or any("wd" in b for b in blocks[1:]):
+        raise ValueError(f"{name}: want {LAYER1_BLOCKS} blocks, a downsample in block 0 only")
+    cin = x.shape[3]
+    for i, bk in enumerate(blocks):
+        _check_bottleneck(name, cin if i == 0 else LAYER1_COUT, x.dtype, bk["w1"], bk["w2"],
+                          bk["w3"], bk.get("wd"), bk.get("bd"), (LAYER1_CMID,))
+        if bk["w3"].shape[1] != LAYER1_COUT:
+            raise ValueError(f"{name}: block {i} cout {bk['w3'].shape[1]}; want {LAYER1_COUT}")
+    if tile_h <= 0:
+        raise ValueError(f"{name}: tile_h {tile_h}")
+    B, H, W, _ = x.shape
+    x = x.contiguous()
+    ops = [t for bk in blocks for t in _bottleneck_operands(x.dtype, *_block_args(bk))]
+    _kernels.check_cuda_operands(name, x, *(t for t in ops if t is not None))
+    plan = bottleneck_plan(True, tile_h, LAYER1_CMID, True, x.dtype)
+    tw = plan["tile_w"]
+    tiles = B * -(-H // tile_h) * -(-W // tw)
+    grid = min(tiles, plan["resident_blocks"])
+    per_block = ((tile_h + 4) * (tw + 4) + (tile_h + 2) * (tw + 2)) * LAYER1_COUT
+    scratch = torch.empty(grid * per_block, dtype=x.dtype, device=x.device)
+    weights = (ctypes.c_void_p * len(ops))(*(_ptr(t) for t in ops))
+    out = torch.empty((B, H, W, LAYER1_COUT), dtype=x.dtype, device=x.device)
+    _kernels.call(
+        VARIANTS, "fod_fused_layer1",
+        x.data_ptr(), ctypes.addressof(weights), out.data_ptr(), scratch.data_ptr(), grid,
+        B, H, W, cin, tile_h, _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x),
+    )
+    _kernels.launch_counts[name] += 1
+    return out
+
+
+def layer1_recompute(tile_h: int, tile_w: int, cin: int = 64) -> float:
+    """Operations `fused_layer1` does over those its three bottlenecks need:
+    block k's 1x1 into h1 runs on the tile grown by 3 - k pixels a side, its
+    3x3, expansion and downsample on the tile grown by 2 - k."""
+    def grown(g):
+        return (tile_h + 2 * g) * (tile_w + 2 * g) / (tile_h * tile_w)
+
+    c, m = LAYER1_COUT, LAYER1_CMID
+    done = need = 0.0
+    for k in range(LAYER1_BLOCKS):
+        first = (cin if k == 0 else c) * m
+        rest = 9 * m * m + m * c + (cin * c if k == 0 else 0)
+        done += first * grown(3 - k) + rest * grown(2 - k)
+        need += first + rest
+    return done / need
 
 
 def stem_plain(x_s2d, w4, bias) -> torch.Tensor:
@@ -173,3 +307,15 @@ def stem_cost(B, Hc, Wc, itemsize: int):
     nbytes = itemsize * (B * Hc * Wc * STEM_CIN + B * (Hc // 2) * (Wc // 2) * STEM_COUT
                          + k * STEM_COUT) + 4 * STEM_COUT
     return ops, nbytes
+
+
+def layer1_cost(B, H, W, cin, itemsize: int):
+    """(operations, bytes) one `fused_layer1` call needs at least: the three
+    bottlenecks' products (not the halo recompute), x read once, the output
+    written once, every weight read once."""
+    ops = nbytes = 0
+    for k in range(LAYER1_BLOCKS):
+        c = cin if k == 0 else LAYER1_COUT
+        o, b = bottleneck_cost(B, H, W, c, LAYER1_CMID, LAYER1_COUT, k == 0, itemsize)
+        ops, nbytes = ops + o, nbytes + b - itemsize * B * H * W * (c + LAYER1_COUT)
+    return ops, nbytes + itemsize * B * H * W * (cin + LAYER1_COUT)

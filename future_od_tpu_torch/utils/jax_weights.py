@@ -20,7 +20,7 @@ same name map, so the run continues in the port.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -243,3 +243,15 @@ def load_jax_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimize
         for group in optimizer.param_groups:
             if rates.get(group.get("name")) is not None:
                 group["lr"] = float(np.asarray(rates[group["name"]]))
+
+
+def blocks_from_numpy(blocks, dtype: torch.dtype = torch.float32,
+                      device: DeviceLike = None) -> List[Dict[str, torch.Tensor]]:
+    """Bottleneck weights in the kernel-study tools' layout (a list of
+    dicts w1 (in, out), b1, w2 HWIO, b2, w3, b3 [, wd, bd] of numpy arrays,
+    as tools/bench_fused_bottleneck.py::make_layer1_blocks makes them) as
+    tensors of `dtype` on `device` (default CUDA; raises without a card).
+    The layout is the port's own, so no other conversion is needed."""
+    device = resolve_device(device)
+    return [{k: torch.from_numpy(np.asarray(v, np.float32)).to(device, dtype)
+             for k, v in bk.items()} for bk in blocks]

@@ -20,11 +20,21 @@ from future_od_tpu_torch.models.resnet import space_to_depth, stem_weights_to_sp
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
 from future_od_tpu_torch.ops import _kernels
 from future_od_tpu_torch.ops import flash_attention as fa
+from future_od_tpu_torch.ops.attention_floor import (
+    MODES,
+    attention_floor,
+    attention_floor_plain,
+    exact_logit_inputs,
+)
 from future_od_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from future_od_tpu_torch.ops.fused_resnet import (
     bottleneck_plain,
+    bottleneck_plan,
     fused_bottleneck,
+    fused_bottleneck_v2,
+    fused_layer1,
     fused_stem,
+    layer1_plain,
     stem_plain,
 )
 from future_od_tpu_torch.train.step import make_inference_fn
@@ -59,10 +69,14 @@ def on(device, dtype, *arrays):
     return [torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype) for a in arrays]
 
 
-def assert_close(out, ref, dtype):
+def assert_close(out, ref, dtype, tol_dtype=None, atol=None):
+    """Within the tolerance of tol_dtype (default dtype); atol overrides its
+    ATOL."""
     assert out.dtype == ref.dtype == dtype
     out, ref = out.float(), ref.float()
-    tol = RTOL[dtype] * ref.abs() + ATOL[dtype] * ref.abs().max()
+    tol_dtype = dtype if tol_dtype is None else tol_dtype
+    atol = ATOL[tol_dtype] if atol is None else atol
+    tol = RTOL[tol_dtype] * ref.abs() + atol * ref.abs().max()
     diff = (out - ref).abs()
     assert bool((diff <= tol).all()), (diff.max().item(), ref.abs().max().item())
 
@@ -120,6 +134,85 @@ def test_fused_stem(cuda, np_rng, dtype, B, H, W):
     torch.cuda.synchronize()
     assert _kernels.launch_counts["fused_stem"] == before + 1
     assert_close(out, stem_plain(xs, w4, bias), dtype)
+
+
+def bottleneck_weights(device, dtype, np_rng, cin, cmid, cout, downsample):
+    shapes = dict(w1=(cin, cmid), b1=(cmid,), w2=(3, 3, cmid, cmid), b2=(cmid,),
+                  w3=(cmid, cout), b3=(cout,))
+    if downsample:
+        shapes.update(wd=(cin, cout), bd=(cout,))
+    return {
+        k: on(device, torch.float32 if k.startswith("b") else dtype,
+              np_rng.normal(size=s) * math.sqrt(1.0 / s[0]))[0]
+        for k, s in shapes.items()
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize(
+    "B,H,Nq,Nk,block_k",
+    [(1, 8, 1400, 1400, 1408),  # the tool's rows, one image: 8 zero keys a row
+     (1, 2, 70, 40, 16),  # 3 key blocks in bf16sm, 8 zero keys
+     (2, 1, 17, 130, 64)],  # 62 zero keys: the bf16 running max starts at 0
+)
+def test_attention_floor(cuda, dtype, mode, B, H, Nq, Nk, block_k):
+    """T1, every mode, against its plain version on inputs whose logits are
+    exact in f32 (`exact_logit_inputs`), so both sides round them alike. The
+    function rounds to bf16 inside in every storage type (the block's row sum
+    in bf16sm: an f32 sum taken in another order can round to the next bf16
+    value), so f32 outputs are held to the bf16 tolerance too."""
+    scale = 1.0 / math.sqrt(32)
+    gen = torch.Generator(device=cuda).manual_seed(Nq)
+    q, k, v = (t.to(dtype) for t in exact_logit_inputs(B, H, Nq, Nk, scale, gen))
+    before = _kernels.launch_counts["attention_floor"]
+    out = attention_floor(q, k, v, scale, mode, block_k)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["attention_floor"] == before + 1
+    assert out.shape == (B, H, Nq, 32)
+    assert_close(out, attention_floor_plain(q, k, v, scale, mode, block_k), dtype, torch.bfloat16)
+
+
+V2_SHAPES = [  # (B, H, W, cin, cmid, cout, downsample): ragged tiles at every edge
+    (2, 20, 13, 256, 64, 256, False),
+    (1, 19, 11, 64, 128, 256, True),
+    (1, 12, 9, 1024, 256, 1024, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("im2col", [False, True])
+@pytest.mark.parametrize("tile_h", [8, 16, 32])
+@pytest.mark.parametrize("B,H,W,cin,cmid,cout,downsample", V2_SHAPES)
+def test_bottleneck_v2(cuda, np_rng, dtype, im2col, tile_h, B, H, W, cin, cmid, cout, downsample):
+    (x,) = on(cuda, dtype, np.abs(np_rng.normal(size=(B, H, W, cin))))
+    w = bottleneck_weights(cuda, dtype, np_rng, cin, cmid, cout, downsample)
+    before = _kernels.launch_counts["bottleneck_v2"]
+    out = fused_bottleneck_v2(x, **w, tile_h=tile_h, im2col=im2col)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["bottleneck_v2"] == before + 1
+    assert_close(out, bottleneck_plain(x, **w), dtype)
+    plan = bottleneck_plan(False, tile_h, cmid, im2col, dtype)
+    assert plan["tile_w"] >= 1 and (plan["k_chunk"] > 0) == im2col
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_h", [4, 8, 16])
+def test_fused_layer1(cuda, np_rng, dtype, tile_h):
+    """T2 v3 against three chained plain bottlenecks; 20x27 puts ragged tiles
+    at the bottom and right edges and tiles at all four. In bf16 each block's
+    output can round to the other side of a bf16 boundary (one ulp, 2^-8 of
+    at most max |plain|), and the later blocks' identity residuals carry it
+    to the result: 3 x 2^-8."""
+    (x,) = on(cuda, dtype, np.abs(np_rng.normal(size=(2, 20, 27, 64))))
+    blocks = [bottleneck_weights(cuda, dtype, np_rng, 64 if i == 0 else 256, 64, 256, i == 0)
+              for i in range(3)]
+    before = _kernels.launch_counts["fused_layer1"]
+    out = fused_layer1(x, blocks, tile_h=tile_h)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fused_layer1"] == before + 1
+    assert_close(out, layer1_plain(x, blocks), dtype,
+                 atol=3 * 2.0**-8 if dtype == torch.bfloat16 else None)
 
 
 # The stage-1 training shapes (448x800: 350 tokens) at batch 4: the encoder's
