@@ -43,6 +43,22 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    layer1 and at tile 8 at block 0, layer2 and layer3, v3 at tile 8 and 16;
    and each kernel's time at the tools' full bf16 shapes beside its plain
    version's and, for T1, SDPA's forward.
+1d. the stem study (future_od_tpu_torch/tools/bench_stem.py, the main path
+   of its slice): `run()` whole at its full bf16 shape (24 x 896x1600) with
+   the launch counts reset before and read after (T3 A, B, B16 and D must
+   each launch); then each kernel against its plain version elementwise on
+   one image, f32 (TF32 off) and bf16; and each kernel's time at the full
+   shape beside its plain version's, its bound and a yardstick (cuDNN's
+   7x7/2 conv + relu + max_pool2d for A, B and B16, cuDNN's 3x3 conv over
+   D's 128-channel operands for D).
+3b. the flagship with the space-to-depth stem (`space_to_depth=True`,
+   otherwise phase 2's model) fed the host-packed 12-channel f32 video
+   (data/loader.py::host_space_to_depth, as bench.py's BENCH_HOST_S2D
+   feeds it), served with the default gates and with
+   FUTURE_OD_FUSED_RESNET=1 FUTURE_OD_FUSED_STEM=1 (K3 takes the s2d
+   kernel as it is, once a forward); the fused forward's encoder and decoder
+   outputs, scores and boxes equal the all-plain forward's within phase 3's
+   tolerances; request ms and the host-to-device copy beside phase 2's.
 5. the flagship's train step at full width (phase 2's model with
    freeze_stem, the auction matcher and 128 cost slots) on 4 clips x 3
    frames at 448x800 with 256 target slots filled as bench_train.py fills
@@ -107,6 +123,8 @@ KERNEL_ATOL = {"float32": 2e-5, "bfloat16": 1e-3}
 # value; scores are sigmoids; boxes are pixels of a 1600-wide frame. Each is
 # 10x the gap measured on an H100 (1.05e-4, 1.04e-6, 9.5e-7, 9.8e-4 px).
 ENCODER_RTOL, DECODER_RTOL, SCORE_TOL, BOX_TOL_PX = 1e-3, 1e-5, 1e-5, 1e-2
+PHASE3_TOLS = {"encoder_out_rel": ENCODER_RTOL, "decoder_out_rel": DECODER_RTOL,
+               "score_err": SCORE_TOL, "box_err_px": BOX_TOL_PX}
 TOP_KERNELS = 8
 # Training: bench_train.py's stage-1 config (448x800, 3 frames, 256 target
 # slots) at batch 4 instead of 32.
@@ -150,6 +168,13 @@ TOOL_SOURCES = {"attention_floor": "attention_floor.cu", "bottleneck_v2": "bottl
 # so, and the later blocks' identity residuals carry it on: 3 x 2^-8 (v3 at
 # tile 8 on an H100: 1.17e-2 absolute, past 2^-8 of max).
 BOTTLENECK_BF16_ATOL = {"bottleneck_v2": 2.0**-8, "fused_layer1": 3 * 2.0**-8}
+# Phase 1d: the stem study's kernels, with the TPU tool's file:line.
+STEM_KERNELS = {
+    "stem_a": "tools/bench_stem.py:112",
+    "stem_b": "tools/bench_stem.py:181",
+    "stem_b16": "tools/bench_stem.py:265",
+    "stem_d": "tools/bench_stem.py:416",
+}
 
 
 def log(phase: str, **fields) -> None:
@@ -557,6 +582,74 @@ def tools_phase(torch, dev):
     return records, counts
 
 
+def tensor_bytes(*items) -> int:
+    return sum(t.numel() * t.element_size() for t in items if hasattr(t, "numel"))
+
+
+def stem_phase(torch, dev):
+    """Phase 1d on device `dev`. Returns (per-kernel records, launch counts
+    of the tool's run)."""
+    import torch.nn.functional as F
+
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.ops import stem_variants as sv
+    from future_od_tpu_torch.tools import bench_stem as t3
+
+    # the main path: the tool whole, counted
+    _kernels.reset_launch_counts()
+    rows = t3.run()
+    torch.cuda.synchronize()
+    counts = {name: _kernels.launch_counts[name] for name in STEM_KERNELS}
+    if not all(counts.values()):
+        raise AssertionError(f"the stem tool's run launched {counts}")
+    log("1d-stem-tool", launches=counts, rows=rows)
+
+    # per image: each kernel against its plain version, f32 and bf16
+    records = {name: [] for name in STEM_KERNELS}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bias = torch.randn(64, generator=gen, device=dev) * 0.1
+    x1, w7 = t3.make_inputs((1, t3.HEIGHT, t3.WIDTH, 3), 4, dev, torch.float32)
+    for dtype in ("float32", "bfloat16"):
+        for name, (kernel, plain, args) in t3.kernel_cases(x1.to(getattr(torch, dtype)), w7,
+                                                           bias).items():
+            err, tol = check_close(f"{name} one image", kernel(*args), plain(*args), dtype)
+            records[name].append(dict(check=f"one image {tuple(x1.shape)}", dtype=dtype,
+                                      max_abs_err=err, tol=tol))
+    del x1
+
+    # times at the tool's full bf16 shape, the operand construction excluded
+    x, w7 = t3.make_inputs((t3.BATCH, t3.HEIGHT, t3.WIDTH, 3), 0, dev, torch.bfloat16)
+    ops = t3.operands(x, w7)
+    x128, w3p = ops["x128"].permute(0, 3, 1, 2), ops["w3p"].permute(3, 2, 0, 1)
+    yardsticks = {
+        "stem": ("cuDNN 7x7/2 conv + relu + max_pool2d (the xla7x7 row, three calls)",
+                 time_ms(torch, lambda: t3.xla7x7(x, w7))),
+        "stem_d": ("cuDNN 3x3 conv over D's 128-channel operands, relu excluded",
+                   time_ms(torch, lambda: F.conv2d(x128, w3p, padding=1))),
+    }
+    del ops, x128, w3p
+    hp, wp = t3.HEIGHT // 4, t3.WIDTH // 4
+    cases = t3.kernel_cases(x, w7, torch.zeros_like(bias))
+    for name in list(cases):
+        kernel, plain, args = cases.pop(name)
+        out = kernel(*args)
+        nbytes = tensor_bytes(*args, out)
+        del out
+        b_ms, b_by = bound(sv.stem_ops(t3.BATCH, hp, wp), nbytes, "bfloat16")
+        lib = yardsticks.get(name, yardsticks["stem"])
+        row = dict(
+            per=f"one call at the tool's shape, {t3.BATCH} images of {t3.HEIGHT}x{t3.WIDTH} "
+                f"bf16, the operands built beforehand",
+            ms=time_ms(torch, lambda: kernel(*args)), plain_ms=time_ms(torch, lambda: plain(*args)),
+            library_ms=lib[1], library_is=f"a yardstick: {lib[0]}",
+            bound_ms=b_ms, bound_by=b_by, ops=sv.stem_ops(t3.BATCH, hp, wp), bytes=nbytes)
+        log("kernel", kernel=name, **row)
+        records[name] = dict(row, calls=records[name])
+        del args
+    torch.cuda.synchronize()
+    return records, counts
+
+
 def make_batch(seed: int):
     rng = np.random.default_rng(seed)
     batch = {
@@ -923,6 +1016,83 @@ def profile_request(torch, infer, batch):
     }
 
 
+def h2d_ms(torch, array, repeats: int = 3) -> float:
+    """Least host ms of one copy of a numpy array to the card (pageable
+    memory, as a request copies its video)."""
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(array, device="cuda")
+        torch.cuda.synchronize()
+        best = min(best, 1e3 * (time.perf_counter() - t0))
+    return best
+
+
+def fused_vs_plain(values, fused, plain_values, plain):
+    """Phase 3's gaps of a fused forward from the all-plain one."""
+    return {
+        "encoder_out_rel": max_rel(values["encoder_out"], plain_values["encoder_out"]),
+        "decoder_out_rel": max_rel(values["decoder_out"], plain_values["decoder_out"]),
+        "score_err": (fused["class_scores"] - plain["class_scores"]).abs().max().item(),
+        "box_err_px": (fused["boxes"] - plain["boxes"]).abs().max().item(),
+    }
+
+
+def s2d_phase(torch, batch, phase2_request_s):
+    """Phase 3b: the space-to-depth flagship on the host-packed video."""
+    from future_od_tpu_torch.data.loader import host_space_to_depth
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.train.step import make_inference_fn
+
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, space_to_depth=True)
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    taps = Taps(torch, model)
+    infer = make_inference_fn(model)
+    t0 = time.perf_counter()
+    packed = dict(batch, video=host_space_to_depth(batch["video"]))
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+
+    set_gates()
+    _kernels.reset_launch_counts()
+    out, default_s = forward(torch, infer, packed, REQUESTS)
+    default_counts = launched(_kernels)
+    check_output(torch, out, args.num_queries, args.num_classes)
+    if default_counts != {"flash_attention": 6 * REQUESTS}:
+        raise AssertionError(f"s2d default gates: launches {default_counts}")
+    default_stages, default_profile = taps.stage_ms(), profile_request(torch, infer, packed)
+
+    set_gates(FUTURE_OD_FUSED_RESNET="1", FUTURE_OD_FUSED_STEM="1")
+    _kernels.reset_launch_counts()
+    fused, fused_s = forward(torch, infer, packed, REQUESTS)
+    fused_counts = launched(_kernels)
+    want = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1}
+    if fused_counts != {k: n * REQUESTS for k, n in want.items()}:
+        raise AssertionError(f"s2d fused gates: launches {fused_counts}, want {want} per forward")
+    check_output(torch, fused, args.num_queries, args.num_classes)
+    fused_values, fused_stages = dict(taps.values), taps.stage_ms()
+
+    set_gates(FUTURE_OD_DISABLE_FLASH="1")
+    _kernels.reset_launch_counts()
+    plain, plain_s = forward(torch, infer, packed, 2)
+    if any(_kernels.launch_counts.values()):
+        raise AssertionError(f"s2d all-plain forward launched {_kernels.launch_counts}")
+    diffs = fused_vs_plain(fused_values, fused, taps.values, plain)
+    log("3b-s2d-flagship-f32", **diffs, tolerances=PHASE3_TOLS,
+        video_shape=list(packed["video"].shape), host_pack_ms=pack_ms,
+        h2d_ms={"packed": h2d_ms(torch, packed["video"]),
+                "phase 2 video": h2d_ms(torch, batch["video"])},
+        request_s={"default": default_s, "fused": fused_s, "plain": plain_s,
+                   "phase 2 default (7x7 stem, 3-channel video)": phase2_request_s},
+        launches={"default": default_counts, "fused": fused_counts},
+        stage_ms={"default": default_stages, "fused": fused_stages}, profile=default_profile)
+    if not all(diffs[k] <= PHASE3_TOLS[k] for k in PHASE3_TOLS):
+        raise AssertionError("s2d fused forward differs from the all-plain forward")
+
+
 def max_rel(a, b) -> float:
     """max |a - b| over max |b|."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -958,6 +1128,9 @@ def main() -> int:
     t0 = time.perf_counter()
     tool_records, tool_counts = tools_phase(torch, torch.device("cuda"))
     log("1c-tools-kernels-vs-plain", ok=True, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    stem_records, stem_counts = stem_phase(torch, torch.device("cuda"))
+    log("1d-stem-kernels-vs-plain", ok=True, seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128)
@@ -994,20 +1167,13 @@ def main() -> int:
     plain, plain_s = forward(torch, infer, batch, 2)
     if any(_kernels.launch_counts.values()):
         raise AssertionError(f"all-plain forward launched {_kernels.launch_counts}")
-    diffs = {
-        "encoder_out_rel": max_rel(fused_values["encoder_out"], taps.values["encoder_out"]),
-        "decoder_out_rel": max_rel(fused_values["decoder_out"], taps.values["decoder_out"]),
-        "score_err": (fused["class_scores"] - plain["class_scores"]).abs().max().item(),
-        "box_err_px": (fused["boxes"] - plain["boxes"]).abs().max().item(),
-    }
-    tols = {"encoder_out_rel": ENCODER_RTOL, "decoder_out_rel": DECODER_RTOL,
-            "score_err": SCORE_TOL, "box_err_px": BOX_TOL_PX}
-    log("3-fused-vs-plain-f32", **diffs, tolerances=tols,
+    diffs = fused_vs_plain(fused_values, fused, taps.values, plain)
+    log("3-fused-vs-plain-f32", **diffs, tolerances=PHASE3_TOLS,
         score_range=[plain["class_scores"].min().item(), plain["class_scores"].max().item()],
         box_std_px=plain["boxes"].std().item(), fused_request_s=fused_s,
         plain_request_s=plain_s, launches=fused_counts, stage_ms=fused_stages,
         profile=fused_profile)
-    if not all(diffs[k] <= tols[k] for k in tols):
+    if not all(diffs[k] <= PHASE3_TOLS[k] for k in PHASE3_TOLS):
         raise AssertionError("fused forward differs from the all-plain forward")
 
     model.to(torch.bfloat16)
@@ -1025,6 +1191,11 @@ def main() -> int:
         profile=profile_request(torch, infer, batch), seconds=time.perf_counter() - t0)
     torch.cuda.synchronize()
     del model, infer, taps
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    s2d_phase(torch, batch, seconds)
+    log("3b-s2d-flagship", ok=True, seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1093,6 +1264,16 @@ def main() -> int:
             "replaces": TOOL_KERNELS[name], "launches": tool_counts[name],
             "max_abs_err": max(c["max_abs_err"] for c in rec["calls"] if c["dtype"] == "bfloat16"),
             **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per")},
+            "calls": rec["calls"],
+        })
+    for name, rec in stem_records.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "future_od_tpu_torch/csrc/stem_variants.cu",
+            "replaces": STEM_KERNELS[name], "launches": stem_counts[name],
+            "max_abs_err": max(c["max_abs_err"] for c in rec["calls"] if c["dtype"] == "bfloat16"),
+            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "library_is", "per")},
             "calls": rec["calls"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of future_od_tpu for one NVIDIA H100.
 
 The JAX package `future_od_tpu` is the reference; this package mirrors its
-layout (`ops/`, `models/`, `train/`, `utils/`, and the kernel-study `tools/`)
-so each counterpart is easy to find. It imports torch, numpy and the
+layout (`ops/`, `models/`, `train/`, `data/`, `utils/`, and the kernel-study
+`tools/`) so each counterpart is easy to find. It imports torch, numpy and the
 standard library only — never jax, flax, optax or anything under
 `future_od_tpu`.
 

@@ -43,9 +43,16 @@ def build_flagship(
     """The paper's spatiotemporal + IMU model: ResNet + IMU MLP + per-frame
     egodeep encoder, no joint encoder, recurrent decoder over 2 frames with
     first_layer_special "always"; `aux_loss` and the stem+layer1
-    `freeze_stem` cut as `args` sets them. Weights are drawn on the CPU from
-    `generator` (default: seed 0), then moved to `device` (default CUDA;
-    raises without a card). Returned in eval mode."""
+    `freeze_stem` cut and the `space_to_depth` stem as `args` sets them.
+    Weights are drawn on the CPU from `generator` (default: seed 0), then
+    moved to `device` (default CUDA; raises without a card). Returned in eval
+    mode. The int8 backbone (`int8_backbone`, `int8_static`) is not ported
+    yet and raises NotImplementedError."""
+    if args.int8_backbone or args.int8_static:
+        raise NotImplementedError(
+            "the int8 PTQ backbone (int8_backbone / int8_static) is not ported yet "
+            "(ROADMAP.md Queue 1 item 16, ops/quant.py)"
+        )
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -60,6 +67,7 @@ def build_flagship(
             backbone_name=args.backbone,
             backbone_dilation=args.dilation,
             freeze_stem=args.freeze_stem,
+            backbone_space_to_depth=args.space_to_depth,
         ),
         detector=CDetrDetectorSpatioTemporal(
             num_classes=args.num_classes,

@@ -40,16 +40,18 @@ class SeparateEncoder(nn.Module):
     def __init__(self, hidden_dim: int, imu_dim: int, enc_layers: int = 6,
                  enc_heads: int = 8, ff_dim: int = 2048, dropout: float = 0.1,
                  backbone_name: str = "resnet50", backbone_dilation: bool = False,
-                 freeze_stem: bool = False):
+                 freeze_stem: bool = False, backbone_space_to_depth: bool = False):
         super().__init__()
-        self.backbone = CDetrBackbone(hidden_dim, backbone_name, backbone_dilation, freeze_stem)
+        self.backbone = CDetrBackbone(hidden_dim, backbone_name, backbone_dilation, freeze_stem,
+                                      backbone_space_to_depth)
         self.imu_layers = ImuEncoder(imu_dim, hidden_dim)
         self.transformer = None
         if enc_layers > 0:
             self.transformer = TransformerEncoder(enc_layers, hidden_dim, enc_heads, ff_dim, dropout)
 
     def forward(self, images, imu=None):
-        """images (B, L, H, W, C); imu (B, L, imu_dim). Returns features
+        """images (B, L, H, W, C), C = 3 (or 12, host-packed, with the
+        space-to-depth stem); imu (B, L, imu_dim). Returns features
         (B, L, h, w, D) and egodeep (B, L, D) or None."""
         B, L, H, W, C = images.shape
         features = self.backbone(images.reshape(B * L, H, W, C))

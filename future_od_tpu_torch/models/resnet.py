@@ -8,14 +8,24 @@ width. The public interface is NHWC; inside, tensors are NCHW in the
 channels_last memory format, so NHWC views cost nothing.
 
 Environment gates (names and semantics of the JAX package, read at each
-forward, inference only):
+forward; the two fused ones in inference only):
 - FUTURE_OD_FUSED_RESNET=1: stride-1, dilation-1 blocks of the stages listed
   in FUTURE_OD_FUSE_STAGES (default "01", i.e. layer1 and layer2) whose input
   height is a multiple of 8 run the fused bottleneck kernel;
 - FUTURE_OD_FUSED_STEM=1 (with FUTURE_OD_FUSED_RESNET=1): the stem runs the
-  fused stem kernel over space-to-depth input when H % 32 == 0 and
-  W % 4 == 0.
-Both fold frozen BN into the conv weights and biases as the JAX package does.
+  fused stem kernel over space-to-depth input when the incoming video's
+  H % 32 == 0 and W % 4 == 0 (its stored dims: a host-packed video's are
+  halved);
+- FUTURE_OD_S2D_STEM=1: a 7x7 model computes its stem as the exactly
+  equivalent 4x4/1 conv over space_to_depth(x), the weights transformed by
+  stem_weights_to_space_to_depth.
+The fused gates fold frozen BN into the conv weights and biases as the JAX
+package does.
+
+`space_to_depth` builds the stem with the s2d-format (4, 4, 12, 64) kernel
+(`conv1` is a 12 -> 64 4x4 conv): a 12-channel (host-packed, (di, dj, c)
+order; data/loader.py::host_space_to_depth) video goes in as it is, a
+3-channel one is packed on the device first.
 
 `freeze_stem` is the stem+layer1 freeze cut: those parameters never train
 (requires_grad False) and, in training, the stem and layer1 run under
@@ -81,6 +91,60 @@ def stem_weights_to_space_to_depth(w7: torch.Tensor) -> torch.Tensor:
                     if 0 <= ki < 7 and 0 <= kj < 7:
                         w4[kp, lp, di, dj] = w7[ki, kj]
     return w4.reshape(4, 4, 4 * c_in, c_out)
+
+
+def space_to_depth4(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/4, W/4, 16C), channel order (di, dj, c)."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // 4, 4, W // 4, 4, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H // 4, W // 4, 16 * C)
+
+
+def stem_weights_to_s2d4(w7: torch.Tensor) -> torch.Tensor:
+    """The (7, 7, 3, 64) HWIO stem kernel -> the exactly equivalent
+    (3, 3, 48, 256) kernel over 4x space-to-depth input. A packed cell holds
+    a 4x4 pixel tile, i.e. a 2x2 group of the stride-2 conv's outputs, so the
+    packed conv (kernel 3, pad 1) emits all four as output channels in
+    (a, b, c) order: 7x7 output pixel (2p+a, 2q+b, c) lands in cell (p, q).
+    Packed kernel index kp and intra-cell offset di map to unpacked index
+    ki = 4·kp + di - 2a - 1 (outside [0, 7) -> zero weight; each ki has one
+    (kp, di), so coverage is exact)."""
+    kh, kw, c_in, c_out = w7.shape
+    assert (kh, kw) == (7, 7)
+    w3 = w7.new_zeros((3, 3, 4, 4, c_in, 2, 2, c_out))
+    for kp in range(3):
+        for lp in range(3):
+            for di in range(4):
+                for dj in range(4):
+                    for a in range(2):
+                        for b in range(2):
+                            ki, kj = 4 * kp + di - 2 * a - 1, 4 * lp + dj - 2 * b - 1
+                            if 0 <= ki < 7 and 0 <= kj < 7:
+                                w3[kp, lp, di, dj, :, a, b] = w7[ki, kj]
+    return w3.reshape(3, 3, 16 * c_in, 4 * c_out)
+
+
+def s2d4_stem_pool(y: torch.Tensor) -> torch.Tensor:
+    """maxpool 3x3/2 pad 1 taken directly on the s2d(4) stem conv's packed
+    output y (B, P, Q, (a, b, C)), with no depth-to-space transpose.
+
+    Pool output (p, q) covers conv rows 2p-1 .. 2p+1 = packed (p-1, a=1),
+    (p, a=0), (p, a=1), and columns likewise, so the 3x3 window factorizes
+    into a column max over the b slices, then a row max over the a slices.
+    The inputs are post-ReLU (>= 0) and every window holds a real pixel, so
+    zero-padding the shifted slices equals the reference -inf padding."""
+    C = y.shape[-1] // 4
+    y00, y01, y10, y11 = (y[..., i * C:(i + 1) * C] for i in range(4))
+
+    def shift_w(t):  # t[:, :, q - 1], zero at q = 0
+        return F.pad(t, (0, 0, 1, 0))[:, :, :-1]
+
+    def shift_h(t):  # t[:, p - 1], zero at p = 0
+        return F.pad(t, (0, 0, 0, 0, 1, 0))[:, :-1]
+
+    col0 = torch.maximum(torch.maximum(shift_w(y01), y00), y01)
+    col1 = torch.maximum(torch.maximum(shift_w(y11), y10), y11)
+    return torch.maximum(torch.maximum(shift_h(col1), col0), col1)
 
 
 def _hwio(conv: nn.Conv2d) -> torch.Tensor:
@@ -175,10 +239,13 @@ class ResNet(nn.Module):
     dilation)."""
 
     def __init__(self, name_id: str = "resnet50", dilation: bool = False,
-                 freeze_stem: bool = False):
+                 freeze_stem: bool = False, space_to_depth: bool = False):
         super().__init__()
-        self.freeze_stem = freeze_stem
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.freeze_stem, self.space_to_depth = freeze_stem, space_to_depth
+        if space_to_depth:  # padding (2, 1) is applied with F.pad in forward
+            self.conv1 = nn.Conv2d(4 * 3, 64, 4, bias=False)
+        else:
+            self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         inplanes, planes = 64, 64
         for stage_idx, num_blocks in enumerate(STAGE_BLOCKS[name_id]):
@@ -214,35 +281,58 @@ class ResNet(nn.Module):
             and fused_resnet_allowed()
         )
 
-    def forward(self, x):
-        """x: (B, H, W, 3) float or uint8 -> NCHW (channels_last) features."""
+    def use_s2d_math(self, x) -> bool:
+        """FUTURE_OD_S2D_STEM=1 on a 7x7 model with even H and W."""
+        return (
+            not self.space_to_depth
+            and os.environ.get("FUTURE_OD_S2D_STEM", "0") == "1"
+            and x.shape[1] % 2 == 0
+            and x.shape[2] % 2 == 0
+        )
+
+    def stem(self, x):
+        """(B, H, W, 3) or, with space_to_depth, host-packed (B, H/2, W/2,
+        12) video, float or uint8 -> the pooled stem output, NCHW."""
+        fused = self.use_fused_stem(x)  # on the video as it came in
+        if self.space_to_depth and x.shape[-1] != 4 * 3:
+            x = space_to_depth(x)
         dtype = self.conv1.weight.dtype
         x = device_normalize(x, dtype) if x.dtype == torch.uint8 else x.to(dtype)
+        if fused:
+            scale, shift = self.bn1.scale_shift()
+            w4 = _hwio(self.conv1)
+            if not self.space_to_depth:
+                x, w4 = space_to_depth(x), stem_weights_to_space_to_depth(w4)
+            return fused_stem(x, w4 * scale, shift).permute(0, 3, 1, 2)
+        if self.space_to_depth:
+            x = self.conv1(F.pad(x.permute(0, 3, 1, 2), (2, 1, 2, 1)))
+        elif self.use_s2d_math(x):
+            w4 = stem_weights_to_space_to_depth(_hwio(self.conv1)).permute(3, 2, 0, 1)
+            x = F.conv2d(F.pad(space_to_depth(x).permute(0, 3, 1, 2), (2, 1, 2, 1)), w4)
+        else:
+            x = self.conv1(x.permute(0, 3, 1, 2))
+        return F.max_pool2d(F.relu(self.bn1(x)), 3, 2, 1)
+
+    def forward(self, x):
+        """x: video frames (see `stem`) -> NCHW (channels_last) features."""
         below_cut = (torch.no_grad() if self.freeze_stem and self.training
                      else contextlib.nullcontext())
         with below_cut:
-            if self.use_fused_stem(x):
-                scale, shift = self.bn1.scale_shift()
-                w4 = stem_weights_to_space_to_depth(_hwio(self.conv1)) * scale
-                x = fused_stem(space_to_depth(x), w4, shift).permute(0, 3, 1, 2)
-            else:
-                x = x.permute(0, 3, 1, 2)
-                x = F.relu(self.bn1(self.conv1(x)))
-                x = F.max_pool2d(x, 3, 2, 1)
-            x = self.layer1(x)
+            x = self.layer1(self.stem(x))
         for i in range(1, self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
         return x
 
 
 class CDetrBackbone(nn.Module):
-    """ResNet trunk + 1x1 projection to hidden_dim: (B, H, W, 3) ->
-    (B, H/32, W/32, hidden_dim)."""
+    """ResNet trunk + 1x1 projection to hidden_dim: (B, H, W, 3) (or its
+    12-channel packing, with space_to_depth) -> (B, H/32, W/32, hidden_dim)."""
 
     def __init__(self, hidden_dim: int = 256, name_id: str = "resnet50",
-                 dilation: bool = False, freeze_stem: bool = False):
+                 dilation: bool = False, freeze_stem: bool = False,
+                 space_to_depth: bool = False):
         super().__init__()
-        self.body = ResNet(name_id, dilation, freeze_stem)
+        self.body = ResNet(name_id, dilation, freeze_stem, space_to_depth)
         self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
 
     def forward(self, x):

@@ -78,6 +78,14 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # layer1, tile_h, cmid, im2col, dtype, int[4] out (launches nothing)
         "fod_bottleneck_plan": [_I] * 5 + [_P],
     },
+    "stem_variants": {
+        # patches / sp, w, bias, out, B, Hp, Wp, Js, dtype, stream
+        "fod_stem_a": [_P] * 4 + [_I] * 5 + [_P],
+        "fod_stem_b": [_P] * 4 + [_I] * 5 + [_P],
+        "fod_stem_b16": [_P] * 4 + [_I] * 5 + [_P],
+        # xp, w9, out, B, Hp, Wp, dtype, stream
+        "fod_stem_d": [_P] * 3 + [_I] * 4 + [_P],
+    },
 }
 # entry points that launch no kernel, so have no launch counter
 QUERIES = ("fod_bottleneck_plan",)

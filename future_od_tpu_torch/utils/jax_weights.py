@@ -88,9 +88,13 @@ def _encoder_attention(sd, prefix, p: Tree) -> None:
     _feedforward(sd, f"{prefix}.mlp", p["mlp"])
 
 
+STEM_KERNEL_SHAPES = ((7, 7, 3, 64), (4, 4, 12, 64))  # the 7x7 stem, the space_to_depth one
+
+
 def _resnet_body(sd, prefix, params: Tree, frozen: Tree) -> None:
-    if np.shape(params["conv1"]["kernel"]) != (7, 7, 3, 64):
-        raise ValueError("only the 7x7 stem is bridged (space_to_depth=False)")
+    if np.shape(params["conv1"]["kernel"]) not in STEM_KERNEL_SHAPES:
+        raise ValueError(f"stem kernel {np.shape(params['conv1']['kernel'])}; "
+                         f"want one of {STEM_KERNEL_SHAPES}")
     _conv(sd, f"{prefix}.conv1", params["conv1"]["kernel"])
     _bn(sd, f"{prefix}.bn1", frozen["bn1"])
     for name, block in params.items():

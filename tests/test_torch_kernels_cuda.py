@@ -37,6 +37,7 @@ from future_od_tpu_torch.ops.fused_resnet import (
     layer1_plain,
     stem_plain,
 )
+from future_od_tpu_torch.tools import bench_stem
 from future_od_tpu_torch.train.step import make_inference_fn
 
 pytestmark = pytest.mark.cuda
@@ -295,6 +296,40 @@ def test_dropout_mask_kernel_bits(cuda, rate, BH, Nq, Nk, d, dv):
         col = torch.arange(Nk, device=cuda)[None, None, :]
         ref = fa.dropout_keep_mask(seed, bh, row, col, rate, nq_pad, nk_pad)
         assert torch.equal(out, ref)
+
+
+# (video shape, tile_p): the stem kernels tile 8x8 pool outputs (A, B, B16) and
+# 128 pixels (D) a block; 16x24 pools are two row tiles (tile 0's masked padding
+# row and the next tile's real first row), 12x10 ragged tiles at every edge
+STEM_SHAPES = [((2, 64, 96, 3), 8), ((1, 48, 40, 3), 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,tile_p", STEM_SHAPES)
+@pytest.mark.parametrize("kernel", ["stem_a", "stem_b", "stem_b16", "stem_d"])
+def test_stem_variants(cuda, np_rng, dtype, shape, tile_p, kernel):
+    (x,) = on(cuda, dtype, np_rng.normal(size=shape))
+    w7, bias = on(cuda, torch.float32, np_rng.normal(size=(7, 7, 3, 64)) * 0.1,
+                  np_rng.normal(size=(64,)) * 0.1)
+    wrapper, plain, args = bench_stem.kernel_cases(x, w7, bias)[kernel]
+    before = _kernels.launch_counts[kernel]
+    out = wrapper(*args, tile_p=tile_p)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts[kernel] == before + 1
+    channels = 256 if kernel == "stem_d" else 64
+    assert out.shape == (shape[0], shape[1] // 4, shape[2] // 4, channels)
+    assert_close(out, plain(*args), dtype)
+
+
+@pytest.mark.parametrize("kernel", ["stem_a", "stem_b", "stem_b16", "stem_d"])
+def test_stem_variants_refuse_unwritten_rows(cuda, np_rng, kernel):
+    (x,) = on(cuda, torch.float32, np_rng.normal(size=(1, 64, 96, 3)))
+    w7, bias = on(cuda, torch.float32, np_rng.normal(size=(7, 7, 3, 64)), np.zeros(64))
+    wrapper, _, args = bench_stem.kernel_cases(x, w7, bias)[kernel]
+    before = _kernels.launch_counts[kernel]
+    with pytest.raises(ValueError, match="not a multiple of tile_p"):
+        wrapper(*args, tile_p=5)  # Hp = 16
+    assert _kernels.launch_counts[kernel] == before
 
 
 def test_small_flagship_kernels_vs_plain(cuda, np_rng, monkeypatch):
