@@ -6,12 +6,16 @@ nvcc; the kernels are built from future_od_tpu_torch/csrc/ on first use into
 build/torch_kernels/. Phases, one line each, every failure fatal:
 
 0. the card's name and power limit (nvidia-smi); the kernel build and its
-   seconds.
+   seconds; that K1 (csrc/flash_attention.cu) runs on the tensor cores: the
+   SASS of each of its instantiations (cuobjdump) holds HMMA instructions,
+   with its registers, shared memory and spills (ptxas's report in the
+   build log, and the runtime's, with the resident blocks an SM).
 1. each kernel against its plain PyTorch version at the flagship's shapes,
    f32 (TF32 off for matmuls and cuDNN convs) and bf16: max abs error
    within the stated tolerance, the kernel's time, the plain version's, one
    library call's where PyTorch has one, and the least time the card could
-   take for the same work.
+   take for the same work (for K1 also its exponentials, at 16 ex2 a clock
+   an SM, and in f32 its products as three TF32 products each).
 2. the flagship at full width (ResNet-50, D=256, 8 heads, ff 2048, 6+6
    layers, 128 queries, 8 classes; random weights from seed 0) answering
    requests of 2 clips x 3 frames at 896x1600 through `make_inference_fn`
@@ -97,9 +101,14 @@ import time
 import numpy as np
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): f32 on the CUDA cores,
-# bf16 on the tensor cores, HBM3 bandwidth.
+# bf16 on the tensor cores, HBM3 bandwidth; TF32 on the tensor cores, which
+# K1 uses three times a product for f32 (3xTF32).
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 495e12
+# The exponential unit: 16 ex2 a clock an SM (CUDA C Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0).
+EX2_PER_CLOCK_SM = 16
 
 GATES = (
     "FUTURE_OD_DISABLE_FLASH", "FUTURE_OD_FLASH_MIN_KEYS", "FUTURE_OD_FLASH_MIN_QUERIES",
@@ -216,6 +225,70 @@ def bound(ops: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reads it."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True,
+    ).stdout.split()[0])
+
+
+def flash_bound(torch, ops: float, nbytes: float, exps: float, dtype: str):
+    """K1's least time: the largest of its products' time (bf16 at 989
+    TFLOP/s; f32 as 3xTF32, three times the operations at 495), its bytes'
+    and its exponentials' at EX2_PER_CLOCK_SM. Returns (ms, "operations" or
+    "bytes", which binds, {each: ms})."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    products = "3xTF32 products" if dtype == "float32" else "bf16 products"
+    times = {
+        products: (3 * ops / PEAK_TF32 if dtype == "float32" else ops / PEAK_OPS[dtype]),
+        "ex2": exps / (EX2_PER_CLOCK_SM * sms * sm_clock_hz()),
+        "bytes": nbytes / PEAK_BYTES,
+    }
+    binds = max(times, key=times.get)
+    return (times[binds] * 1e3, "bytes" if binds == "bytes" else "operations", binds,
+            {k: t * 1e3 for k, t in times.items()})
+
+
+def k1_tensor_core_report():
+    """Phase 0's proof that K1 runs on the tensor cores: HMMA instructions in
+    the SASS of each flash_attention_kernel instantiation, with ptxas's
+    registers and spills from the build log and the runtime's resources.
+    Raises if an instantiation has no HMMA."""
+    import re
+    from pathlib import Path
+
+    import torch
+
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.ops import flash_attention as fa
+
+    lib = _kernels.library_path(fa.NAME)
+    cuobjdump = Path(_kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "flash_attention_kernel" in name:
+            counts[name] = {op: part.count(op) for op in ("HMMA", "MUFU.EX2", "LDSM")}
+    if (len(counts) != 2 * len(fa.SUPPORTED_HEAD_DIMS)
+            or not all(c["HMMA"] for c in counts.values())):
+        raise AssertionError(f"K1's SASS: {counts}; want HMMA in every instantiation")
+    build_log = _kernels.BUILD_DIR / f"{fa.NAME}.log"
+    ptxas = {}
+    if build_log.exists():
+        for name, stores, loads, regs in re.findall(
+                r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes "
+                r"spill loads.*?Used (\d+) registers", build_log.read_text(), re.S):
+            if "flash_attention_kernel" in name:
+                ptxas[name] = {"registers": int(regs), "spill_stores": int(stores),
+                               "spill_loads": int(loads)}
+    resources = {f"{dt} d{d} dv{dv}": fa.flash_attention_info(d, dv, getattr(torch, dt))
+                 for dt in ("float32", "bfloat16") for d, dv in fa.SUPPORTED_HEAD_DIMS}
+    return {"sass": counts, "ptxas": ptxas or "no build log", "runtime": resources}
+
+
 def check_close(name, out, ref, dtype, atol=None):
     """(max abs error, its tolerance at that element's worst case); raises
     where any element is outside RTOL * |plain| + ATOL * max |plain| (ATOL
@@ -260,7 +333,8 @@ def kernel_phase(torch, dev):
         err, tol = check_close("flash_attention", out, ref, dtype)
         n_bh, n_h, n_tok, d = shape
         ops, nbytes = fa.attention_cost(n_bh, n_h, n_tok, n_tok, d, d, q.element_size())
-        b_ms, b_by = bound(ops, nbytes, dtype)
+        exps = fa.attention_exponentials(n_bh, n_h, n_tok, n_tok)
+        b_ms, b_by, b_is, b_each = flash_bound(torch, ops, nbytes, exps, dtype)
         rec = dict(
             shape=list(shape), dtype=dtype, per_forward=6, max_abs_err=err, tol=tol,
             ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, scale)),
@@ -268,7 +342,8 @@ def kernel_phase(torch, dev):
             library_ms=time_ms(
                 torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
             ),
-            bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+            bound_ms=b_ms, bound_by=b_by, bound_is=b_is, bound_each_ms=b_each,
+            ops=ops, bytes=nbytes, exps=exps,
         )
         records["flash_attention"].append(rec)
         log("kernel", kernel="flash_attention", **rec)
@@ -555,7 +630,9 @@ def tools_phase(torch, dev):
     timed = {
         "attention_floor": dict(
             per=f"one bf16sm call at {t1.SHAPE}, block_k {t1.BLOCK_K}; library: SDPA forward "
-                "(the full softmax, a yardstick: no library call computes the stripped rungs)",
+                "(the full softmax, a yardstick: no library call computes the stripped rungs); "
+                "the top rung, full, is K1 on the tensor cores, the stripped rungs compute on "
+                "the CUDA cores",
             ms=floor["bf16sm"], mode_ms=floor,
             plain_ms=time_ms(torch, lambda: af.attention_floor_plain(q, k, v, scale, "bf16sm",
                                                                      t1.BLOCK_K)),
@@ -1117,6 +1194,7 @@ def main() -> int:
     log("0-device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     log("0-build", seconds=_kernels.build_all(), build_dir=str(_kernels.BUILD_DIR))
+    log("0-k1-tensor-cores", **k1_tensor_core_report())
 
     t0 = time.perf_counter()
     records = kernel_phase(torch, torch.device("cuda"))
@@ -1218,13 +1296,17 @@ def main() -> int:
         per_fwd = lambda key: sum(r[key] * r["per_forward"] for r in f32)  # noqa: E731
         lib = [r["library_ms"] for r in f32]
         b_ms, b_by = bound(per_fwd("ops"), per_fwd("bytes"), "float32")
+        bound_is = {}
+        if name == "flash_attention":  # the 3xTF32 products, the ex2 or the bytes
+            b_ms, b_by = per_fwd("bound_ms"), f32[0]["bound_by"]
+            bound_is = {"bound_is": f32[0]["bound_is"]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"future_od_tpu_torch/csrc/{name}.cu",
             "replaces": sources[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in f32),
             "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"),
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, **bound_is,
             "library_ms": None if None in lib else per_fwd("library_ms"),
             "per": f"one f32 forward's launches, {BATCH} clips x {FRAMES - 1} past frames "
                    f"x {HEIGHT}x{WIDTH}",

@@ -46,6 +46,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
     # q, k, v, out, bh, nq, nk, d, dv, scale*log2(e), dtype, stream
     "flash_attention": {
         "fod_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        # d, dv, dtype, int[5] out (launches nothing)
+        "fod_flash_attention_info": [_I, _I, _I, _P],
     },
     # x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, cin, cmid, cout, dtype, stream
     "fused_bottleneck": {
@@ -88,7 +90,7 @@ KERNELS: Dict[str, Dict[str, list]] = {
     },
 }
 # entry points that launch no kernel, so have no launch counter
-QUERIES = ("fod_bottleneck_plan",)
+QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -2,9 +2,12 @@
 
 Inference: `flash_attention` launches the CUDA kernel `csrc/flash_attention.cu`,
 which replaces the Pallas TPU kernel `_flash_kernel`: softmax(q·kᵀ·scale)·v with
-an online softmax over key tiles, f32 dots and sums, output in q's dtype. The
-(Nq, Nk) logits never reach device memory. On a CPU tensor it runs
-`reference_attention`, the plain version of the same function.
+an online softmax over key tiles, f32 max, sums and accumulators, output in q's
+dtype. Its products run on the tensor cores (`mma.sync`): bf16 operands as
+stored with P as a hi + lo pair of bf16, f32 operands as three TF32 products
+(3xTF32, f32 accuracy). The (Nq, Nk) logits never reach device memory. On a
+CPU tensor it runs `reference_attention`, the plain version of the same
+function.
 
 Training: `flash_attention_train` is the differentiable counterpart with
 attention-weight dropout inside the kernels (`FlashAttentionTrain`). Its
@@ -18,6 +21,7 @@ the TPU kernels' bit for bit. On CPU tensors the plain versions run.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -59,6 +63,8 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
         raise ValueError(f"{NAME}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; want one of f32, bf16")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _kernels.check_cuda_operands(NAME, q, k, v)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{NAME}: operands must be 16-byte aligned (16-byte async copies)")
     out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
     _kernels.call(
         NAME, "fod_flash_attention",
@@ -76,6 +82,23 @@ def attention_cost(B: int, H: int, Nq: int, Nk: int, d: int, dv: int, itemsize: 
     ops = 2 * B * H * Nq * Nk * (d + dv)
     nbytes = itemsize * B * H * (Nq * d + Nk * d + Nk * dv + Nq * dv)
     return ops, nbytes
+
+
+def attention_exponentials(B: int, H: int, Nq: int, Nk: int) -> int:
+    """The exponentials one call needs at least: one a logit."""
+    return B * H * Nq * Nk
+
+
+def flash_attention_info(d: int, dv: int, dtype: torch.dtype) -> dict:
+    """The kernel instantiation's resources on the current card: registers a
+    thread, static and dynamic shared bytes a block, local (spill) bytes a
+    thread, resident blocks an SM. Launches nothing."""
+    out = (ctypes.c_int * 5)()
+    _kernels.call(NAME, "fod_flash_attention_info", d, dv, _kernels.DTYPE_CODES[dtype],
+                  ctypes.addressof(out))
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+            "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 # ---------------------------------------------------------------------------

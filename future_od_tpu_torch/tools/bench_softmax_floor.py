@@ -9,7 +9,9 @@ design) beside the kernel itself (ops/flash_attention.py, "full"):
   dots     the products alone: q·kᵀ then P·V, no softmax (wrong numerics)
   unsafe   + exp2 and the row sum, no running max and no corrections
   bf16sm   the full online softmax with its per-element chain in bf16
-  full     the shipped kernel: online softmax, f32 chain
+  full     the shipped kernel: online softmax, f32 chain, its products on
+           the tensor cores (the stripped rungs compute on the CUDA cores,
+           so the ladder's gaps below full mix the two)
 
 then prints the gaps between the rungs in ms and as shares of full, and the
 bf16 softmax's max |Δ| against full. The TPU tool's `bf16dot` row (full with

@@ -85,7 +85,9 @@ def assert_close(out, ref, dtype, tol_dtype=None, atol=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "B,H,Nq,Nk,d,dv",
-    [(4, 8, 1400, 1400, 32, 32), (1, 2, 70, 130, 64, 32), (1, 1, 17, 65, 32, 32)],
+    [(4, 8, 1400, 1400, 32, 32), (1, 2, 70, 130, 64, 32), (1, 1, 17, 65, 32, 32),
+     # cutting the 16-row mma tiles and the 64-key tiles raggedly
+     (1, 1, 1, 1, 32, 32), (1, 3, 100, 1400, 32, 32), (2, 8, 1400, 1400, 64, 32)],
 )
 def test_flash_attention(cuda, np_rng, dtype, B, H, Nq, Nk, d, dv):
     q, k, v = on(cuda, dtype, np_rng.normal(size=(B, H, Nq, d)),
@@ -96,6 +98,35 @@ def test_flash_attention(cuda, np_rng, dtype, B, H, Nq, Nk, d, dv):
     assert _kernels.launch_counts["flash_attention"] == before + 1
     assert out.dtype == dtype and out.shape == (B, H, Nq, dv)
     assert_close(out, reference_attention(q, k, v, 1.0 / math.sqrt(d)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [-0.2, 0.0])
+def test_flash_attention_scale_sign(cuda, np_rng, dtype, scale):
+    """A negative scale (folded into q) and scale 0 (a plain mean of v; the
+    ragged key tile's missing keys must still weigh 0)."""
+    q, k, v = on(cuda, dtype, np_rng.normal(size=(1, 2, 70, 64)),
+                 np_rng.normal(size=(1, 2, 130, 64)), np_rng.normal(size=(1, 2, 130, 32)))
+    out = flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert_close(out, reference_attention(q, k, v, scale), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_attention_large_logits(cuda, np_rng, dtype, d):
+    """Logits of about 1e3: the softmax is nearly one-hot and the running max
+    moves from tile to tile. Integer q and k and a power-of-two scale keep
+    the logits exact in f32 on both sides, so the f32 tolerance measures the
+    kernel and not the plain version's rounding of 1e3-sized logits."""
+    q, k = on(cuda, dtype, np_rng.integers(-64, 65, size=(1, 2, 200, d)),
+              np_rng.integers(-64, 65, size=(1, 2, 300, d)))
+    (v,) = on(cuda, dtype, np_rng.normal(size=(1, 2, 300, 32)))
+    logits = (q.float() @ k.float().transpose(-1, -2)) * 0.125
+    assert 500.0 < logits.abs().max().item() < 1e4
+    out = flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert_close(out, reference_attention(q, k, v, 0.125), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
