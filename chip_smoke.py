@@ -6,16 +6,28 @@ nvcc; the kernels are built from future_od_tpu_torch/csrc/ on first use into
 build/torch_kernels/. Phases, one line each, every failure fatal:
 
 0. the card's name and power limit (nvidia-smi); the kernel build and its
-   seconds; that K1 (csrc/flash_attention.cu) runs on the tensor cores: the
-   SASS of each of its instantiations (cuobjdump) holds HMMA instructions,
-   with its registers, shared memory and spills (ptxas's report in the
-   build log, and the runtime's, with the resident blocks an SM).
+   seconds; that K1 (csrc/flash_attention.cu) and K2
+   (csrc/fused_bottleneck.cu) run on the tensor cores: the SASS of each of
+   their instantiations (cuobjdump) holds HMMA instructions, with its
+   registers, shared memory and spills (ptxas's report in the build log,
+   and the runtime's, with the resident blocks an SM).
 1. each kernel against its plain PyTorch version at the flagship's shapes,
    f32 (TF32 off for matmuls and cuDNN convs) and bf16: max abs error
    within the stated tolerance, the kernel's time, the plain version's, one
-   library call's where PyTorch has one, and the least time the card could
-   take for the same work (for K1 also its exponentials, at 16 ex2 a clock
-   an SM, and in f32 its products as three TF32 products each).
+   library call's where PyTorch has one (SDPA for K1) or a yardstick where
+   none computes the function (K2: cuDNN's convolutions of the block,
+   channels-last, plus the add and the relus; K3: cuDNN's 7x7/2 conv + bias
+   + relu + max_pool2d), and the least time the card could take for the
+   same work (for K1 also its exponentials, at 16 ex2 a clock an SM; K1's
+   and K2's f32 products as three TF32 products each).
+1e. the head dims added for heads of 16 (runs/nuim_single_frame.py --debug:
+   16/16 in the encoder, 32/16 in the conditional cross-attention) and 64
+   (64/64): K1 and K4-K6 against their plain versions at each, f32 and
+   bf16; then a narrow
+   flagship with 4 heads of 16 (hidden 64) on a 1024x1024 clip, 1024
+   tokens, through `make_inference_fn` with the default gates: K1 launches
+   for every encoder self-attention and the scores and boxes equal the
+   all-plain forward's.
 2. the flagship at full width (ResNet-50, D=256, 8 heads, ff 2048, 6+6
    layers, 128 queries, 8 classes; random weights from seed 0) answering
    requests of 2 clips x 3 frames at 896x1600 through `make_inference_fn`
@@ -102,7 +114,7 @@ import numpy as np
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): f32 on the CUDA cores,
 # bf16 on the tensor cores, HBM3 bandwidth; TF32 on the tensor cores, which
-# K1 uses three times a product for f32 (3xTF32).
+# K1 and K2 use three times a product for f32 (3xTF32).
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
@@ -135,6 +147,8 @@ ENCODER_RTOL, DECODER_RTOL, SCORE_TOL, BOX_TOL_PX = 1e-3, 1e-5, 1e-5, 1e-2
 PHASE3_TOLS = {"encoder_out_rel": ENCODER_RTOL, "decoder_out_rel": DECODER_RTOL,
                "score_err": SCORE_TOL, "box_err_px": BOX_TOL_PX}
 TOP_KERNELS = 8
+# the port's kernels on the serving path, as the profiler names them
+PORT_KERNEL_NAMES = ("flash_attention_kernel", "fused_bottleneck_kernel", "fused_stem_kernel")
 # Training: bench_train.py's stage-1 config (448x800, 3 frames, 256 target
 # slots) at batch 4 instead of 32.
 TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS, TRAIN_STEPS = 4, 448, 800, 256, 5
@@ -161,6 +175,21 @@ TRAIN_KERNELS = ("flash_train_fwd", "flash_train_dq", "flash_train_dkv")
 # ulps.
 LOSS_RTOL, GRAD_FLOOR = 1e-6, 1e-4
 GRAD_RTOL = {"separate_encoder": 0.071, "detector": 6.7e-4}
+# Phase 1e: (label, B, H, Nq, Nk, d, dv) at heads of 16, the debug config's
+# encoder self-attention over 1024 tokens and its decoder's concat heads, and
+# at an encoder's heads of 64 (hidden 512 over 8 heads).
+HEAD16_ATTENTIONS = (
+    ("encoder 16/16", 2, 4, 1024, 1024, 16, 16),
+    ("decoder 32/16", 2, 4, 300, 1024, 32, 16),
+    ("encoder 64/64", 1, 8, 1024, 1024, 64, 64),
+)
+# The narrow flagship's scores and boxes (px), through K1 vs all plain, f32:
+# tests/test_torch_kernels_cuda.py::test_small_flagship_kernels_vs_plain's.
+NARROW_TOLS = {"score_err": 1e-4, "box_err_px": 1e-2}
+NARROW_FRAME = 1024  # the narrow flagship's frames: 1024x1024, 32x32 = 1024 tokens
+K2_YARDSTICK = ("cuDNN's convolutions of the block (three, and the projection where it has "
+                "one), channels-last, plus the add and the relus")
+K3_YARDSTICK = "cuDNN's 7x7/2 conv + bias + relu + max_pool2d over the unpacked frames"
 # Phase 1c: the kernel-study tools' kernels, with the TPU tools' file:line.
 TOOL_KERNELS = {
     "attention_floor": "tools/bench_softmax_floor.py:55",
@@ -225,6 +254,18 @@ def bound(ops: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def tc_bound(ops: float, nbytes: float, dtype: str):
+    """The least time of a product on the tensor cores: bf16 at 989 TFLOP/s,
+    f32 as 3xTF32 (three times the operations at 495), or the bytes.
+    Returns (ms, "operations" or "bytes", which binds)."""
+    products = "3xTF32 products" if dtype == "float32" else "bf16 products"
+    t_ops = 3 * ops / PEAK_TF32 if dtype == "float32" else ops / PEAK_OPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations", products
+    return t_bytes * 1e3, "bytes", "bytes"
+
+
 def sm_clock_hz() -> float:
     """The card's highest SM clock, as nvidia-smi reads it."""
     return 1e6 * float(subprocess.run(
@@ -250,43 +291,66 @@ def flash_bound(torch, ops: float, nbytes: float, exps: float, dtype: str):
             {k: t * 1e3 for k, t in times.items()})
 
 
-def k1_tensor_core_report():
-    """Phase 0's proof that K1 runs on the tensor cores: HMMA instructions in
-    the SASS of each flash_attention_kernel instantiation, with ptxas's
-    registers and spills from the build log and the runtime's resources.
-    Raises if an instantiation has no HMMA."""
+def tensor_core_report(lib_name: str, kernel: str, instantiations: int, resources: dict):
+    """Phase 0's proof that a kernel runs on the tensor cores: HMMA
+    instructions in the SASS of each instantiation of `kernel` in library
+    `lib_name`, with ptxas's registers and spills from the build log and
+    `resources` (the runtime's, from the kernel's info query). Raises unless
+    there are `instantiations` of them, each with HMMA."""
     import re
     from pathlib import Path
 
-    import torch
-
     from future_od_tpu_torch.ops import _kernels
-    from future_od_tpu_torch.ops import flash_attention as fa
 
-    lib = _kernels.library_path(fa.NAME)
+    lib = _kernels.library_path(lib_name)
     cuobjdump = Path(_kernels._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     counts = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if "flash_attention_kernel" in name:
-            counts[name] = {op: part.count(op) for op in ("HMMA", "MUFU.EX2", "LDSM")}
-    if (len(counts) != 2 * len(fa.SUPPORTED_HEAD_DIMS)
-            or not all(c["HMMA"] for c in counts.values())):
-        raise AssertionError(f"K1's SASS: {counts}; want HMMA in every instantiation")
-    build_log = _kernels.BUILD_DIR / f"{fa.NAME}.log"
+        if kernel in name:
+            counts[name] = {op: part.count(op) for op in ("HMMA", "MUFU.EX2", "LDSM", "LDGSTS")}
+    if len(counts) != instantiations or not all(c["HMMA"] for c in counts.values()):
+        raise AssertionError(f"{kernel}'s SASS: {counts}; want HMMA in each of "
+                             f"{instantiations} instantiations")
+    build_log = _kernels.BUILD_DIR / f"{lib_name}.log"
     ptxas = {}
     if build_log.exists():
         for name, stores, loads, regs in re.findall(
                 r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, (\d+) bytes "
                 r"spill loads.*?Used (\d+) registers", build_log.read_text(), re.S):
-            if "flash_attention_kernel" in name:
+            if kernel in name:
                 ptxas[name] = {"registers": int(regs), "spill_stores": int(stores),
                                "spill_loads": int(loads)}
+    return {"sass": counts, "ptxas": ptxas or "no build log", "runtime": resources}
+
+
+def k1_tensor_core_report():
+    """K1: every (dtype, head dims) instantiation."""
+    import torch
+
+    from future_od_tpu_torch.ops import flash_attention as fa
+
     resources = {f"{dt} d{d} dv{dv}": fa.flash_attention_info(d, dv, getattr(torch, dt))
                  for dt in ("float32", "bfloat16") for d, dv in fa.SUPPORTED_HEAD_DIMS}
-    return {"sass": counts, "ptxas": ptxas or "no build log", "runtime": resources}
+    return tensor_core_report(fa.NAME, "flash_attention_kernel",
+                              2 * len(fa.SUPPORTED_HEAD_DIMS), resources)
+
+
+def k2_tensor_core_report():
+    """K2: every (dtype, cmid) instantiation; the runtime's resources with
+    and without the downsample's x chunks."""
+    import torch
+
+    from future_od_tpu_torch.ops import fused_resnet as fr
+
+    resources = {f"{dt} cmid{cmid} downsample {ds}":
+                 fr.fused_bottleneck_info(cmid, getattr(torch, dt), ds)
+                 for dt in ("float32", "bfloat16") for cmid in fr.BOTTLENECK_CMIDS
+                 for ds in (False, True)}
+    return tensor_core_report(fr.BOTTLENECK, "fused_bottleneck_kernel",
+                              2 * len(fr.BOTTLENECK_CMIDS), resources)
 
 
 def check_close(name, out, ref, dtype, atol=None):
@@ -348,6 +412,19 @@ def kernel_phase(torch, dev):
         records["flash_attention"].append(rec)
         log("kernel", kernel="flash_attention", **rec)
 
+    def conv_weight(w, dt):  # (in, out) matrix or HWIO -> OIHW, channels-last, in dt
+        w = w.t()[:, :, None, None] if w.dim() == 2 else w.permute(3, 2, 0, 1)
+        return w.to(dt).contiguous(memory_format=torch.channels_last)
+
+    def block_yardstick(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
+        """K2's yardstick: cuDNN's convolutions of the block on channels-last
+        x, plus the add and the relus (no library call fuses the block)."""
+        xc = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last NCHW view
+        h = F.relu(F.conv2d(xc, w1, b1))
+        h = F.relu(F.conv2d(h, w2, b2, padding=1))
+        h = F.conv2d(h, w3, b3)
+        return F.relu(h + (xc if wd is None else F.conv2d(xc, wd, bd)))
+
     # K2: layer1 block 0 (downsample), a layer1 inner block, a layer2 inner block.
     n_img = 2 * BATCH
     blocks = [
@@ -368,17 +445,22 @@ def kernel_phase(torch, dev):
             dt = getattr(torch, dtype)
             x = x32.to(dt)
             w = {k: (t if k.startswith("b") else t.to(dt)) for k, t in w32.items()}
-            out = fr.fused_bottleneck(x, **w)
+            packed = fr.pack_bottleneck(dt, **w)  # once, as the model's blocks pack theirs
+            out = fr.fused_bottleneck_packed(x, packed)
             ref = fr.bottleneck_plain(x, **w)
             err, tol = check_close(f"fused_bottleneck {label}", out, ref, dtype)
             ops, nbytes = fr.bottleneck_cost(B, H, W, cin, cmid, cout, ds, x.element_size())
-            b_ms, b_by = bound(ops, nbytes, dtype)
+            b_ms, b_by, b_is = tc_bound(ops, nbytes, dtype)
+            yard = {k: (t.to(dt) if k.startswith("b") else conv_weight(t, dt))
+                    for k, t in w32.items()}
             rec = dict(
                 block=label, shape=[B, H, W, cin], cmid=cmid, cout=cout, dtype=dtype,
                 per_forward=per_forward, max_abs_err=err, tol=tol,
-                ms=time_ms(torch, lambda: fr.fused_bottleneck(x, **w)),
+                ms=time_ms(torch, lambda: fr.fused_bottleneck_packed(x, packed)),
                 plain_ms=time_ms(torch, lambda: fr.bottleneck_plain(x, **w)),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+                library_ms=time_ms(torch, lambda: block_yardstick(x, **yard)),
+                library_is=f"a yardstick: {K2_YARDSTICK}",
+                bound_ms=b_ms, bound_by=b_by, bound_is=b_is, ops=ops, bytes=nbytes,
             )
             records["fused_bottleneck"].append(rec)
             log("kernel", kernel="fused_bottleneck", **rec)
@@ -386,11 +468,13 @@ def kernel_phase(torch, dev):
     # K3: the 896x1600 stem over space-to-depth input.
     video = randn(n_img, HEIGHT, WIDTH, 3)
     xs32 = space_to_depth(video)
-    w4_32 = stem_weights_to_space_to_depth(randn(7, 7, 3, 64, scale=math.sqrt(2 / 147)))
+    w7 = randn(7, 7, 3, 64, scale=math.sqrt(2 / 147))
+    w4_32 = stem_weights_to_space_to_depth(w7)
     bias = randn(64, scale=0.1)
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         xs, w4 = xs32.to(dt), w4_32.to(dt)
+        frames, w7c, bias_dt = video.to(dt).permute(0, 3, 1, 2), conv_weight(w7, dt), bias.to(dt)
         out = fr.fused_stem(xs, w4, bias)
         ref = fr.stem_plain(xs, w4, bias)
         err, tol = check_close("fused_stem", out, ref, dtype)
@@ -400,7 +484,10 @@ def kernel_phase(torch, dev):
             shape=list(xs.shape), dtype=dtype, per_forward=1, max_abs_err=err, tol=tol,
             ms=time_ms(torch, lambda: fr.fused_stem(xs, w4, bias)),
             plain_ms=time_ms(torch, lambda: fr.stem_plain(xs, w4, bias)),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+            library_ms=time_ms(torch, lambda: F.max_pool2d(
+                F.relu(F.conv2d(frames, w7c, bias_dt, stride=2, padding=3)), 3, 2, 1)),
+            library_is=f"a yardstick: {K3_YARDSTICK}",
+            bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
         )
         records["fused_stem"].append(rec)
         log("kernel", kernel="fused_stem", **rec)
@@ -495,6 +582,80 @@ def train_kernel_phase(torch, dev):
                     rec["library_ms"] = lib
     torch.cuda.synchronize()
     return records
+
+
+def head_dims_phase(torch, dev):
+    """Phase 1e on device `dev`: K1 and K4-K6 at the head dims of heads of
+    16 and 64 against their plain versions, then the narrow 4-heads-of-16 flagship
+    through `make_inference_fn`. Returns what it measured."""
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.ops import flash_attention as fa
+    from future_od_tpu_torch.train.step import make_inference_fn
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = {}
+    for label, B, H, Nq, Nk, d, dv in HEAD16_ATTENTIONS:
+        q32, k32, do32 = (torch.randn(*s, generator=gen, device=dev)
+                          for s in ((B, H, Nq, d), (B, H, Nk, d), (B, H, Nq, dv)))
+        v32 = torch.randn(B, H, Nk, dv, generator=gen, device=dev)
+        nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+        args = (777, 1.0 / math.sqrt(d), 0.1, nq_pad, nk_pad)
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, do = (t.to(getattr(torch, dtype)) for t in (q32, k32, v32, do32))
+            tag = f"{label} {dtype}"
+            e = {"flash_attention": check_close(
+                f"flash_attention {tag}", fa.flash_attention(q, k, v, args[1]),
+                fa.reference_attention(q, k, v, args[1]), dtype)[0]}
+            q, k, v, do = (t.reshape(B * H, *t.shape[2:]) for t in (q, k, v, do))
+            ref_out, ref_lse = fa.flash_train_fwd_plain(q, k, v, *args)
+            out, lse = fa.flash_train_fwd(q, k, v, *args)
+            e["flash_train_fwd"] = max(
+                check_close(f"flash_train_fwd out {tag}", out, ref_out, dtype)[0],
+                check_close(f"flash_train_fwd lse {tag}", lse, ref_lse, "float32")[0])
+            delta = (do.float() * ref_out.float()).sum(-1)
+            e["flash_train_dq"] = check_close(
+                f"flash_train_dq {tag}", fa.flash_dq(q, k, v, do, ref_lse, delta, *args),
+                fa.flash_dq_plain(q, k, v, do, ref_lse, delta, *args), dtype)[0]
+            dk, dvv = fa.flash_dkv(q, k, v, do, ref_lse, delta, *args)
+            ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
+            e["flash_train_dkv"] = max(check_close(f"flash_train_dkv dk {tag}", dk, ref_dk, dtype)[0],
+                                       check_close(f"flash_train_dkv dv {tag}", dvv, ref_dv, dtype)[0])
+            errs[tag] = e
+
+    # the narrow flagship: hidden 64 over 4 heads, 1024 tokens a frame
+    args = SpatioTemporalDETRArgs(num_classes=4, hidden_dim=64, enc_nheads=4, nheads=4,
+                                  enc_layers=2, dec_layers=2, dim_feedforward=128,
+                                  num_queries=16, dropout=0.0)
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    infer = make_inference_fn(model)
+    rng = np.random.default_rng(5)
+    batch = {"video": rng.standard_normal((1, FRAMES, NARROW_FRAME, NARROW_FRAME, 3),
+                                          dtype=np.float32)}
+    for key, width in {"translation": 3, "acceleration": 3, "rotation": 4, "rotation_rate": 3,
+                       "speed": 1}.items():
+        batch[key] = rng.standard_normal((1, FRAMES, width), dtype=np.float32)
+    set_gates()
+    _kernels.reset_launch_counts()
+    out = infer(batch)
+    torch.cuda.synchronize()
+    counts = launched(_kernels)
+    want = {"flash_attention": args.enc_layers}  # one launch a layer over both past frames
+    if counts != want:
+        raise AssertionError(f"4 heads of 16 at 1024 tokens: launches {counts}, want {want}")
+    set_gates(FUTURE_OD_DISABLE_FLASH="1")
+    plain = infer(batch)
+    set_gates()
+    gaps = {"score_err": (out["class_scores"] - plain["class_scores"]).abs().max().item(),
+            "box_err_px": (out["boxes"] - plain["boxes"]).abs().max().item()}
+    if not all(gaps[k] <= NARROW_TOLS[k] for k in NARROW_TOLS):
+        raise AssertionError(f"4 heads of 16: kernels vs plain {gaps}, tolerances {NARROW_TOLS}")
+    del model, infer
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "narrow_flagship": {"launches": counts, **gaps,
+                                                     "tolerances": NARROW_TOLS}}
 
 
 def saturated_logits_check(torch, fa, gen, BH, Nq, Nk, d, dv, seed, rate=0.1):
@@ -960,7 +1121,7 @@ def train_phase(torch):
             launches=counts,
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             forward_stage_ms=taps.stage_ms(),
-            profile=profile_request(torch, lambda b: step(b, 0), data),
+            profile=profile_request(torch, lambda b: step(b, 0), data, taps.stages),
             step_stage_ms=step_stages(torch, model, cfg, optimizer, data),
         )
         log(f"5b-train-steps-gate-{gate.replace(' ', '-')}", **runs[gate])
@@ -1029,7 +1190,7 @@ class Taps:
             "encoder": core.separate_encoder.transformer,
             "detector": core.detector,
         }
-        self.events, self.values = {}, {}
+        self.stages, self.events, self.values = stages, {}, {}
 
         def enter(name):
             def hook(module, args):
@@ -1059,37 +1220,65 @@ class Taps:
         return {k: e[0].elapsed_time(e[1]) for k, e in self.events.items()}
 
 
-def profile_request(torch, infer, batch):
+def profile_request(torch, infer, batch, stages):
     """One request under torch.profiler: the union of the card's kernel and
-    copy time ranges, the share of the request's wall time it ran none, and
-    the kernels with the most device time."""
+    copy time ranges, the share of the request's wall time it ran none, the
+    kernels with the most device time, the port's own kernels, and for each
+    stage (a module of `stages`, its forward marked by a profiler range) the
+    host ms its forward took and the device ms of the kernels it launched."""
     from torch.autograd import DeviceType
 
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        infer(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    marks, handles = {}, []
+    for name, module in stages.items():
+        def enter(module, args, name=name):
+            marks[name] = torch.profiler.record_function(f"stage:{name}")
+            marks[name].__enter__()
 
-    def on_device(events):  # without CUPTI's own buffer bookkeeping
-        return [e for e in events
-                if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer")]
+        def leave(module, args, out, name=name):
+            marks.pop(name).__exit__(None, None, None)
+
+        handles += [module.register_forward_pre_hook(enter), module.register_forward_hook(leave)]
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            infer(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for handle in handles:
+            handle.remove()
+
+    def on_device(events):  # without CUPTI's own buffer bookkeeping and the stage marks
+        return [e for e in events if e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("Activity Buffer", "stage:"))]
 
     busy, end = 0.0, float("-inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in on_device(prof.events())):
         if e > end:
             busy += e - max(s, end)
             end = e
-    top = sorted(on_device(prof.key_averages()), key=lambda e: e.self_device_time_total,
-                 reverse=True)[:TOP_KERNELS]
+    by_time = sorted(on_device(prof.key_averages()), key=lambda e: e.self_device_time_total,
+                     reverse=True)
     if busy <= 0:
         raise AssertionError("the profiler saw no device activity in a request")
+    stage_split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("stage:"):
+            split = stage_split.setdefault(e.name[len("stage:"):], {"host_ms": 0.0,
+                                                                    "kernel_ms": 0.0})
+            split["host_ms"] += e.cpu_time_total / 1e3
+            split["kernel_ms"] += e.device_time_total / 1e3
     return {
         "profiled_request_ms": wall_ms, "busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / 1e3 / wall_ms,
         "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                         "device_ms": e.self_device_time_total / 1e3} for e in top],
+                         "device_ms": e.self_device_time_total / 1e3}
+                        for e in by_time[:TOP_KERNELS]],
+        "port_kernels": [{"name": e.key[:90], "calls": e.count,
+                          "device_ms": e.self_device_time_total / 1e3}
+                         for e in by_time if any(k in e.key for k in PORT_KERNEL_NAMES)],
+        "stages": stage_split,
     }
 
 
@@ -1140,7 +1329,8 @@ def s2d_phase(torch, batch, phase2_request_s):
     check_output(torch, out, args.num_queries, args.num_classes)
     if default_counts != {"flash_attention": 6 * REQUESTS}:
         raise AssertionError(f"s2d default gates: launches {default_counts}")
-    default_stages, default_profile = taps.stage_ms(), profile_request(torch, infer, packed)
+    default_stages = taps.stage_ms()
+    default_profile = profile_request(torch, infer, packed, taps.stages)
 
     set_gates(FUTURE_OD_FUSED_RESNET="1", FUTURE_OD_FUSED_STEM="1")
     _kernels.reset_launch_counts()
@@ -1195,6 +1385,7 @@ def main() -> int:
         kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     log("0-build", seconds=_kernels.build_all(), build_dir=str(_kernels.BUILD_DIR))
     log("0-k1-tensor-cores", **k1_tensor_core_report())
+    log("0-k2-tensor-cores", **k2_tensor_core_report())
 
     t0 = time.perf_counter()
     records = kernel_phase(torch, torch.device("cuda"))
@@ -1202,6 +1393,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train_records = train_kernel_phase(torch, torch.device("cuda"))
     log("1b-train-kernels-vs-plain", ok=True, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    log("1e-head-dims", ok=True, **head_dims_phase(torch, torch.device("cuda")),
+        seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     tool_records, tool_counts = tools_phase(torch, torch.device("cuda"))
@@ -1227,7 +1421,7 @@ def main() -> int:
     log("2-flagship-f32", ok=True, requests=REQUESTS, request_s=seconds,
         launches=main_counts, stage_ms=taps.stage_ms(),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        profile=profile_request(torch, infer, batch), seconds=time.perf_counter() - t0)
+        profile=profile_request(torch, infer, batch, taps.stages), seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     set_gates(FUTURE_OD_FUSED_RESNET="1", FUTURE_OD_FUSED_STEM="1")
@@ -1239,7 +1433,7 @@ def main() -> int:
         raise AssertionError(f"fused gates: launches {fused_counts}, want {want} per forward")
     check_output(torch, fused, args.num_queries, args.num_classes)
     fused_values, fused_stages = dict(taps.values), taps.stage_ms()
-    fused_profile = profile_request(torch, infer, batch)
+    fused_profile = profile_request(torch, infer, batch, taps.stages)
     set_gates(FUTURE_OD_DISABLE_FLASH="1")
     _kernels.reset_launch_counts()
     plain, plain_s = forward(torch, infer, batch, 2)
@@ -1266,7 +1460,7 @@ def main() -> int:
         stage_ms=taps.stage_ms(),
         score_diff_vs_f32=(bf16["class_scores"].float() - fused["class_scores"]).abs().max().item(),
         box_diff_vs_f32_px=(bf16["boxes"].float() - fused["boxes"]).abs().max().item(),
-        profile=profile_request(torch, infer, batch), seconds=time.perf_counter() - t0)
+        profile=profile_request(torch, infer, batch, taps.stages), seconds=time.perf_counter() - t0)
     torch.cuda.synchronize()
     del model, infer, taps
     torch.cuda.empty_cache()
@@ -1300,6 +1494,11 @@ def main() -> int:
         if name == "flash_attention":  # the 3xTF32 products, the ex2 or the bytes
             b_ms, b_by = per_fwd("bound_ms"), f32[0]["bound_by"]
             bound_is = {"bound_is": f32[0]["bound_is"]}
+        elif name == "fused_bottleneck":  # the 3xTF32 products or the bytes
+            b_ms, b_by, b_is = tc_bound(per_fwd("ops"), per_fwd("bytes"), "float32")
+            bound_is = {"bound_is": b_is}
+        if "library_is" in f32[0]:
+            bound_is["library_is"] = f32[0]["library_is"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"future_od_tpu_torch/csrc/{name}.cu",

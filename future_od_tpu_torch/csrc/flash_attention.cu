@@ -60,7 +60,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -81,56 +81,18 @@ struct Geometry {
   // d 32, is one wave of 132 SMs at 6 an SM (792 slots) and two at 5 (660), so bf16
   // d 32 is held to 80 registers; f32 takes two waves at 3 or 4.
   static constexpr int kMinBlocks =
-      std::is_same<T, float>::value ? (D == 32 ? 3 : 2) : (D == 32 ? 6 : 4);
-  static_assert(D % 32 == 0 && DV % 16 == 0, "head dims");
+      std::is_same<T, float>::value ? (D <= 32 ? 3 : 2) : (D <= 32 ? 6 : 4);
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(dst), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
+using fod::cp_async16;
+using fod::ldmatrix_x2;
+using fod::ldmatrix_x4;
+using fod::ldmatrix_x4_trans;
+using fod::mma_3xtf32;
+using fod::mma_bf16;
+using fod::smem_addr;
+using fod::split_tf32;
 
 // 2^x by one MUFU.EX2. exp2f adds a range test and two multiplies to keep results
 // below 2^-126 from flushing to zero; the softmax weights here lie in [0, 1] beside a
@@ -139,22 +101,6 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-// x = big + small to about 2^-22 relative, each a tf32 value.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// c += a b as 3xTF32: the two cross terms first, then big * big.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4], uint32_t b0_big,
-                                           uint32_t b1_big, uint32_t b0_small,
-                                           uint32_t b1_small) {
-  mma_tf32(c, a_big, b0_small, b1_small);
-  mma_tf32(c, a_small, b0_big, b1_big);
-  mma_tf32(c, a_big, b0_big, b1_big);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
@@ -263,11 +209,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int n_tiles = (nk + kBlockK - 1) / kBlockK;
   load_tile<T, D, DV>(smem, kb, vb, nk, 0, 0);
-  asm volatile("cp.async.commit_group;\n");
+  fod::cp_async_commit();
   for (int tile = 0; tile < n_tiles; ++tile) {
     if (tile + 1 < n_tiles) load_tile<T, D, DV>(smem, kb, vb, nk, tile + 1, (tile + 1) & 1);
-    asm volatile("cp.async.commit_group;\n");
-    asm volatile("cp.async.wait_group 1;\n");
+    fod::cp_async_commit();
+    fod::cp_async_wait_one();
     __syncthreads();
     const unsigned char* ks = smem + (tile & 1) * G::kStage;
     const unsigned char* vs = ks + kBlockK * G::kRowK;
@@ -293,6 +239,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           mma_bf16(s[j], qa[2 * ch], b[0], b[1]);
           mma_bf16(s[j], qa[2 * ch + 1], b[2], b[3]);
         }
+      }
+      if constexpr (D * sizeof(T) % 64 != 0) {  // bf16 d 16 (or 48): one last k-step
+        constexpr int ch = D * (int)sizeof(T) / 64;  // lanes 0..15 address its 2 chunks
+        uint32_t b[2];
+        ldmatrix_x2(b, smem_addr(krow + ch * 64));
+        mma_bf16(s[j], qa[2 * ch], b[0], b[1]);
       }
     }
 
@@ -457,11 +409,28 @@ int info(int* out) {
   return 0;
 }
 
+// The instantiated (d, dv), as ops/flash_attention.py's SUPPORTED_HEAD_DIMS lists
+// them: the flagship encoder's 32/32 and conditional cross-attention's concat heads
+// 64/32, the same at heads of 16 (the single-frame debug config), 16/16 and 32/16,
+// and an encoder's heads of 64, 64/64.
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int bh, int nq,
              int nk, int d, int dv, float scale_log2, cudaStream_t stream) {
   if (d == 32 && dv == 32) return launch<T, 32, 32>(q, k, v, out, bh, nq, nk, scale_log2, stream);
   if (d == 64 && dv == 32) return launch<T, 64, 32>(q, k, v, out, bh, nq, nk, scale_log2, stream);
+  if (d == 16 && dv == 16) return launch<T, 16, 16>(q, k, v, out, bh, nq, nk, scale_log2, stream);
+  if (d == 32 && dv == 16) return launch<T, 32, 16>(q, k, v, out, bh, nq, nk, scale_log2, stream);
+  if (d == 64 && dv == 64) return launch<T, 64, 64>(q, k, v, out, bh, nq, nk, scale_log2, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int dispatch_info(int d, int dv, int* out) {
+  if (d == 32 && dv == 32) return info<T, 32, 32>(out);
+  if (d == 64 && dv == 32) return info<T, 64, 32>(out);
+  if (d == 16 && dv == 16) return info<T, 16, 16>(out);
+  if (d == 32 && dv == 16) return info<T, 32, 16>(out);
+  if (d == 64 && dv == 64) return info<T, 64, 64>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -484,12 +453,7 @@ extern "C" int fod_flash_attention(const void* q, const void* k, const void* v, 
 // out[5]: the instantiation's registers a thread, static shared bytes, dynamic shared
 // bytes a block, local bytes a thread (spills), resident blocks an SM. Launches nothing.
 extern "C" int fod_flash_attention_info(int d, int dv, int dtype, int* out) {
-  if (dtype == fod::kFloat32) {
-    if (d == 32 && dv == 32) return info<float, 32, 32>(out);
-    if (d == 64 && dv == 32) return info<float, 64, 32>(out);
-  } else if (dtype == fod::kBFloat16) {
-    if (d == 32 && dv == 32) return info<__nv_bfloat16, 32, 32>(out);
-    if (d == 64 && dv == 32) return info<__nv_bfloat16, 64, 32>(out);
-  }
+  if (dtype == fod::kFloat32) return dispatch_info<float>(d, dv, out);
+  if (dtype == fod::kBFloat16) return dispatch_info<__nv_bfloat16>(d, dv, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

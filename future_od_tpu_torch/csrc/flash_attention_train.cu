@@ -307,10 +307,14 @@ int launch(Which which, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The head dims of ops/flash_attention.py's SUPPORTED_HEAD_DIMS, as K1 takes them.
 template <typename T>
 int dispatch_dims(Which which, int d, int dv, const Args& a) {
   if (d == 32 && dv == 32) return launch<T, 32, 32>(which, a);
   if (d == 64 && dv == 32) return launch<T, 64, 32>(which, a);
+  if (d == 16 && dv == 16) return launch<T, 16, 16>(which, a);
+  if (d == 32 && dv == 16) return launch<T, 32, 16>(which, a);
+  if (d == 64 && dv == 64) return launch<T, 64, 64>(which, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -20,7 +20,8 @@ forward; the two fused ones in inference only):
   equivalent 4x4/1 conv over space_to_depth(x), the weights transformed by
   stem_weights_to_space_to_depth.
 The fused gates fold frozen BN into the conv weights and biases as the JAX
-package does.
+package does; a bottleneck keeps its folded, packed weights until its
+parameters or buffers change (`Bottleneck.fused_weights`).
 
 `space_to_depth` builds the stem with the s2d-format (4, 4, 12, 64) kernel
 (`conv1` is a 12 -> 64 4x4 conv): a 12-channel (host-packed, (di, dj, c)
@@ -42,7 +43,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from future_od_tpu_torch.ops.fused_resnet import fused_bottleneck, fused_stem
+from future_od_tpu_torch.ops.fused_resnet import (
+    BottleneckWeights,
+    fused_bottleneck_packed,
+    fused_stem,
+    pack_bottleneck,
+)
 
 # ImageNet statistics for the uint8 ingestion path (device_normalize).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -210,22 +216,41 @@ class Bottleneck(nn.Module):
             and fused_resnet_allowed()
         )
 
+    def fused_weights(self, dtype) -> BottleneckWeights:
+        """The block's BN-folded weights packed for the fused kernel in
+        `dtype`, built once and kept until a parameter or buffer is replaced,
+        moved, cast or written in place. The pack holds plain tensors without
+        autograd history, also when it is built in inference mode. Weights
+        made in inference mode keep no version count, so they are packed
+        anew at every call."""
+        tensors = (*self.parameters(), *self.buffers())
+        key = None if any(t.is_inference() for t in tensors) else (
+            dtype, *((id(t), t.data_ptr(), t.dtype, t._version) for t in tensors))
+        if key is None or getattr(self, "_fused_key", None) != key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._fused = self._pack_fused(dtype)
+            self._fused_key = key
+        return self._fused
+
+    def _pack_fused(self, dtype) -> BottleneckWeights:
+        s1, t1 = self.bn1.scale_shift()
+        s2, t2 = self.bn2.scale_shift()
+        s3, t3 = self.bn3.scale_shift()
+        wd = bd = None
+        if self.downsample is not None:
+            sd, bd = self.downsample[1].scale_shift()
+            wd = _matrix(self.downsample[0]) * sd
+        return pack_bottleneck(
+            dtype,
+            _matrix(self.conv1) * s1, t1,
+            _hwio(self.conv2) * s2, t2,
+            _matrix(self.conv3) * s3, t3,
+            wd, bd,
+        )
+
     def forward(self, x):  # NCHW, channels_last
         if self.use_fused(x):
-            s1, t1 = self.bn1.scale_shift()
-            s2, t2 = self.bn2.scale_shift()
-            s3, t3 = self.bn3.scale_shift()
-            wd = bd = None
-            if self.downsample is not None:
-                sd, bd = self.downsample[1].scale_shift()
-                wd = _matrix(self.downsample[0]) * sd
-            out = fused_bottleneck(
-                x.permute(0, 2, 3, 1),
-                _matrix(self.conv1) * s1, t1,
-                _hwio(self.conv2) * s2, t2,
-                _matrix(self.conv3) * s3, t3,
-                wd, bd,
-            )
+            out = fused_bottleneck_packed(x.permute(0, 2, 3, 1), self.fused_weights(x.dtype))
             return out.permute(0, 3, 1, 2)
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))

@@ -49,9 +49,12 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # d, dv, dtype, int[5] out (launches nothing)
         "fod_flash_attention_info": [_I, _I, _I, _P],
     },
-    # x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, cin, cmid, cout, dtype, stream
+    # x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t, out, B, H, W, cin, cmid, cout, dtype,
+    # stream
     "fused_bottleneck": {
-        "fod_fused_bottleneck": [_P] * 10 + [_I] * 7 + [_P],
+        "fod_fused_bottleneck": [_P] * 12 + [_I] * 7 + [_P],
+        # cmid, dtype, downsample, int[5] out (launches nothing)
+        "fod_fused_bottleneck_info": [_I, _I, _I, _P],
     },
     # x_s2d, w, bias, out, B, Hc, Wc, dtype, stream
     "fused_stem": {
@@ -90,7 +93,7 @@ KERNELS: Dict[str, Dict[str, list]] = {
     },
 }
 # entry points that launch no kernel, so have no launch counter
-QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info")
+QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info", "fod_fused_bottleneck_info")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -32,9 +32,13 @@ from future_od_tpu_torch.ops import _kernels
 NAME = "flash_attention"
 TRAIN_NAME = "flash_attention_train"
 LOG2E = 1.4426950408889634
-# (head dim of q/k, head dim of v) the kernel is instantiated for: the
-# encoder's 32/32 and the conditional cross-attention's concat heads 64/32
-SUPPORTED_HEAD_DIMS = ((32, 32), (64, 32))
+# (head dim of q/k, head dim of v) the kernels (K1 and K4-K6) are
+# instantiated for: the flagship encoder's 32/32 and its conditional
+# cross-attention's concat heads 64/32, the same at heads of 16
+# (runs/nuim_single_frame.py --debug: hidden 64 over 4 heads) 16/16 and 32/16,
+# and an encoder's heads of 64 (hidden 512 over 8 heads) 64/64. The wrappers
+# raise on any other pair, on the card; they never take the plain version there.
+SUPPORTED_HEAD_DIMS = ((32, 32), (64, 32), (16, 16), (32, 16), (64, 64))
 
 
 def reference_attention(q, k, v, scale: float) -> torch.Tensor:

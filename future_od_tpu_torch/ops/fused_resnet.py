@@ -3,7 +3,10 @@
 - `fused_bottleneck` launches `csrc/fused_bottleneck.cu`, which replaces the
   Pallas TPU kernel `_bottleneck_kernel`: a stride-1 bottleneck
   1x1 -> 3x3 -> 1x1 (+ identity or 1x1 downsample residual) with BN folded
-  into the weights and f32 biases, intermediates kept on chip.
+  into the weights and f32 biases, intermediates kept on chip, the products
+  on the tensor cores (bf16 as stored, f32 as three TF32 products).
+  `fused_bottleneck_packed` is the same over weights packed once
+  (`pack_bottleneck`).
 - `fused_stem` launches `csrc/fused_stem.cu`, which replaces `_stem_kernel`:
   the 7x7/2 stem conv as a 4x4/1 conv over 2x2 space-to-depth input, + bias,
   ReLU and the 3x3/2 max pool (padding -inf), the conv output kept on chip.
@@ -21,7 +24,7 @@ kernel or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +34,11 @@ from future_od_tpu_torch.ops import _kernels
 BOTTLENECK = "fused_bottleneck"
 STEM = "fused_stem"
 BOTTLENECK_CMIDS = (64, 128)  # widths the kernel is instantiated for
-BOTTLENECK_COUT_STEP = 128  # the kernel writes output channels 128 at a time
-BOTTLENECK_CIN_STEP = 16  # its reduction slice
+BOTTLENECK_COUT_STEP = 128  # output channels a pass of the kernel (bf16; f32 64)
+BOTTLENECK_CIN_STEP = 64  # its staged reduction chunk (bf16; f32 32)
 VARIANTS = "bottleneck_variants"
 V2_CMIDS = (64, 128, 256)  # widths fod_bottleneck_v2 is instantiated for
+V2_CIN_STEP = 16  # the reduction slice of the variants' block GEMM
 LAYER1_CMID, LAYER1_COUT, LAYER1_BLOCKS = 64, 256, 3  # the shape fod_fused_layer1 takes
 STEM_CIN, STEM_COUT = 12, 64
 STEM_TAPS = 7 * 7 * 3  # taps of the 7x7/2 conv; the s2d 4x4 kernel's other 45 are zeros
@@ -64,12 +68,12 @@ def bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None) -> torch.Tenso
     return F.relu(h + res).to(dt).permute(0, 2, 3, 1)
 
 
-def _check_bottleneck(name, cin, dtype, w1, w2, w3, wd, bd, cmids) -> None:
+def _check_bottleneck(name, cin, dtype, w1, w2, w3, wd, bd, cmids, cin_step) -> None:
     """Raise unless the kernels take these shapes and this dtype of x."""
     cmid, cout = w1.shape[1], w3.shape[1]
     if (
         cmid not in cmids
-        or cin % BOTTLENECK_CIN_STEP
+        or cin % cin_step
         or cout % BOTTLENECK_COUT_STEP
         or w1.shape != (cin, cmid)
         or w2.shape != (3, 3, cmid, cmid)
@@ -81,7 +85,7 @@ def _check_bottleneck(name, cin, dtype, w1, w2, w3, wd, bd, cmids) -> None:
         raise ValueError(
             f"{name}: unsupported shapes cin {cin} w1 {tuple(w1.shape)} "
             f"w3 {tuple(w3.shape)} (cmid in {cmids}, cin % "
-            f"{BOTTLENECK_CIN_STEP} == 0, cout % {BOTTLENECK_COUT_STEP} == 0)"
+            f"{cin_step} == 0, cout % {BOTTLENECK_COUT_STEP} == 0)"
         )
     if dtype not in _kernels.DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype}; want f32 or bf16")
@@ -104,6 +108,36 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+class BottleneckWeights(NamedTuple):
+    """A bottleneck's weights as `fused_bottleneck`'s kernel reads them
+    (`pack_bottleneck`), in the kernel's argument order."""
+
+    w1: torch.Tensor  # (cin, cmid), storage type
+    b1: torch.Tensor  # f32
+    w2: torch.Tensor  # (9*cmid, cmid), rows in (dy, dx, c) order
+    b2: torch.Tensor
+    w3: torch.Tensor  # (cmid, cout)
+    b3: torch.Tensor
+    wd: Optional[torch.Tensor]  # (cin, cout) downsample, or None
+    bd: Optional[torch.Tensor]
+    w1t: Optional[torch.Tensor]  # bf16: w1 and w2 transposed; None in f32
+    w2t: Optional[torch.Tensor]
+
+
+def pack_bottleneck(dtype, w1, b1, w2, b2, w3, b3, wd=None, bd=None) -> BottleneckWeights:
+    """The weights of `fused_bottleneck` packed for x of `dtype`: matrices in
+    the storage type, f32 biases, and in bf16 w1 and w2 transposed as well
+    (a column contiguous, for the kernel's recompute of intermediates near a
+    bf16 rounding boundary). Weights that do not change are packed once
+    (models/resnet.py's Bottleneck keeps its pack) and passed to
+    `fused_bottleneck_packed`."""
+    ops = _bottleneck_operands(dtype, w1, b1, w2, b2, w3, b3, wd, bd)
+    transposed = [None, None]
+    if dtype == torch.bfloat16:
+        transposed = [ops[0].t().contiguous(), ops[2].t().contiguous()]
+    return BottleneckWeights(*ops, *transposed)
+
+
 def fused_bottleneck(
     x: torch.Tensor,  # (B, H, W, cin)
     w1: torch.Tensor,  # (cin, cmid)  BN-folded
@@ -119,20 +153,46 @@ def fused_bottleneck(
     NHWC in and out, in x's dtype."""
     if x.device.type == "cpu":
         return bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
-    _check_bottleneck(BOTTLENECK, x.shape[3], x.dtype, w1, w2, w3, wd, bd, BOTTLENECK_CMIDS)
+    return fused_bottleneck_packed(x, pack_bottleneck(x.dtype, w1, b1, w2, b2, w3, b3, wd, bd))
+
+
+def fused_bottleneck_packed(x: torch.Tensor, p: BottleneckWeights) -> torch.Tensor:
+    """`fused_bottleneck` of x (B, H, W, cin) and weights packed for x's
+    dtype by `pack_bottleneck`."""
+    cmid, cout = p.w1.shape[1], p.w3.shape[1]
+    w2 = p.w2.reshape(3, 3, cmid, cmid)
+    if x.device.type == "cpu":
+        return bottleneck_plain(x, p.w1, p.b1, w2, p.b2, p.w3, p.b3, p.wd, p.bd)
+    _check_bottleneck(BOTTLENECK, x.shape[3], x.dtype, p.w1, w2, p.w3, p.wd, p.bd,
+                      BOTTLENECK_CMIDS, BOTTLENECK_CIN_STEP)
+    if p.w1.dtype != x.dtype or (p.w1t is None) != (x.dtype == torch.float32):
+        raise ValueError(f"{BOTTLENECK}: weights packed for {p.w1.dtype}, x is {x.dtype}")
     B, H, W, cin = x.shape
-    cmid, cout = w1.shape[1], w3.shape[1]
-    x = x.contiguous()
-    ops = _bottleneck_operands(x.dtype, w1, b1, w2, b2, w3, b3, wd, bd)
-    _kernels.check_cuda_operands(BOTTLENECK, x, *(t for t in ops if t is not None))
+    ops = [x.contiguous(), *p]
+    _kernels.check_cuda_operands(BOTTLENECK, *(t for t in ops if t is not None))
+    if any(t.data_ptr() % 16 for t in ops if t is not None):
+        raise ValueError(f"{BOTTLENECK}: operands must be 16-byte aligned (16-byte async copies)")
     out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
     _kernels.call(
         BOTTLENECK, "fod_fused_bottleneck",
-        x.data_ptr(), *(_ptr(t) for t in ops), out.data_ptr(), B, H, W, cin, cmid, cout,
+        *(_ptr(t) for t in ops), out.data_ptr(), B, H, W, cin, cmid, cout,
         _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x),
     )
     _kernels.launch_counts[BOTTLENECK] += 1
     return out
+
+
+def fused_bottleneck_info(cmid: int, dtype: torch.dtype, downsample: bool) -> Dict[str, int]:
+    """The kernel instantiation's resources on the current card: registers a
+    thread, static and dynamic shared bytes a block (the downsample's x
+    chunks take more), local (spill) bytes a thread, resident blocks an SM.
+    Launches nothing."""
+    out = (ctypes.c_int * 5)()
+    _kernels.call(BOTTLENECK, "fod_fused_bottleneck_info", cmid, _kernels.DTYPE_CODES[dtype],
+                  int(downsample), ctypes.addressof(out))
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+            "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def bottleneck_plan(layer1: bool, tile_h: int, cmid: int, im2col: bool,
@@ -157,7 +217,7 @@ def fused_bottleneck_v2(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, tile_h: int
     if x.device.type == "cpu":
         return bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
     name = "bottleneck_v2"
-    _check_bottleneck(name, x.shape[3], x.dtype, w1, w2, w3, wd, bd, V2_CMIDS)
+    _check_bottleneck(name, x.shape[3], x.dtype, w1, w2, w3, wd, bd, V2_CMIDS, V2_CIN_STEP)
     if tile_h <= 0:
         raise ValueError(f"{name}: tile_h {tile_h}")
     B, H, W, cin = x.shape
@@ -203,7 +263,7 @@ def fused_layer1(x, blocks, tile_h: int = 8) -> torch.Tensor:
     cin = x.shape[3]
     for i, bk in enumerate(blocks):
         _check_bottleneck(name, cin if i == 0 else LAYER1_COUT, x.dtype, bk["w1"], bk["w2"],
-                          bk["w3"], bk.get("wd"), bk.get("bd"), (LAYER1_CMID,))
+                          bk["w3"], bk.get("wd"), bk.get("bd"), (LAYER1_CMID,), V2_CIN_STEP)
         if bk["w3"].shape[1] != LAYER1_COUT:
             raise ValueError(f"{name}: block {i} cout {bk['w3'].shape[1]}; want {LAYER1_COUT}")
     if tile_h <= 0:

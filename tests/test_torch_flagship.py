@@ -28,7 +28,8 @@ from future_od_tpu_torch.models import layers as port_layers
 from future_od_tpu_torch.models import resnet as port_resnet
 from future_od_tpu_torch.models.build import build_flagship
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
-from future_od_tpu_torch.train.step import make_inference_fn
+from future_od_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
+from future_od_tpu_torch.train.step import make_inference_fn, to_device_batch
 from future_od_tpu_torch.utils.jax_weights import jax_to_state_dict, load_jax_variables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -152,7 +153,7 @@ class TestFlagshipInference:
         variables, batch, ref = jax_reference
         monkeypatch.setenv("FUTURE_OD_FUSED_RESNET", "1")
         monkeypatch.setenv("FUTURE_OD_FUSED_STEM", "1")
-        blocks = counting(monkeypatch, port_resnet, "fused_bottleneck")
+        blocks = counting(monkeypatch, port_resnet, "fused_bottleneck_packed")
         stem = counting(monkeypatch, port_resnet, "fused_stem")
         assert_matches(port_inference(variables, batch), ref)
         assert len(blocks) == 3 + 3 and len(stem) == 1
@@ -161,10 +162,49 @@ class TestFlagshipInference:
         variables, batch, ref = jax_reference
         monkeypatch.setenv("FUTURE_OD_FUSED_RESNET", "1")
         monkeypatch.setenv("FUTURE_OD_FUSE_STAGES", "0")
-        blocks = counting(monkeypatch, port_resnet, "fused_bottleneck")
+        blocks = counting(monkeypatch, port_resnet, "fused_bottleneck_packed")
         stem = counting(monkeypatch, port_resnet, "fused_stem")
         assert_matches(port_inference(variables, batch), ref)
         assert len(blocks) == 3 and not stem  # layer1 only; stem gate off
+
+
+# The repo's configs at their widths, depth cut to one encoder and one
+# decoder layer: the flagship (hidden 256 over 8 heads) and
+# runs/nuim_single_frame.py --debug (hidden 64 over 4 heads; the port builds
+# its widths as a flagship).
+REPO_CONFIGS = {
+    "flagship": dict(num_classes=8, num_queries=128),
+    "single_frame_debug": dict(num_classes=2, num_queries=16, hidden_dim=64,
+                               dim_feedforward=128, enc_nheads=4, nheads=4),
+}
+
+
+@pytest.mark.parametrize("config", sorted(REPO_CONFIGS))
+def test_repo_configs_reach_built_head_dims(config, monkeypatch):
+    """With every flash gate lowered to one key, each attention of the
+    config, in inference and in training, reaches the kernels' wrappers at a
+    head-dim pair they are built for: on the card none raises."""
+    monkeypatch.setenv("FUTURE_OD_FLASH_MIN_KEYS", "1")
+    monkeypatch.setenv("FUTURE_OD_FLASH_MIN_QUERIES", "1")
+    monkeypatch.setenv("FUTURE_OD_TRAIN_FLASH", "1")
+    monkeypatch.setattr(port_layers, "TRAIN_FLASH_MIN_KEYS", 1)
+    pairs = []
+    for name in ("flash_attention", "flash_attention_train"):
+        def record(q, k, v, *rest, _original=getattr(port_layers, name), _name=name):
+            pairs.append((_name, q.shape[-1], v.shape[-1]))
+            return _original(q, k, v, *rest)
+
+        monkeypatch.setattr(port_layers, name, record)
+    args = SpatioTemporalDETRArgs(**REPO_CONFIGS[config], enc_layers=1, dec_layers=1,
+                                  dropout=0.0)
+    model = build_flagship(args, device="cpu")
+    batch = make_batch(np.random.default_rng(0))
+    make_inference_fn(model, device="cpu")(batch)
+    model.train()
+    with torch.no_grad():
+        model(to_device_batch(batch, torch.device("cpu")))
+    assert {name for name, _, _ in pairs} == {"flash_attention", "flash_attention_train"}
+    assert {(d, dv) for _, d, dv in pairs} <= set(SUPPORTED_HEAD_DIMS), pairs
 
 
 class TestFlagshipWidths:

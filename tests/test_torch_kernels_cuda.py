@@ -87,7 +87,13 @@ def assert_close(out, ref, dtype, tol_dtype=None, atol=None):
     "B,H,Nq,Nk,d,dv",
     [(4, 8, 1400, 1400, 32, 32), (1, 2, 70, 130, 64, 32), (1, 1, 17, 65, 32, 32),
      # cutting the 16-row mma tiles and the 64-key tiles raggedly
-     (1, 1, 1, 1, 32, 32), (1, 3, 100, 1400, 32, 32), (2, 8, 1400, 1400, 64, 32)],
+     (1, 1, 1, 1, 32, 32), (1, 3, 100, 1400, 32, 32), (2, 8, 1400, 1400, 64, 32),
+     # heads of 16 (runs/nuim_single_frame.py --debug): the encoder's 16/16 and
+     # the conditional cross-attention's 32/16
+     (2, 4, 1024, 1024, 16, 16), (1, 2, 70, 130, 16, 16), (1, 1, 17, 65, 32, 16),
+     (2, 4, 300, 1024, 32, 16),
+     # an encoder's heads of 64 (hidden 512 over 8 heads)
+     (1, 8, 1024, 1024, 64, 64), (1, 2, 70, 130, 64, 64)],
 )
 def test_flash_attention(cuda, np_rng, dtype, B, H, Nq, Nk, d, dv):
     q, k, v = on(cuda, dtype, np_rng.normal(size=(B, H, Nq, d)),
@@ -133,7 +139,12 @@ def test_flash_attention_large_logits(cuda, np_rng, dtype, d):
 @pytest.mark.parametrize(
     "B,H,W,cin,cmid,cout,downsample",
     [(2, 12, 20, 64, 64, 256, True), (1, 9, 11, 256, 64, 256, False),
-     (1, 16, 16, 512, 128, 512, False)],
+     (1, 16, 16, 512, 128, 512, False),
+     # one row of 8 x 16 tiles, the last one ragged (W % 16 != 0), at each cin
+     # with and without the downsample; 200 is layer2's width (12.5 tiles)
+     (1, 8, 20, 64, 64, 256, True), (1, 8, 24, 256, 64, 256, True),
+     (1, 8, 24, 256, 64, 256, False), (1, 8, 40, 512, 128, 512, True),
+     (1, 8, 200, 512, 128, 512, False)],
 )
 def test_fused_bottleneck(cuda, np_rng, dtype, B, H, W, cin, cmid, cout, downsample):
     (x,) = on(cuda, dtype, np.abs(np_rng.normal(size=(B, H, W, cin))))
@@ -151,6 +162,29 @@ def test_fused_bottleneck(cuda, np_rng, dtype, B, H, W, cin, cmid, cout, downsam
     torch.cuda.synchronize()
     assert _kernels.launch_counts["fused_bottleneck"] == before + 1
     assert_close(out, bottleneck_plain(x, **w), dtype)
+
+
+def test_fused_bottleneck_every_intermediate_on_a_tie(cuda):
+    """bf16, every h1 and h2 exactly on a bf16 rounding tie (h1 = 1 + 2^-8,
+    h2 = 1 - 2^-9): every value is flagged for the sequential recompute,
+    the queue overflows in both stages and each stage recomputes all of its
+    values; both round the ties to even as the plain version does."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    x = torch.zeros(1, 8, 20, 64, device=cuda)
+    x[..., 0] = 1.0078125  # 1 + 2^-7
+    w1 = torch.zeros(64, 64, device=cuda)
+    w1[0] = 0.99609375  # 1 - 2^-8: x w1 = 1 + 2^-8 - 2^-15, exact
+    w2 = torch.zeros(3, 3, 64, 64, device=cuda)
+    w2[1, 1, 0] = 0.99609375  # the centre tap of channel 0 only
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = dict(w1=w1.to(bf16), b1=torch.full((64,), 2.0**-15, device=cuda), w2=w2.to(bf16),
+             b2=torch.full((64,), 2.0**-9, device=cuda),
+             w3=(torch.randn(64, 256, generator=gen, device=cuda) * 0.1).to(bf16),
+             b3=torch.zeros(256, device=cuda), wd=torch.zeros(64, 256, device=cuda, dtype=bf16),
+             bd=torch.zeros(256, device=cuda, dtype=f32))
+    out = fused_bottleneck(x.to(bf16), **w)
+    torch.cuda.synchronize()
+    assert_close(out, bottleneck_plain(x.to(bf16), **w), bf16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -251,11 +285,15 @@ def test_fused_layer1(cuda, np_rng, dtype, tile_h):
 # self-attention over 4 clips x 2 past frames x 8 heads, and the decoder's
 # image cross-attention with concat heads over 4 clips x 8 heads.
 TRAIN_SHAPES = [(64, 350, 350, 32, 32), (32, 128, 350, 64, 32)]
+# the same attentions at heads of 16 (runs/nuim_single_frame.py --debug), and
+# an encoder self-attention at heads of 64
+HEAD16_TRAIN_SHAPES = [(32, 350, 350, 16, 16), (16, 128, 350, 32, 16)]
+HEAD64_TRAIN_SHAPES = [(32, 350, 350, 64, 64)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES)
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES + HEAD16_TRAIN_SHAPES + HEAD64_TRAIN_SHAPES)
 def test_flash_train_kernels(cuda, np_rng, dtype, rate, BH, Nq, Nk, d, dv):
     """K4, K5 and K6 against their plain versions on the same inputs (K5 and
     K6 given the plain forward's lse and delta)."""
@@ -397,3 +435,37 @@ def test_small_flagship_kernels_vs_plain(cuda, np_rng, monkeypatch):
     }
     for key, tol in (("class_scores", 1e-4), ("boxes", 1e-2)):  # boxes in pixels
         assert (fused[key] - plain[key]).abs().max().item() <= tol
+
+
+def test_narrow_flagship_heads_of_16(cuda, np_rng, monkeypatch):
+    """4 heads of 16 (hidden 64, as runs/nuim_single_frame.py --debug) at
+    1024 tokens a frame (1024x1024), the default gates: the encoder's
+    self-attentions launch K1 at d 16, where the card raised before head
+    dims entered the gate, and the output equals the all-plain forward."""
+    args = SpatioTemporalDETRArgs(
+        num_classes=4, hidden_dim=64, enc_nheads=4, nheads=4, enc_layers=2, dec_layers=2,
+        dim_feedforward=128, num_queries=16, dropout=0.0,
+    )
+    model = build_flagship(args, device=cuda)
+    last, gen = model._model.detector.bbox_embed.layers[-1], torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in (last.weight, last.bias, model._model.detector.class_embed.bias):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    infer = make_inference_fn(model, device=cuda)
+    batch = {"video": np_rng.normal(size=(1, 3, 1024, 1024, 3)).astype(np.float32)}
+    for key, width in {"translation": 3, "acceleration": 3, "rotation": 4,
+                       "rotation_rate": 3, "speed": 1}.items():
+        batch[key] = np_rng.normal(size=(1, 3, width)).astype(np.float32)
+    for name in ("FUTURE_OD_DISABLE_FLASH", "FUTURE_OD_FLASH_MIN_KEYS",
+                 "FUTURE_OD_FLASH_MIN_QUERIES", "FUTURE_OD_FUSED_RESNET"):
+        monkeypatch.delenv(name, raising=False)
+    _kernels.reset_launch_counts()
+    out = infer(batch)
+    torch.cuda.synchronize()
+    # one launch per encoder layer over both past frames; the decoder's 16
+    # queries stay plain
+    assert _kernels.launch_counts["flash_attention"] == 2
+    monkeypatch.setenv("FUTURE_OD_DISABLE_FLASH", "1")
+    plain = infer(batch)
+    for key, tol in (("class_scores", 1e-4), ("boxes", 1e-2)):  # boxes in pixels
+        assert (out[key] - plain[key]).abs().max().item() <= tol

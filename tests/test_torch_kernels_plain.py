@@ -23,13 +23,25 @@ from future_od_tpu.ops.flash_attention import flash_attention as jax_flash_atten
 from future_od_tpu.ops.fused_resnet import fused_bottleneck as jax_fused_bottleneck
 from future_od_tpu.ops.fused_resnet import fused_stem as jax_fused_stem
 
-from future_od_tpu_torch.models.resnet import space_to_depth, stem_weights_to_space_to_depth
+from future_od_tpu_torch.models import layers as port_layers
+from future_od_tpu_torch.models.resnet import (
+    Bottleneck,
+    space_to_depth,
+    stem_weights_to_space_to_depth,
+)
 from future_od_tpu_torch.ops import _kernels
-from future_od_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from future_od_tpu_torch.ops import flash_attention as fa
+from future_od_tpu_torch.ops.flash_attention import (
+    SUPPORTED_HEAD_DIMS,
+    flash_attention,
+    reference_attention,
+)
 from future_od_tpu_torch.ops.fused_resnet import (
     bottleneck_plain,
     fused_bottleneck,
+    fused_bottleneck_packed,
     fused_stem,
+    pack_bottleneck,
     stem_plain,
 )
 
@@ -114,7 +126,52 @@ class TestFlashAttentionPlain:
         with pytest.raises(ValueError, match="CUDA"):
             flash_attention(q, q, q, 1.0)
         with pytest.raises(ValueError, match="head dims"):
-            flash_attention(q[..., :16], q[..., :16], q[..., :16], 1.0)
+            flash_attention(q[..., :8], q[..., :8], q[..., :8], 1.0)
+
+
+class TestHeadDimDispatch:
+    """The flash gates (models/layers.py) look at sizes only: attention at any
+    head dims past them goes to the kernels' wrappers, which take their plain
+    versions on the CPU and, off it, launch a built pair or raise. Nothing in
+    front of a wrapper gives way to the plain attention on the card."""
+
+    @pytest.mark.parametrize("d,dv", SUPPORTED_HEAD_DIMS)
+    def test_wrappers_take_the_built_pairs(self, d, dv):
+        """Off the CPU (meta tensors) a built pair passes the head-dim check
+        and stops only at the missing card."""
+        q, k, v = (torch.empty((1, 2, 64, n), device="meta") for n in (d, d, dv))
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention(q, k, v, 1.0)
+        q, k, v = (t.reshape(2, 64, -1) for t in (q, k, v))
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_train_fwd(q, k, v, 7, 1.0, 0.0, 256, 512)
+
+    @pytest.mark.parametrize("d,dv", [(8, 8), (16, 8), (16, 32), (128, 64), (128, 128)])
+    def test_wrappers_raise_on_other_pairs(self, d, dv):
+        q, k, v = (torch.empty((1, 2, 64, n), device="meta") for n in (d, d, dv))
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q, k, v, 1.0)
+        q, k, v = (t.reshape(2, 64, -1) for t in (q, k, v))
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_train_fwd(q, k, v, 7, 1.0, 0.0, 256, 512)
+
+    @pytest.mark.parametrize("training", [False, True])
+    @pytest.mark.parametrize("d", [8, 16, 64])
+    def test_attend_heads_routes_by_size_alone(self, rng, monkeypatch, training, d):
+        """4 heads of d over 1024 keys and queries, above both size gates:
+        the kernel's wrapper (its plain version here) takes the attention at
+        every d, built or not, and gives the plain result."""
+        monkeypatch.setenv("FUTURE_OD_TRAIN_FLASH", "1")
+        name = "flash_attention_train" if training else "flash_attention"
+        seen, original = [], getattr(port_layers, name)
+        monkeypatch.setattr(port_layers, name, lambda *a, **k: seen.append(1) or original(*a, **k))
+        qh, kh, vh = (t(rng.normal(size=(1, 1024, 4, d)).astype(np.float32)) for _ in range(3))
+        drop = torch.nn.Dropout(0.0).train(training)
+        out = port_layers.attend_heads(qh, kh, vh, d**-0.5, drop)
+        assert len(seen) == 1 and out.shape == (1, 1024, 4 * d)
+        monkeypatch.setenv("FUTURE_OD_DISABLE_FLASH", "1")
+        torch.testing.assert_close(out, port_layers.attend_heads(qh, kh, vh, d**-0.5, drop),
+                                   rtol=0, atol=2e-6)
 
 
 class TestFusedBottleneckPlain:
@@ -156,6 +213,56 @@ class TestFusedBottleneckPlain:
             fused_bottleneck(x, **w)
         with pytest.raises(ValueError, match="unsupported shapes"):
             fused_bottleneck(x, **{**w, "wd": None, "bd": None})  # identity needs cin == cout
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_packed_weights(self, rng, dtype):
+        """pack_bottleneck: weights in the storage type, w2 as the im2col
+        matrix, in bf16 w1 and w2 transposed; fused_bottleneck_packed gives
+        fused_bottleneck's result."""
+        x = t(np.abs(rng.normal(size=(1, 8, 12, 64)))).to(dtype)
+        w = {k: t(v) for k, v in bottleneck_weights(rng, 64, 64, 256, True).items()}
+        p = pack_bottleneck(dtype, **w)
+        assert p.w1.dtype == p.w2.dtype == p.wd.dtype == dtype and p.b1.dtype == torch.float32
+        assert p.w2.shape == (9 * 64, 64)
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(p.w1t, p.w1.t(), rtol=0, atol=0)
+            torch.testing.assert_close(p.w2t, p.w2.t(), rtol=0, atol=0)
+        else:
+            assert p.w1t is None and p.w2t is None
+        torch.testing.assert_close(fused_bottleneck_packed(x, p), fused_bottleneck(x, **w),
+                                   rtol=0, atol=0)
+
+    def test_packed_for_another_dtype_is_refused(self, rng):
+        w = {k: t(v) for k, v in bottleneck_weights(rng, 64, 64, 256, True).items()}
+        p = pack_bottleneck(torch.float32, **w)
+        p = type(p)(*(None if v is None else v.to("meta") for v in p))
+        with pytest.raises(ValueError, match="packed for"):
+            fused_bottleneck_packed(torch.empty((1, 8, 8, 64), device="meta",
+                                                dtype=torch.bfloat16), p)
+
+    def test_block_packs_its_weights_once(self):
+        """models/resnet.py's Bottleneck keeps its pack until a parameter or
+        buffer changes: written in place, or cast."""
+        block = Bottleneck(64, 64, downsample=True).eval()
+        first = block.fused_weights(torch.float32)
+        assert block.fused_weights(torch.float32) is first
+        with torch.no_grad():
+            block.conv1.weight.mul_(2.0)
+        again = block.fused_weights(torch.float32)
+        assert again is not first
+        torch.testing.assert_close(again.w1, 2.0 * first.w1)
+        block.to(torch.bfloat16)
+        with torch.inference_mode():  # as make_inference_fn calls it
+            packed = block.fused_weights(torch.bfloat16)
+            assert block.fused_weights(torch.bfloat16) is packed
+        assert packed.w1.dtype == torch.bfloat16 and packed.w1t is not None
+        assert not packed.w1.is_inference() and not packed.w1.requires_grad
+
+    def test_wrapper_refuses_cin_off_the_staged_chunk(self, rng):
+        """The kernel stages 64 input channels a chunk (bf16; 32 in f32)."""
+        w = {k: t(v).to("meta") for k, v in bottleneck_weights(rng, 96, 64, 256, True).items()}
+        with pytest.raises(ValueError, match="unsupported shapes"):
+            fused_bottleneck(torch.empty((1, 8, 8, 96), device="meta"), **w)
 
 
 class TestFusedStemPlain:

@@ -156,7 +156,7 @@ class TestWrappers:
         with pytest.raises(ValueError, match="CUDA"):
             fa.flash_dkv(q, q, q, q, row, row, *args)
         with pytest.raises(ValueError, match="head dims"):
-            fa.flash_train_fwd(q[..., :16], q[..., :16], q[..., :16], *args)
+            fa.flash_train_fwd(q[..., :8], q[..., :8], q[..., :8], *args)
 
     def test_train_attention_cost(self):
         cost = fa.train_attention_cost(64, 350, 350, 32, 32, 4)
