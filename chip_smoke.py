@@ -6,11 +6,12 @@ nvcc; the kernels are built from future_od_tpu_torch/csrc/ on first use into
 build/torch_kernels/. Phases, one line each, every failure fatal:
 
 0. the card's name and power limit (nvidia-smi); the kernel build and its
-   seconds; that K1 (csrc/flash_attention.cu) and K2
-   (csrc/fused_bottleneck.cu) run on the tensor cores: the SASS of each of
-   their instantiations (cuobjdump) holds HMMA instructions, with its
-   registers, shared memory and spills (ptxas's report in the build log,
-   and the runtime's, with the resident blocks an SM).
+   seconds; that K1 (csrc/flash_attention.cu), K2
+   (csrc/fused_bottleneck.cu) and K4 and K5 (csrc/flash_attention_train.cu)
+   run on the tensor cores: the SASS of each of their instantiations
+   (cuobjdump) holds HMMA instructions, with its registers, shared memory
+   and spills (ptxas's report in the build log, and the runtime's, with the
+   resident blocks an SM).
 1. each kernel against its plain PyTorch version at the flagship's shapes,
    f32 (TF32 off for matmuls and cuDNN convs) and bf16: max abs error
    within the stated tolerance, the kernel's time, the plain version's, one
@@ -46,9 +47,17 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    for bit, and the plain version with another seed failing the check (a
    negative control). Then, at logits of about 1e6 (as the random-init
    backbone feeds the encoder), K5 and K6 given K4's lse keep p <= 1: dv
-   equal to an f64 reference, dq and dk at rounding level. Times as in
-   phase 1; the library figure is F.scaled_dot_product_attention's forward
-   (K4) and backward (K5 + K6).
+   equal to an f64 reference, dq and dk at rounding level. Times at f32
+   and dropout 0.1, each kernel's three ways: paced (back-to-back calls by
+   CUDA events, as phase 1; where the host is slower than the card it
+   reads the host), device (the kernel's CUDA time under torch.profiler
+   over the calls) and host (the host clock over 100 enqueues without a
+   sync), with its launch (grid, the warps that split a query slab's keys,
+   registers, resident warps an SM); the host µs of FlashAttentionTrain's
+   forward and of its backward through autograd.grad, at the model's
+   (B, N, H, d) layout. The library figures are
+   F.scaled_dot_product_attention's forward (K4) and backward (one
+   autograd.grad, K5 + K6), measured the same three ways.
 1c. the kernel-study tools (future_od_tpu_torch/tools, the main path of
    their slice): bench_softmax_floor and bench_fused_bottleneck run whole
    at their full bf16 shapes with the launch counts reset before and read
@@ -109,6 +118,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -161,6 +171,7 @@ TRAIN_ATTENTIONS = (
     ("decoder", TRAIN_BATCH * 8, 128, TRAIN_TOKENS, 64, 32, 12),
 )
 TRAIN_KERNELS = ("flash_train_fwd", "flash_train_dq", "flash_train_dkv")
+HOST_ROUNDS = 5  # phase 1b's host µs: the median of this many rounds
 # Train step, flash kernels vs plain autograd attention, f32 (TF32 off), at
 # dropout 0 with injected matcher indices: |loss difference| over |loss|,
 # and per parameter max |grad difference| over max(max |grad|, GRAD_FLOOR x
@@ -353,6 +364,78 @@ def k2_tensor_core_report():
                               2 * len(fr.BOTTLENECK_CMIDS), resources)
 
 
+def train_tensor_core_report():
+    """K4 and K5: every (dtype, head dims) instantiation; the runtime's
+    resources and launch at the encoder's training shape."""
+    import torch
+
+    from future_od_tpu_torch.ops import flash_attention as fa
+
+    _, BH, Nq, Nk, *_ = TRAIN_ATTENTIONS[0]
+    reports = {}
+    for name, kernel in (("flash_train_fwd", "train_fwd_kernel"),
+                         ("flash_train_dq", "train_dq_kernel")):
+        resources = {f"{dt} d{d} dv{dv}": fa.flash_train_info(name, d, dv, getattr(torch, dt),
+                                                               BH, Nq, Nk)
+                     for dt in ("float32", "bfloat16") for d, dv in fa.SUPPORTED_HEAD_DIMS}
+        reports[name] = tensor_core_report(fa.TRAIN_NAME, kernel,
+                                           2 * len(fa.SUPPORTED_HEAD_DIMS), resources)
+    return reports
+
+
+def device_us(torch, fn, calls: int = 20) -> float:
+    """Mean device µs a call: the CUDA time of every kernel and copy `fn`
+    launched under torch.profiler over `calls` calls, over the calls.
+    Raises if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer"))
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / calls
+
+
+def host_us(torch, fn, calls: int = 100) -> float:
+    """Mean host µs of one call: the host clock over `calls` enqueues with
+    no sync between them (the card is synchronised before and after, off
+    the clock)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def median_and_least(values):
+    ordered = sorted(values)
+    return ordered[len(ordered) // 2], ordered[0]
+
+
+def launch_plan(torch, fa, name, BH, Nq, Nk, d, dv, dtype):
+    """A training kernel's launch at a shape: grid, threads, the warps that
+    split a query slab's keys, registers, spills, resident blocks and warps
+    an SM, and the grid's warps an SM."""
+    info = fa.flash_train_info(name, d, dv, dtype, BH, Nq, Nk)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = info["threads"] // 32
+    return {"grid": [info["grid_x"], info["grid_y"]], "threads": info["threads"],
+            "split": info["split"], "registers": info["registers"],
+            "local_bytes": info["local_bytes"], "blocks_per_sm": info["blocks_per_sm"],
+            "resident_warps_per_sm": info["blocks_per_sm"] * warps,
+            "grid_warps_per_sm": info["grid_x"] * info["grid_y"] * warps / sms}
+
+
 def check_close(name, out, ref, dtype, atol=None):
     """(max abs error, its tolerance at that element's worst case); raises
     where any element is outside RTOL * |plain| + ATOL * max |plain| (ATOL
@@ -498,22 +581,21 @@ def kernel_phase(torch, dev):
 def train_kernel_phase(torch, dev):
     """Phase 1b on device `dev`: K4-K7 against their plain versions at the
     stage-1 training shapes. Returns per-kernel records."""
-    import torch.nn.functional as F
-
     from future_od_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(2)
     seed = 12345
     records = {name: [] for name in TRAIN_KERNELS}
+    timings, paths = [], {}  # what is timed after the checks
     for label, BH, Nq, Nk, d, dv, per_step in TRAIN_ATTENTIONS:
         q32, k32, do32 = (torch.randn(*s, generator=gen, device=dev)
                           for s in ((BH, Nq, d), (BH, Nk, d), (BH, Nq, dv)))
         v32 = torch.randn(BH, Nk, dv, generator=gen, device=dev)
         nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
         scale = 1.0 / math.sqrt(d)
-        costs = fa.train_attention_cost(BH, Nq, Nk, d, dv, 4)
         for dtype in ("float32", "bfloat16"):
             q, k, v, do = (t.to(getattr(torch, dtype)) for t in (q32, k32, v32, do32))
+            costs = fa.train_attention_cost(BH, Nq, Nk, d, dv, q.element_size())
             for rate in (0.0, 0.1):
                 args = (seed, scale, rate, nq_pad, nk_pad)
                 tag = f"{label} {dtype} rate {rate}"
@@ -549,39 +631,100 @@ def train_kernel_phase(torch, dev):
                         raise AssertionError(f"negative control {tag}: seed+1 passed the check")
                 timed = dtype == "float32" and rate > 0  # the main path's setting
                 for name in TRAIN_KERNELS:
+                    ops, nbytes = costs[name]
+                    b_ms, b_by, b_is = tc_bound(ops, nbytes, dtype)
                     rec = dict(attention=label, shape=[BH, Nq, Nk, d, dv], dtype=dtype, rate=rate,
-                               per_step=per_step, max_abs_err=errs[name],
-                               ops=costs[name][0], bytes=costs[name][1])
-                    if timed:
+                               per_step=per_step, max_abs_err=errs[name], ops=ops, bytes=nbytes,
+                               bound_ms=b_ms, bound_by=b_by, bound_is=b_is)
+                    if timed:  # timed after every check, below
                         kernel, plain = {
-                            "flash_train_fwd": (lambda: fa.flash_train_fwd(q, k, v, *args),
-                                                lambda: fa.flash_train_fwd_plain(q, k, v, *args)),
+                            "flash_train_fwd": (partial(fa.flash_train_fwd, q, k, v, *args),
+                                                partial(fa.flash_train_fwd_plain, q, k, v, *args)),
                             "flash_train_dq": (
-                                lambda: fa.flash_dq(q, k, v, do, ref_lse, delta, *args),
-                                lambda: fa.flash_dq_plain(q, k, v, do, ref_lse, delta, *args)),
+                                partial(fa.flash_dq, q, k, v, do, ref_lse, delta, *args),
+                                partial(fa.flash_dq_plain, q, k, v, do, ref_lse, delta, *args)),
                             "flash_train_dkv": (
-                                lambda: fa.flash_dkv(q, k, v, do, ref_lse, delta, *args),
-                                lambda: fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)),
+                                partial(fa.flash_dkv, q, k, v, do, ref_lse, delta, *args),
+                                partial(fa.flash_dkv_plain, q, k, v, do, ref_lse, delta, *args)),
                         }[name]
-                        rec.update(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain))
+                        rec["launch"] = launch_plan(torch, fa, name, BH, Nq, Nk, d, dv, q.dtype)
+                        timings.append((rec, kernel, plain))
                     records[name].append(rec)
-                    log("kernel", kernel=name, **rec)
         log("kernel-saturated-logits", attention=label,
             **saturated_logits_check(torch, fa, gen, BH, Nq, Nk, d, dv, seed))
-        # library yardstick at rate 0, f32: SDPA forward; its backward
-        # (forward + backward minus forward) for K5 and K6 together
-        qs, ks, vs = (t[None].clone().requires_grad_(True) for t in (q32, k32, v32))
-        dos = do32[None]
-        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale)  # noqa: E731
-        fwd_ms = time_ms(torch, sdpa)
-        fwd_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), dos))
-        for name, lib in (("flash_train_fwd", fwd_ms), ("flash_train_dq", fwd_bwd_ms - fwd_ms),
-                          ("flash_train_dkv", fwd_bwd_ms - fwd_ms)):
+        paths[label] = autograd_paths(torch, fa, q32, k32, v32, do32, scale,
+                                      (seed, scale, 0.1, nq_pad, nk_pad))
+
+    # Times at f32 and rate 0.1, the main path's setting, after every check.
+    # Host and paced first: once torch.profiler has run in a process each
+    # launch costs the host more (CUPTI stays attached), so the device times,
+    # which need the profiler, come last. Paced: back-to-back calls by CUDA
+    # events (the host's pace where it is slower than the card); host: the
+    # enqueue alone; device: the kernels' own CUDA time.
+    for rec, kernel, plain in timings:
+        rec.update(ms=time_ms(torch, kernel), plain_ms=time_ms(torch, plain))
+    times = {label: {key: {"ms": time_ms(torch, fn)} for key, fn in fns.items()}
+             for label, fns in paths.items()}
+    # the host's speed drifts between measurements (a shared host), so the
+    # host µs are rounds of every closure in turn, kernels and SDPA alike:
+    # the median and the least of HOST_ROUNDS
+    host = {id(rec): [] for rec, _, _ in timings}
+    host.update({(label, key): [] for label, fns in paths.items() for key in fns})
+    for _ in range(HOST_ROUNDS):
+        for rec, kernel, _ in timings:
+            host[id(rec)].append(host_us(torch, kernel))
+        for label, fns in paths.items():
+            for key, fn in fns.items():
+                host[(label, key)].append(host_us(torch, fn))
+    for rec, _, _ in timings:
+        rec["host_us"], rec["host_us_least"] = median_and_least(host[id(rec)])
+    for label, fns in paths.items():
+        for key in fns:
+            times[label][key]["host_us"], times[label][key]["host_us_least"] = \
+                median_and_least(host[(label, key)])
+    for rec, kernel, _ in timings:
+        rec["device_ms"] = device_us(torch, kernel) / 1e3
+    for label, fns in paths.items():
+        for key, fn in fns.items():
+            times[label][key]["device_ms"] = device_us(torch, fn) / 1e3
+        log("kernel-train-autograd", attention=label, **times[label])
+        # the library yardstick: SDPA's forward for K4, its backward (one
+        # autograd.grad) for K5 and K6 together
+        for name, key in (("flash_train_fwd", "sdpa_forward"), ("flash_train_dq", "sdpa_backward"),
+                          ("flash_train_dkv", "sdpa_backward")):
             for rec in records[name]:
                 if rec["attention"] == label:
-                    rec["library_ms"] = lib
+                    rec.update({f"library_{k}": x for k, x in times[label][key].items()})
+                    if "ms" in rec:
+                        rec["autograd"] = {k: times[label][k] for k in ("apply", "backward")}
+    for name in TRAIN_KERNELS:
+        for rec in records[name]:
+            log("kernel", kernel=name, **rec)
     torch.cuda.synchronize()
     return records
+
+
+def autograd_paths(torch, fa, q32, k32, v32, do32, scale, train_args):
+    """Closures over one attention's f32 inputs, grad on: the kernels
+    through FlashAttentionTrain at the model's layout ((B, N, H, d) storage
+    as transposed views, 8 heads) forward and backward (one autograd.grad:
+    δ, K5 and K6), and SDPA's at rate 0, forward and backward."""
+    import torch.nn.functional as F
+
+    heads = 8
+    qh, kh, vh, doh = (t.reshape(t.shape[0] // heads, heads, *t.shape[1:]).transpose(1, 2)
+                       .contiguous().transpose(1, 2) for t in (q32, k32, v32, do32))
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
+    qs, ks, vs = (t[None].clone().requires_grad_(True) for t in (q32, k32, v32))
+    out_g = fa.FlashAttentionTrain.apply(qg, kg, vg, *train_args)
+    out_s = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+    return {
+        "apply": lambda: fa.FlashAttentionTrain.apply(qg, kg, vg, *train_args),
+        "backward": lambda: torch.autograd.grad(out_g, (qg, kg, vg), doh, retain_graph=True),
+        "sdpa_forward": lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale),
+        "sdpa_backward": lambda: torch.autograd.grad(out_s, (qs, ks, vs), do32[None],
+                                                     retain_graph=True),
+    }
 
 
 def head_dims_phase(torch, dev):
@@ -1386,6 +1529,7 @@ def main() -> int:
     log("0-build", seconds=_kernels.build_all(), build_dir=str(_kernels.BUILD_DIR))
     log("0-k1-tensor-cores", **k1_tensor_core_report())
     log("0-k2-tensor-cores", **k2_tensor_core_report())
+    log("0-k4-k5-tensor-cores", **train_tensor_core_report())
 
     t0 = time.perf_counter()
     records = kernel_phase(torch, torch.device("cuda"))
@@ -1520,23 +1664,40 @@ def main() -> int:
         timed = [r for r in recs if "ms" in r]  # f32, rate 0.1, one per attention
         f32 = [r for r in recs if r["dtype"] == "float32"]
         per_step = lambda key: sum(r[key] * r["per_step"] for r in timed)  # noqa: E731
-        b_ms, b_by = bound(per_step("ops"), per_step("bytes"), "float32")
+        # the bound: every product on the tensor cores (f32 as 3xTF32) or the bytes
+        b_ms, b_by, b_is = tc_bound(per_step("ops"), per_step("bytes"), "float32")
         row = {
             "name": name, "route": "cuda",
             "source": "future_od_tpu_torch/csrc/flash_attention_train.cu",
             "replaces": train_sources[name], "launches": train_counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in f32),
-            "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": per_step("library_ms"),
+            "ms": per_step("ms"), "device_ms": per_step("device_ms"),
+            "host_us": {r["attention"]: r["host_us"] for r in timed},
+            "plain_ms": per_step("plain_ms"),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_is": b_is,
+            "library_ms": per_step("library_ms"),
+            "library_device_ms": per_step("library_device_ms"),
+            "library_host_us": {r["attention"]: r["library_host_us"] for r in timed},
+            "ms_is": "paced: back-to-back calls timed by CUDA events",
             "per": f"one f32 train step's launches at dropout 0.1, {TRAIN_BATCH} clips x "
                    f"{FRAMES - 1} past frames x {TRAIN_HEIGHT}x{TRAIN_WIDTH}",
             "calls": recs,
         }
+        if name != "flash_train_dkv":
+            # K4's and K5's design keeps the logits (q·kᵀ, bit-equal to K6's) on
+            # the CUDA cores: that design's floor, apart from the card's bound
+            logits = sum(2 * r["shape"][0] * r["shape"][1] * r["shape"][2] * r["shape"][3]
+                         * r["per_step"] for r in timed)
+            products = tc_bound(per_step("ops") - logits, 0, "float32")[0]
+            row["design_floor_ms"] = max(bound(logits, per_step("bytes"), "float32")[0],
+                                         products)
+            row["design_floor_is"] = ("the logits' f32 FMA chains on the CUDA cores, the other "
+                                      "products as 3xTF32 on the tensor cores, or the bytes")
         if name == "flash_train_fwd":
             row["includes"] = ("the dropout mask future_od_tpu_torch/csrc/dropout_mask.cuh "
                                "(replaces future_od_tpu/ops/flash_attention.py:242)")
         else:
-            row["library_covers"] = "SDPA backward, dq and dk/dv together"
+            row["library_covers"] = "SDPA backward (one autograd.grad), dq and dk/dv together"
         kernels.append(row)
     for name, rec in tool_records.items():
         kernels.append({

@@ -61,12 +61,12 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "fod_fused_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "flash_attention_train": {
-        # q, k, v, out, lse, bh, nq, nk, d, dv, scale, dropout..., dtype, stream
-        "fod_flash_train_fwd": [_P] * 5 + [_I] * 5 + [_F] + _DROPOUT + [_I, _P],
-        # q, k, v, do, lse, delta, dq, bh, nq, nk, d, dv, scale, dropout..., dtype, stream
-        "fod_flash_train_dq": [_P] * 7 + [_I] * 5 + [_F] + _DROPOUT + [_I, _P],
-        # q, k, v, do, lse, delta, dk, dv, bh, nq, nk, d, dv, scale, dropout..., dtype, stream
-        "fod_flash_train_dkv": [_P] * 8 + [_I] * 5 + [_F] + _DROPOUT + [_I, _P],
+        # one packed TrainArgs (ops/flash_attention.py::_TRAIN_ARGS)
+        "fod_flash_train_fwd": [ctypes.c_char_p],
+        "fod_flash_train_dq": [ctypes.c_char_p],
+        "fod_flash_train_dkv": [ctypes.c_char_p],
+        # which (0 K4, 1 K5, 2 K6), d, dv, dtype, bh, nq, nk, int[9] out (launches nothing)
+        "fod_flash_train_info": [_I] * 7 + [_P],
         # out, bh, nq, nk, dropout..., stream
         "fod_dropout_keep_mask": [_P, _I, _I, _I] + _DROPOUT + [_P],
     },
@@ -93,7 +93,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
     },
 }
 # entry points that launch no kernel, so have no launch counter
-QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info", "fod_fused_bottleneck_info")
+QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info", "fod_flash_train_info",
+           "fod_fused_bottleneck_info")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -183,7 +184,8 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def call(name: str, fn: str, *args) -> None:
-    """Launch through entry point `fn` of library `name`; raise on a
+    """Launch through entry point `fn` of library `name` (ctypes keeps an
+    entry point as an attribute after its first lookup); raise on a
     non-zero launch status (a refused launch never runs, and a later
     synchronize would not report it)."""
     lib = library(name)
@@ -194,7 +196,9 @@ def call(name: str, fn: str, *args) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on CUDA tensor t's device,
+    without building a torch.cuda.Stream object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:

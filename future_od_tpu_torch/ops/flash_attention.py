@@ -17,11 +17,20 @@ all three regenerate one dropout mask, a hash of each element's flat index
 in the JAX kernels' padded (nq_pad, nk_pad) geometry and of the seed
 (`dropout_keep_mask`, `csrc/dropout_mask.cuh`). The geometry comes from the
 JAX block sizes (`train_shapes`), never from the CUDA tiles, so the mask is
-the TPU kernels' bit for bit. On CPU tensors the plain versions run.
+the TPU kernels' bit for bit. The forward and dq kernels run their products
+on the tensor cores and compute the logits on the CUDA cores as the dk/dv
+kernel does, bit for bit. The kernels read q, k, v and do by strides, so
+attend_heads' transposed (B, N, H, d) views go in without a copy, and write
+their outputs in that layout; a call packs its arguments into one struct
+(`_TRAIN_ARGS`), since the host's time a call is part of the kernel's cost.
+On CPU tensors the plain versions run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+import struct
 from typing import Tuple
 
 import numpy as np
@@ -153,17 +162,26 @@ def _mask(seed, BH, Nq, Nk, rate, nq_pad, nk_pad, device):
     return dropout_keep_mask(seed, bh, row, col, rate, nq_pad, nk_pad)
 
 
+def _mask_like(seed, logits, rate, nq_pad, nk_pad):
+    """The mask over logits (..., Nq, Nk), the leading dims flattened into
+    the batch·head index as the JAX kernels' grid flattens them."""
+    *lead, Nq, Nk = logits.shape
+    return _mask(seed, math.prod(lead), Nq, Nk, rate, nq_pad, nk_pad,
+                 logits.device).reshape(logits.shape)
+
+
 def flash_train_fwd_plain(q, k, v, seed: int, scale: float, rate: float, nq_pad: int,
                           nk_pad: int):
-    """Plain K4. q (BH, Nq, d), k (BH, Nk, d), v (BH, Nk, dv) -> (out
-    (BH, Nq, dv) in q's dtype, lse (BH, Nq) f32). The row sum is taken before
-    the mask multiplies p, as in the TPU kernel."""
-    logits = torch.matmul(q.float() * scale, k.float().transpose(1, 2))
+    """Plain K4. q (..., Nq, d), k (..., Nk, d), v (..., Nk, dv), the leading
+    dims (BH,) or (B, H) -> (out (..., Nq, dv) in q's dtype, lse (..., Nq)
+    f32). The row sum is taken before the mask multiplies p, as in the TPU
+    kernel."""
+    logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     row_max = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - row_max)
     row_sum = p.sum(dim=-1, keepdim=True)
     if rate > 0.0:
-        p = p * _mask(seed, *logits.shape, rate, nq_pad, nk_pad, q.device)
+        p = p * _mask_like(seed, logits, rate, nq_pad, nk_pad)
     out = torch.matmul(p, v.float()) / row_sum
     return out.to(q.dtype), (row_max + torch.log(row_sum))[..., 0]
 
@@ -173,12 +191,12 @@ def _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad):
     with dS = do·vᵀ, in f32 — what K5 and K6 recompute per tile. The logits
     are rounded as the forward rounds them ((q·scale)·kᵀ), so p <= 1 however
     large they are."""
-    logits = torch.matmul(q.float() * scale, k.float().transpose(1, 2))
+    logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     p = torch.exp(logits - lse[..., None])
-    ds = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = torch.matmul(do.float(), v.float().transpose(-1, -2))
     mask = None
     if rate > 0.0:
-        mask = _mask(seed, *logits.shape, rate, nq_pad, nk_pad, q.device)
+        mask = _mask_like(seed, logits, rate, nq_pad, nk_pad)
         ds = ds * mask
     return p, mask, p * (ds - delta[..., None])
 
@@ -196,21 +214,105 @@ def flash_dkv_plain(q, k, v, do, lse, delta, seed: int, scale: float, rate: floa
     dv = (p ⊙ mask)ᵀ · do, in k's and v's dtypes."""
     p, mask, dlogits = _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
     p_dropped = p if mask is None else p * mask
-    dv = torch.matmul(p_dropped.transpose(1, 2), do.float())
-    dk = torch.matmul(dlogits.transpose(1, 2), q.float()) * scale
+    dv = torch.matmul(p_dropped.transpose(-1, -2), do.float())
+    dk = torch.matmul(dlogits.transpose(-1, -2), q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+# csrc/flash_attention_train.cu's TrainArgs, one a call: eight operands as
+# (pointer, batch, head and row strides in elements) — q, k, v, do, two
+# outputs, lse, delta — then the stream, b, h, nq, nk, d, dv, dtype, scale,
+# the dropout seed and threshold, the keep value, nq_pad and nk_pad, and the
+# struct's 4 bytes of tail padding (it is passed by value, so all of its
+# sizeof is read). One packed buffer costs the ctypes call far less than 30
+# converted arguments.
+_TRAIN_ARGS = struct.Struct("<" + "Qqqq" * 8 + "Q7if2If2i4x")
+_NO_OPERAND = (0, 0, 0, 0)
+
+
+def _dims(t):
+    """(B, H, N, w) of a (B, H, N, w) or (BH, N, w) tensor, a (BH, N, w) one
+    being one batch of BH heads: arithmetic on the shape, no view (a view
+    costs the host about as much as an allocation)."""
+    shape = t.shape
+    return tuple(shape) if len(shape) == 4 else (1, *shape)
+
+
+def _fields(t, rank: int):
+    """(pointer, batch, head and row strides) of a rank-`rank` operand
+    ((B, H, N, w) for 4, (B, H, N) for 3) given in it or one rank lower
+    (one batch)."""
+    st = t.stride()
+    if len(st) == rank:
+        return (t.data_ptr(), *st[:3])
+    return (t.data_ptr(), 0, *st[:2])
+
+
+def _empty_rows(x, n: int, width: int, dtype):
+    """An output with x's leading dims, n rows of `width`: laid out (B, N, H,
+    width) for a (B, H, N, d) x — the layout attend_heads reshapes without a
+    copy — and contiguous for a (BH, N, d) one."""
+    if x.dim() == 4:
+        B, H = x.shape[:2]
+        return torch.empty_strided((B, H, n, width), (n * H * width, width, H * width, 1),
+                                   dtype=dtype, device=x.device)
+    return torch.empty((x.shape[0], n, width), dtype=dtype, device=x.device)
+
+
+def _train_call(fn: str, q, k, v, do, o0, o1, lse, delta, scale: float, dropout) -> None:
+    """Launch entry point `fn` of the training kernels on one packed
+    TrainArgs: q, k, v, do (or None) and the outputs o0, o1 (or None) as
+    (B, H, N, w) or (BH, N, w), lse and delta (or None) as (B, H, Nq) or
+    (BH, Nq) f32. An input whose last dim is strided or whose rows are not
+    16-byte aligned (the kernels copy rows 16 bytes at a time) goes in as a
+    contiguous copy; the outputs are the wrappers' own, which fit."""
+    held, fields = [], []
+    for t in (q, k, v, do):
+        if t is None:
+            fields += _NO_OPERAND
+            continue
+        st = t.stride()
+        m = t.element_size()
+        if st[-1] != 1 or (t.data_ptr() | st[0] * m | st[1] * m | st[-2] * m) % 16:
+            t = t.contiguous()
+            held.append(t)  # alive until the launch is enqueued
+        fields += _fields(t, 4)
+    for t in (o0, o1):
+        fields += _NO_OPERAND if t is None else _fields(t, 4)
+    for t in (lse, delta):
+        fields += _NO_OPERAND if t is None else _fields(t, 3)
+    B, H, Nq, d = _dims(q)
+    args = _TRAIN_ARGS.pack(*fields, _kernels.stream_of(q), B, H, Nq, k.shape[-2], d,
+                            v.shape[-1], _kernels.DTYPE_CODES[q.dtype], scale, *dropout)
+    _kernels.call(TRAIN_NAME, fn, args)
+
+
 def _train_kernel_args(q, k, v, name):
-    BH, Nq, d = q.shape
-    Nk, dv = k.shape[1], v.shape[2]
-    if k.shape != (BH, Nk, d) or v.shape[:2] != (BH, Nk):
+    """(B, H, Nq, Nk, d, dv) of (B, H, N, w) or (BH, N, w) operands; raises
+    on what the kernels do not take."""
+    if not q.dim() == k.dim() == v.dim() or q.dim() not in (3, 4):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    B, H, Nq, d = _dims(q)
+    Nk, dv = k.shape[-2], v.shape[-1]
+    if _dims(k) != (B, H, Nk, d) or _dims(v)[:3] != (B, H, Nk):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if (d, dv) not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dims (d={d}, dv={dv}) not in {SUPPORTED_HEAD_DIMS}")
     if q.dtype not in _kernels.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; want one of f32, bf16")
-    return BH, Nq, Nk, d, dv
+    return B, H, Nq, Nk, d, dv
+
+
+def _check_devices(name, *tensors):
+    index = tensors[0].get_device()  # -1 off the card; no torch.device built
+    if not tensors[0].is_cuda or any(t.get_device() != index or not t.is_cuda for t in tensors):
+        raise ValueError(f"{name}: operands must share one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+@functools.lru_cache(maxsize=None)
+def _dropout_constants(rate: float) -> Tuple[int, float]:
+    return dropout_threshold(rate), dropout_keep_scale(rate)
 
 
 def _dropout_args(seed: int, rate: float, nq_pad: int, nk_pad: int):
@@ -219,76 +321,82 @@ def _dropout_args(seed: int, rate: float, nq_pad: int, nk_pad: int):
     it; threshold 0 (rate 0) keeps every element at value 1."""
     if rate <= 0.0:
         return 0, 0, 1.0, nq_pad, nk_pad
-    return int(seed) & _MASK32, dropout_threshold(rate), dropout_keep_scale(rate), nq_pad, nk_pad
+    return (int(seed) & _MASK32, *_dropout_constants(rate), nq_pad, nk_pad)
 
 
 def flash_train_fwd(q, k, v, seed: int, scale: float, rate: float, nq_pad: int, nk_pad: int):
-    """K4: (out, lse) of `flash_train_fwd_plain`; CPU tensors run the plain
-    version, CUDA tensors launch `fod_flash_train_fwd` or raise."""
-    if q.device.type == "cpu":
+    """K4: (out, lse) of `flash_train_fwd_plain`, for (BH, N, w) or (B, H, N,
+    w) operands of any strides; CPU tensors run the plain version, CUDA
+    tensors launch `fod_flash_train_fwd` or raise."""
+    if q.is_cpu:
         return flash_train_fwd_plain(q, k, v, seed, scale, rate, nq_pad, nk_pad)
-    BH, Nq, Nk, d, dv = _train_kernel_args(q, k, v, "flash_train_fwd")
-    _kernels.check_cuda_operands("flash_train_fwd", q, k, v)
-    out = torch.empty((BH, Nq, dv), dtype=q.dtype, device=q.device)
-    lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
-    _kernels.call(
-        TRAIN_NAME, "fod_flash_train_fwd",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        BH, Nq, Nk, d, dv, float(scale), *_dropout_args(seed, rate, nq_pad, nk_pad),
-        _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
-    )
+    _, _, Nq, _, _, dv = _train_kernel_args(q, k, v, "flash_train_fwd")
+    _check_devices("flash_train_fwd", q, k, v)
+    out = _empty_rows(q, Nq, dv, q.dtype)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    _train_call("fod_flash_train_fwd", q, k, v, None, out, None, lse, None, scale,
+                _dropout_args(seed, rate, nq_pad, nk_pad))
     _kernels.launch_counts["flash_train_fwd"] += 1
     return out, lse
 
 
 def flash_dq(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_pad: int,
              nk_pad: int):
-    """K5: dq of `flash_dq_plain`; CPU tensors run the plain version, CUDA
-    tensors launch `fod_flash_train_dq` or raise."""
-    if q.device.type == "cpu":
+    """K5: dq of `flash_dq_plain`, laid out as q's outputs are (see
+    `flash_train_fwd`); CPU tensors run the plain version, CUDA tensors
+    launch `fod_flash_train_dq` or raise."""
+    if q.is_cpu:
         return flash_dq_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
-    BH, Nq, Nk, d, dv = _train_kernel_args(q, k, v, "flash_dq")
+    _, _, Nq, _, d, _ = _train_kernel_args(q, k, v, "flash_dq")
     _check_grad_operands("flash_dq", q, v, do, lse, delta)
-    dq = torch.empty_like(q)
-    _kernels.call(
-        TRAIN_NAME, "fod_flash_train_dq",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(),
-        BH, Nq, Nk, d, dv, float(scale), *_dropout_args(seed, rate, nq_pad, nk_pad),
-        _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
-    )
+    _check_devices("flash_dq", q, k, v, do, lse, delta)
+    dq = _empty_rows(q, Nq, d, q.dtype)
+    _train_call("fod_flash_train_dq", q, k, v, do, dq, None, lse, delta, scale,
+                _dropout_args(seed, rate, nq_pad, nk_pad))
     _kernels.launch_counts["flash_train_dq"] += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_pad: int,
               nk_pad: int):
-    """K6: (dk, dv) of `flash_dkv_plain`; CPU tensors run the plain version,
-    CUDA tensors launch `fod_flash_train_dkv` or raise."""
-    if q.device.type == "cpu":
+    """K6: (dk, dv) of `flash_dkv_plain`, laid out as `flash_train_fwd`'s
+    outputs are; CPU tensors run the plain version, CUDA tensors launch
+    `fod_flash_train_dkv` or raise."""
+    if q.is_cpu:
         return flash_dkv_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
-    BH, Nq, Nk, d, dv = _train_kernel_args(q, k, v, "flash_dkv")
+    _, _, _, Nk, d, dv = _train_kernel_args(q, k, v, "flash_dkv")
     _check_grad_operands("flash_dkv", q, v, do, lse, delta)
-    dk, dvv = torch.empty_like(k), torch.empty_like(v)
-    _kernels.call(
-        TRAIN_NAME, "fod_flash_train_dkv",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-        BH, Nq, Nk, d, dv, float(scale), *_dropout_args(seed, rate, nq_pad, nk_pad),
-        _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
-    )
+    _check_devices("flash_dkv", q, k, v, do, lse, delta)
+    dk, dvv = _empty_rows(k, Nk, d, k.dtype), _empty_rows(v, Nk, dv, v.dtype)
+    _train_call("fod_flash_train_dkv", q, k, v, do, dk, dvv, lse, delta, scale,
+                _dropout_args(seed, rate, nq_pad, nk_pad))
     _kernels.launch_counts["flash_train_dkv"] += 1
     return dk, dvv
 
 
 def _check_grad_operands(name, q, v, do, lse, delta):
-    BH, Nq, _ = q.shape
-    if do.shape != (BH, Nq, v.shape[2]) or do.dtype != q.dtype:
+    rows = q.shape[:-1]
+    if do.shape != (*rows, v.shape[-1]) or do.dtype != q.dtype:
         raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype}")
-    if lse.shape != (BH, Nq) or delta.shape != (BH, Nq) \
+    if lse.shape != rows or delta.shape != rows \
             or lse.dtype != torch.float32 or delta.dtype != torch.float32:
-        raise ValueError(f"{name}: lse/delta must be (BH, Nq) f32")
-    _kernels.check_cuda_operands(name, q, v, do, lse, delta)
+        raise ValueError(f"{name}: lse/delta must be {tuple(rows)} f32")
+
+
+def flash_train_info(kernel: str, d: int, dv: int, dtype: torch.dtype, BH: int, Nq: int,
+                     Nk: int) -> dict:
+    """K4, K5 or K6's instantiation (`kernel`: a launch counter's name) on
+    the current card: registers a thread, static and dynamic shared bytes a
+    block, local (spill) bytes a thread, resident blocks an SM, and its
+    launch at (BH, Nq, Nk): grid, threads a block, and the warps that split
+    a query slab's keys. Launches nothing."""
+    which = ("flash_train_fwd", "flash_train_dq", "flash_train_dkv").index(kernel)
+    out = (ctypes.c_int * 9)()
+    _kernels.call(TRAIN_NAME, "fod_flash_train_info", which, d, dv,
+                  _kernels.DTYPE_CODES[dtype], BH, Nq, Nk, ctypes.addressof(out))
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+            "blocks_per_sm", "grid_x", "grid_y", "threads", "split")
+    return dict(zip(keys, out))
 
 
 def dropout_keep_mask_kernel(seed: int, BH: int, Nq: int, Nk: int, rate: float, nq_pad: int,
@@ -309,7 +417,9 @@ def dropout_keep_mask_kernel(seed: int, BH: int, Nq: int, Nk: int, rate: float, 
 class FlashAttentionTrain(torch.autograd.Function):
     """softmax(q·kᵀ·scale) with dropout, times v, and its gradient, through
     K4 (forward) and K5/K6 (backward); δ = rowsum(do ⊙ out) is plain torch,
-    as in the JAX package. q, k (BH, N, d); v (BH, Nk, dv)."""
+    as in the JAX package. q, k (B, H, N, d) or (BH, N, d), v (..., Nk, dv),
+    any strides: the kernels read them in place and write their outputs in
+    the (B, N, H, w) layout."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed: int, scale: float, rate: float, nq_pad: int, nk_pad: int):
@@ -321,7 +431,6 @@ class FlashAttentionTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        do = do.contiguous()
         delta = (do.float() * out.float()).sum(dim=-1)
         dq = flash_dq(q, k, v, do, lse, delta, *ctx.args)
         dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.args)
@@ -331,18 +440,14 @@ class FlashAttentionTrain(torch.autograd.Function):
 def flash_attention_train(q, k, v, seed: int, scale: float, dropout_rate: float = 0.0,
                           block_q: int = 256, block_k: int = 512) -> torch.Tensor:
     """Differentiable fused attention with in-kernel attention-weight
-    dropout. q, k (B, H, N, d); v (B, H, Nk, dv); seed an int in [0, 2^31)
-    (unused at rate 0). block_q/block_k are the JAX kernels' blocks, which
-    set the dropout mask's geometry only. Returns (B, H, Nq, dv)."""
-    B, H, Nq, d = q.shape
-    Nk, dv = k.shape[2], v.shape[3]
-    nq_pad, nk_pad = train_shapes(Nq, Nk, block_q, block_k)
-    out = FlashAttentionTrain.apply(
-        q.reshape(B * H, Nq, d).contiguous(), k.reshape(B * H, Nk, d).contiguous(),
-        v.reshape(B * H, Nk, dv).contiguous(), int(seed), float(scale), float(dropout_rate),
-        nq_pad, nk_pad,
-    )
-    return out.reshape(B, H, Nq, dv)
+    dropout. q, k (B, H, N, d); v (B, H, Nk, dv), any strides (attend_heads
+    passes transposed (B, N, H, d) views, which the kernels read in place);
+    seed an int in [0, 2^31) (unused at rate 0). block_q/block_k are the JAX
+    kernels' blocks, which set the dropout mask's geometry only. Returns
+    (B, H, Nq, dv), on the card a view of (B, Nq, H, dv) storage."""
+    nq_pad, nk_pad = train_shapes(q.shape[2], k.shape[2], block_q, block_k)
+    return FlashAttentionTrain.apply(q, k, v, int(seed), float(scale), float(dropout_rate),
+                                     nq_pad, nk_pad)
 
 
 def train_attention_cost(BH: int, Nq: int, Nk: int, d: int, dv: int, itemsize: int):

@@ -289,11 +289,17 @@ TRAIN_SHAPES = [(64, 350, 350, 32, 32), (32, 128, 350, 64, 32)]
 # an encoder self-attention at heads of 64
 HEAD16_TRAIN_SHAPES = [(32, 350, 350, 16, 16), (16, 128, 350, 32, 16)]
 HEAD64_TRAIN_SHAPES = [(32, 350, 350, 64, 64)]
+# ragged edges at every built head-dim pair: 17 and 129 queries or keys (one
+# real row or key past a 16-row slab, a 64-key tile or a 128-row block), at
+# few batch*heads, where K4 and K5 split a slab's keys across warps
+RAGGED_TRAIN_SHAPES = [(BH, Nq, Nk, d, dv) for d, dv in fa.SUPPORTED_HEAD_DIMS
+                       for BH, Nq, Nk in ((2, 17, 129), (3, 129, 17))]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES + HEAD16_TRAIN_SHAPES + HEAD64_TRAIN_SHAPES)
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES + HEAD16_TRAIN_SHAPES + HEAD64_TRAIN_SHAPES
+                         + RAGGED_TRAIN_SHAPES)
 def test_flash_train_kernels(cuda, np_rng, dtype, rate, BH, Nq, Nk, d, dv):
     """K4, K5 and K6 against their plain versions on the same inputs (K5 and
     K6 given the plain forward's lse and delta)."""
@@ -318,16 +324,19 @@ def test_flash_train_kernels(cuda, np_rng, dtype, rate, BH, Nq, Nk, d, dv):
     assert_close(dv_, ref_dv, dtype)
 
 
+@pytest.mark.parametrize("magnitude", [1e3, 3.2e3])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES)
-def test_flash_train_saturated_logits(cuda, np_rng, rate, BH, Nq, Nk, d, dv):
-    """Logits of about 1e6, as a randomly initialised backbone feeds the
-    encoder: every row's softmax is one-hot. K5 and K6, given K4's lse, must
-    recompute p <= 1, so that dv equals the f64 reference and dq, dk stay at
-    rounding level (a recompute rounded otherwise put p far above 1 here)."""
-    q, k, v, do = on(cuda, torch.float32, np_rng.normal(size=(BH, Nq, d)) * 1e3,
-                     np_rng.normal(size=(BH, Nk, d)) * 1e3, np_rng.normal(size=(BH, Nk, dv)),
-                     np_rng.normal(size=(BH, Nq, dv)))
+def test_flash_train_saturated_logits(cuda, np_rng, rate, magnitude, BH, Nq, Nk, d, dv):
+    """Logits of about 1e6 and 1e7 (q and k of `magnitude`), as a randomly
+    initialised backbone feeds the encoder: every row's softmax is one-hot.
+    K5 and K6, given K4's lse, must recompute p <= 1 (K4 and K5 on the tensor
+    cores compute the logits as K6 does, bit for bit), so that dv equals the
+    f64 reference and dq, dk stay at rounding level (a recompute rounded
+    otherwise put p far above 1 here)."""
+    q, k, v, do = on(cuda, torch.float32, np_rng.normal(size=(BH, Nq, d)) * magnitude,
+                     np_rng.normal(size=(BH, Nk, d)) * magnitude,
+                     np_rng.normal(size=(BH, Nk, dv)), np_rng.normal(size=(BH, Nq, dv)))
     nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
     args = (777, 1.0 / math.sqrt(d), rate, nq_pad, nk_pad)
     logits = args[1] * q.double() @ k.double().transpose(1, 2)
@@ -351,6 +360,32 @@ def test_flash_train_saturated_logits(cuda, np_rng, rate, BH, Nq, Nk, d, dv):
     for grad, other, terms in ((dq, k, Nk), (dk, q, Nq)):
         bound = terms * args[1] * other.abs().max() * dlogit_max
         assert grad.abs().max() <= 1e-6 * bound, (grad.abs().max().item(), bound.item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES)
+def test_flash_train_strided_views(cuda, np_rng, dtype, BH, Nq, Nk, d, dv):
+    """The model's layout: (B, N, H, d) storage passed as (B, H, N, d) views.
+    The kernels read it in place and give the contiguous copies' results bit
+    for bit; out and the gradients come back in the (B, N, H, w) layout."""
+    H = 8
+    qh, kh, vh, doh = on(cuda, dtype, np_rng.normal(size=(BH // H, Nq, H, d)),
+                         np_rng.normal(size=(BH // H, Nk, H, d)),
+                         np_rng.normal(size=(BH // H, Nk, H, dv)),
+                         np_rng.normal(size=(BH // H, Nq, H, dv)))
+    args = (777, 1.0 / math.sqrt(d), 0.1, *fa.train_shapes(Nq, Nk, 256, 512))
+    results = []
+    for views in (True, False):
+        q, k, v = (t.transpose(1, 2) if views else t.transpose(1, 2).contiguous()
+                   for t in (qh, kh, vh))
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = fa.FlashAttentionTrain.apply(q, k, v, *args)
+        out.backward(doh.transpose(1, 2))
+        results.append((out, q.grad, k.grad, v.grad))
+    for got, want in zip(*results):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert results[0][0].transpose(1, 2).is_contiguous()
+    assert results[0][1].transpose(1, 2).is_contiguous()
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])

@@ -158,6 +158,47 @@ class TestWrappers:
         with pytest.raises(ValueError, match="head dims"):
             fa.flash_train_fwd(q[..., :8], q[..., :8], q[..., :8], *args)
 
+    @pytest.mark.parametrize("rate", [0.0, 0.3])
+    def test_transposed_views_equal_contiguous(self, rate):
+        """attend_heads passes (B, N, H, d) storage as (B, H, N, d) views,
+        which the kernels read in place: the same values and gradients as
+        the contiguous copies."""
+        B, H, Nq, Nk, d, dv = 2, 4, 33, 130, 32, 32
+        rng = np.random.default_rng(5)
+        qh, kh, vh, doh = (t(rng.normal(size=(B, n, H, w)).astype(np.float32))
+                           for n, w in ((Nq, d), (Nk, d), (Nk, dv), (Nq, dv)))
+        results = []
+        for views in (True, False):
+            q, k, v = (x.transpose(1, 2) if views else x.transpose(1, 2).contiguous()
+                       for x in (qh, kh, vh))
+            q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+            out = fa.flash_attention_train(q, k, v, 11, d**-0.5, rate)
+            out.backward(doh.transpose(1, 2))
+            results.append((out, q.grad, k.grad, v.grad))
+        for got, want in zip(*results):
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * want.abs().max().item())
+
+    def test_kernel_argument_layout(self):
+        """The packed TrainArgs is csrc/flash_attention_train.cu's struct up
+        with its tail padding (offsetof nk_pad == 312, sizeof 320, so the
+        by-value copy reads no byte past the buffer), and the outputs of a
+        (B, H, N, d) operand are laid out (B, N, H, w), as attend_heads
+        reshapes them without a copy; a (BH, N, d) operand's are contiguous."""
+        assert fa._TRAIN_ARGS.size == 320
+        x = torch.empty((2, 4, 10, 32)).transpose(1, 2).transpose(1, 2)
+        out = fa._empty_rows(x, 7, 16, torch.bfloat16)
+        assert out.shape == (2, 4, 7, 16) and out.dtype == torch.bfloat16
+        assert out.transpose(1, 2).is_contiguous()
+        assert fa._empty_rows(torch.empty(8, 10, 32), 7, 16, torch.float32).is_contiguous()
+        # a (BH, N, w) operand is one batch of BH heads: (pointer, 0, head
+        # and row strides), as (B, H, N, w) and (B, H, N) ones give theirs
+        three = torch.empty(8, 10, 32)
+        assert fa._dims(three) == (1, 8, 10, 32) and fa._dims(x) == (2, 4, 10, 32)
+        assert fa._fields(three, 4) == (three.data_ptr(), 0, 320, 32)
+        assert fa._fields(out, 4) == (out.data_ptr(), 7 * 4 * 16, 16, 4 * 16)
+        rows = torch.empty(8, 10)
+        assert fa._fields(rows, 3) == (rows.data_ptr(), 0, 10, 1)
+
     def test_train_attention_cost(self):
         cost = fa.train_attention_cost(64, 350, 350, 32, 32, 4)
         assert cost["flash_train_fwd"][0] == 2 * 64 * 350 * 350 * 64
