@@ -7,11 +7,11 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
 
 0. the card's name and power limit (nvidia-smi); the kernel build and its
    seconds; that K1 (csrc/flash_attention.cu), K2
-   (csrc/fused_bottleneck.cu) and K4 and K5 (csrc/flash_attention_train.cu)
-   run on the tensor cores: the SASS of each of their instantiations
-   (cuobjdump) holds HMMA instructions, with its registers, shared memory
-   and spills (ptxas's report in the build log, and the runtime's, with the
-   resident blocks an SM).
+   (csrc/fused_bottleneck.cu), K3 (csrc/fused_stem.cu) and K4, K5 and K6
+   (csrc/flash_attention_train.cu) run on the tensor cores: the SASS of each
+   of their instantiations (cuobjdump) holds HMMA instructions, with its
+   registers, shared memory and spills (ptxas's report in the build log, and
+   the runtime's, with the resident blocks an SM).
 1. each kernel against its plain PyTorch version at the flagship's shapes,
    f32 (TF32 off for matmuls and cuDNN convs) and bf16: max abs error
    within the stated tolerance, the kernel's time, the plain version's, one
@@ -19,8 +19,9 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    none computes the function (K2: cuDNN's convolutions of the block,
    channels-last, plus the add and the relus; K3: cuDNN's 7x7/2 conv + bias
    + relu + max_pool2d), and the least time the card could take for the
-   same work (for K1 also its exponentials, at 16 ex2 a clock an SM; K1's
-   and K2's f32 products as three TF32 products each).
+   same work (for K1 also its exponentials, at 16 ex2 a clock an SM; K1's,
+   K2's and K3's f32 products as three TF32 products each; K3's 147 taps,
+   with its design's floor at the 192 it computes beside it).
 1e. the head dims added for heads of 16 (runs/nuim_single_frame.py --debug:
    16/16 in the encoder, 32/16 in the conditional cross-attention) and 64
    (64/64): K1 and K4-K6 against their plain versions at each, f32 and
@@ -57,7 +58,8 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    forward and of its backward through autograd.grad, at the model's
    (B, N, H, d) layout. The library figures are
    F.scaled_dot_product_attention's forward (K4) and backward (one
-   autograd.grad, K5 + K6), measured the same three ways.
+   autograd.grad, K5 + K6), measured the same three ways; a line gives K5 +
+   K6's device time a step beside SDPA's backward.
 1c. the kernel-study tools (future_od_tpu_torch/tools, the main path of
    their slice): bench_softmax_floor and bench_fused_bottleneck run whole
    at their full bf16 shapes with the launch counts reset before and read
@@ -124,7 +126,7 @@ import numpy as np
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): f32 on the CUDA cores,
 # bf16 on the tensor cores, HBM3 bandwidth; TF32 on the tensor cores, which
-# K1 and K2 use three times a product for f32 (3xTF32).
+# the port's tensor-core kernels use three times a product for f32 (3xTF32).
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 PEAK_TF32 = 495e12
@@ -364,8 +366,18 @@ def k2_tensor_core_report():
                               2 * len(fr.BOTTLENECK_CMIDS), resources)
 
 
+def k3_tensor_core_report():
+    """K3: both dtypes."""
+    import torch
+
+    from future_od_tpu_torch.ops import fused_resnet as fr
+
+    resources = {dt: fr.fused_stem_info(getattr(torch, dt)) for dt in ("float32", "bfloat16")}
+    return tensor_core_report(fr.STEM, "fused_stem_kernel", 2, resources)
+
+
 def train_tensor_core_report():
-    """K4 and K5: every (dtype, head dims) instantiation; the runtime's
+    """K4, K5 and K6: every (dtype, head dims) instantiation; the runtime's
     resources and launch at the encoder's training shape."""
     import torch
 
@@ -374,7 +386,8 @@ def train_tensor_core_report():
     _, BH, Nq, Nk, *_ = TRAIN_ATTENTIONS[0]
     reports = {}
     for name, kernel in (("flash_train_fwd", "train_fwd_kernel"),
-                         ("flash_train_dq", "train_dq_kernel")):
+                         ("flash_train_dq", "train_dq_kernel"),
+                         ("flash_train_dkv", "train_dkv_kernel")):
         resources = {f"{dt} d{d} dv{dv}": fa.flash_train_info(name, d, dv, getattr(torch, dt),
                                                                BH, Nq, Nk)
                      for dt in ("float32", "bfloat16") for d, dv in fa.SUPPORTED_HEAD_DIMS}
@@ -383,23 +396,26 @@ def train_tensor_core_report():
     return reports
 
 
-def device_us(torch, fn, calls: int = 20) -> float:
+def device_us(torch, fn, calls: int = 20, sessions: int = 3) -> float:
     """Mean device µs a call: the CUDA time of every kernel and copy `fn`
-    launched under torch.profiler over `calls` calls, over the calls.
-    Raises if the profiler saw no device time."""
+    launched under torch.profiler over `calls` calls, over the calls. The
+    first profiler session of a process on a fresh machine has once seen no
+    device event at all (on an H100), so a session that sees none is run
+    again, up to `sessions` in all; raises if none saw device time."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer"))
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / calls
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer"))
+        if total > 0:
+            return total / calls
+    raise AssertionError(f"the profiler saw no device time in {sessions} sessions")
 
 
 def host_us(torch, fn, calls: int = 100) -> float:
@@ -558,19 +574,24 @@ def kernel_phase(torch, dev):
         dt = getattr(torch, dtype)
         xs, w4 = xs32.to(dt), w4_32.to(dt)
         frames, w7c, bias_dt = video.to(dt).permute(0, 3, 1, 2), conv_weight(w7, dt), bias.to(dt)
-        out = fr.fused_stem(xs, w4, bias)
+        packed = fr.pack_stem(dt, w4, bias)  # once, as the model packs its stem
+        out = fr.fused_stem_packed(xs, packed)
         ref = fr.stem_plain(xs, w4, bias)
         err, tol = check_close("fused_stem", out, ref, dtype)
         ops, nbytes = fr.stem_cost(n_img, HEIGHT // 2, WIDTH // 2, xs.element_size())
-        b_ms, b_by = bound(ops, nbytes, dtype)
+        b_ms, b_by, b_is = tc_bound(ops, nbytes, dtype)
+        # the design computes the s2d kernel's 45 zero taps too: 192 taps, not 147
+        ops192, _ = fr.stem_cost(n_img, HEIGHT // 2, WIDTH // 2, xs.element_size(), fr.STEM_K)
         rec = dict(
             shape=list(xs.shape), dtype=dtype, per_forward=1, max_abs_err=err, tol=tol,
-            ms=time_ms(torch, lambda: fr.fused_stem(xs, w4, bias)),
+            ms=time_ms(torch, lambda: fr.fused_stem_packed(xs, packed)),
             plain_ms=time_ms(torch, lambda: fr.stem_plain(xs, w4, bias)),
             library_ms=time_ms(torch, lambda: F.max_pool2d(
                 F.relu(F.conv2d(frames, w7c, bias_dt, stride=2, padding=3)), 3, 2, 1)),
             library_is=f"a yardstick: {K3_YARDSTICK}",
-            bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes,
+            bound_ms=b_ms, bound_by=b_by, bound_is=b_is, ops=ops, bytes=nbytes,
+            design_floor_ms=tc_bound(ops192, nbytes, dtype)[0],
+            design_floor_is="192 taps (the s2d kernel's zeros included) on the tensor cores",
         )
         records["fused_stem"].append(rec)
         log("kernel", kernel="fused_stem", **rec)
@@ -700,6 +721,16 @@ def train_kernel_phase(torch, dev):
     for name in TRAIN_KERNELS:
         for rec in records[name]:
             log("kernel", kernel=name, **rec)
+
+    def step_ms(name, key):  # a train step's calls, f32 at rate 0.1
+        return sum(r[key] * r["per_step"] for r in records[name] if "device_ms" in r)
+
+    backward = step_ms("flash_train_dq", "device_ms") + step_ms("flash_train_dkv", "device_ms")
+    sdpa = step_ms("flash_train_dq", "library_device_ms")
+    log("1b-backward-vs-sdpa", k5_device_ms=step_ms("flash_train_dq", "device_ms"),
+        k6_device_ms=step_ms("flash_train_dkv", "device_ms"), k5_plus_k6_device_ms=backward,
+        sdpa_backward_device_ms=sdpa, ratio=backward / sdpa,
+        per="one f32 train step's calls at dropout 0.1, device time under torch.profiler")
     torch.cuda.synchronize()
     return records
 
@@ -1529,7 +1560,8 @@ def main() -> int:
     log("0-build", seconds=_kernels.build_all(), build_dir=str(_kernels.BUILD_DIR))
     log("0-k1-tensor-cores", **k1_tensor_core_report())
     log("0-k2-tensor-cores", **k2_tensor_core_report())
-    log("0-k4-k5-tensor-cores", **train_tensor_core_report())
+    log("0-k3-tensor-cores", **k3_tensor_core_report())
+    log("0-k4-k6-tensor-cores", **train_tensor_core_report())
 
     t0 = time.perf_counter()
     records = kernel_phase(torch, torch.device("cuda"))
@@ -1633,14 +1665,16 @@ def main() -> int:
         f32 = [r for r in recs if r["dtype"] == "float32"]
         per_fwd = lambda key: sum(r[key] * r["per_forward"] for r in f32)  # noqa: E731
         lib = [r["library_ms"] for r in f32]
-        b_ms, b_by = bound(per_fwd("ops"), per_fwd("bytes"), "float32")
         bound_is = {}
         if name == "flash_attention":  # the 3xTF32 products, the ex2 or the bytes
             b_ms, b_by = per_fwd("bound_ms"), f32[0]["bound_by"]
             bound_is = {"bound_is": f32[0]["bound_is"]}
-        elif name == "fused_bottleneck":  # the 3xTF32 products or the bytes
+        else:  # K2, K3: the 3xTF32 products or the bytes
             b_ms, b_by, b_is = tc_bound(per_fwd("ops"), per_fwd("bytes"), "float32")
             bound_is = {"bound_is": b_is}
+            if name == "fused_stem":
+                bound_is["design_floor_ms"] = per_fwd("design_floor_ms")
+                bound_is["design_floor_is"] = f32[0]["design_floor_is"]
         if "library_is" in f32[0]:
             bound_is["library_is"] = f32[0]["library_is"]
         kernels.append({
@@ -1683,16 +1717,14 @@ def main() -> int:
                    f"{FRAMES - 1} past frames x {TRAIN_HEIGHT}x{TRAIN_WIDTH}",
             "calls": recs,
         }
-        if name != "flash_train_dkv":
-            # K4's and K5's design keeps the logits (q·kᵀ, bit-equal to K6's) on
-            # the CUDA cores: that design's floor, apart from the card's bound
-            logits = sum(2 * r["shape"][0] * r["shape"][1] * r["shape"][2] * r["shape"][3]
-                         * r["per_step"] for r in timed)
-            products = tc_bound(per_step("ops") - logits, 0, "float32")[0]
-            row["design_floor_ms"] = max(bound(logits, per_step("bytes"), "float32")[0],
-                                         products)
-            row["design_floor_is"] = ("the logits' f32 FMA chains on the CUDA cores, the other "
-                                      "products as 3xTF32 on the tensor cores, or the bytes")
+        # the design keeps the logits (q·kᵀ, bit-equal in all three kernels) on
+        # the CUDA cores: that design's floor, apart from the card's bound
+        logits = sum(2 * r["shape"][0] * r["shape"][1] * r["shape"][2] * r["shape"][3]
+                     * r["per_step"] for r in timed)
+        products = tc_bound(per_step("ops") - logits, 0, "float32")[0]
+        row["design_floor_ms"] = max(bound(logits, per_step("bytes"), "float32")[0], products)
+        row["design_floor_is"] = ("the logits' f32 FMA chains on the CUDA cores, the other "
+                                  "products as 3xTF32 on the tensor cores, or the bytes")
         if name == "flash_train_fwd":
             row["includes"] = ("the dropout mask future_od_tpu_torch/csrc/dropout_mask.cuh "
                                "(replaces future_od_tpu/ops/flash_attention.py:242)")

@@ -28,9 +28,11 @@
 // that rounds otherwise (other units, the scale applied after the product, another
 // summation order) puts the exponent off by a few ulps of the logit: at logits of
 // 1e6-1e7, which a randomly initialised backbone reaches within a few training steps,
-// p came out as large as 2^16 and the step's gradient was no longer finite. K6 keeps
-// that chain on the CUDA cores, so K4 and K5 do too: each lane computes the logits at
-// its own positions of an mma C fragment, each as that sequential chain (`logits`).
+// p came out as large as 2^16 and the step's gradient was no longer finite. All three
+// keep that chain on the CUDA cores: each lane computes the logits at its own positions
+// of an mma C fragment, each as that sequential chain (`logits`; K6 with keys as the
+// fragment's rows). fmaf's product is exact, so the order of its two factors does not
+// matter; the order over c does.
 //
 // K4 and K5 (redesigned for the tensor cores). A block of 4 warps; each warp owns a
 // 16-row query slab in the mma fragment layout (rows g and g + 8 of lane (g, t), keys
@@ -62,8 +64,9 @@
 // What bounds K4 and K5 (the stage-1 train step, 18 calls each): the logits' chains,
 // 5.21 GFLOP a step for each kernel on the CUDA cores, 0.078 ms at 67 TFLOP/s; the
 // tensor-core products (K4 P v, K5 dS and dq) as 3xTF32 0.025 and 0.056 ms. So the
-// CUDA cores' logits set this design's floor; moving them onto the tensor cores needs
-// K6 to share the same tile routine (ROADMAP Queue 2). On an H100 80GB HBM3 at 700 W,
+// CUDA cores' logits set this design's floor (K6's too: its products as 3xTF32 take
+// 0.081 ms a step); moving the logits onto the tensor cores would change all three
+// kernels together (ROADMAP Queue 2, deferred). On an H100 80GB HBM3 at 700 W,
 // f32, dropout 0.1 (chip_smoke.py phase 1b, device time): K4 57 us a call at the
 // encoder's shape (122 registers, 4 blocks an SM, split 1) and 25 at the decoder's
 // (split 4), K5 68-74 and 29. The time goes to latency at 8-12 warps an SM rather than
@@ -71,11 +74,11 @@
 // logits' shared-memory loads changed nothing, while dropping the logits or P v each
 // took a large share.
 //
-// K6 (unchanged arithmetic, strides only): f32 on the CUDA cores; one thread per key
-// (its k and v rows and its dk/dv accumulators in registers), one block per (bh,
-// 64-key tile), looping over 64-query tiles of q, do, lse and delta staged in shared
-// memory: the block owns its dk/dv rows, so no atomics are needed. The (Nq, Nk)
-// probabilities never reach device memory in any kernel.
+// K6 (redesigned for the tensor cores, see train_dkv_kernel): K5 mirrored, each warp
+// owning a 16-key slab and walking 64-query tiles staged by cp.async; dS^T, dv and dk on
+// the tensor cores, the logits on the CUDA cores as above. The block owns its dk/dv
+// rows, so no atomics are needed. The (Nq, Nk) probabilities never reach device memory
+// in any kernel.
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -89,10 +92,13 @@ using fod::cp_async16;
 using fod::ldmatrix_x2;
 using fod::ldmatrix_x4;
 using fod::ldmatrix_x4_trans;
+using fod::load8;
 using fod::mma_3xtf32;
 using fod::mma_bf16;
+using fod::pack_bf16;
 using fod::smem_addr;
 using fod::split_tf32;
+using fod::store2;
 
 // A (batch, head, row, column) operand: element strides of the first three, the last
 // contiguous.
@@ -174,42 +180,23 @@ __device__ __forceinline__ void load_tile(unsigned char* smem, const TrainArgs& 
   stage_rows<T, DV, G::kRowV>(ks + kTileK * G::kRowK, vb, a.v.sn, a.nk, tile * kTileK);
 }
 
-// The block's q rows row_base .. row_base + rows as f32 * scale (the rounding every
-// kernel here takes), 0 past nq.
-template <typename T, int D>
-__device__ __forceinline__ void stage_q(float* qs, const TrainArgs& a, int b, int h,
-                                        int row_base, int rows) {
-  constexpr int kRowQ = D + kPad / 4;  // Geometry's
-  const T* qb = at<T>(a.q, b, h, 0);
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D, row = row_base + r;
-    qs[r * kRowQ + c] = row < a.nq ? fod::to_float(qb[row * a.q.sn + c]) * a.scale : 0.f;
-  }
-}
-
-// 8 consecutive elements of a staged row as f32 (16-byte aligned).
-template <typename T>
-__device__ __forceinline__ void load8(float (&x)[8], const unsigned char* p) {
-  if constexpr (std::is_same<T, float>::value) {
-    const float4 lo = *reinterpret_cast<const float4*>(p);
-    const float4 hi = *reinterpret_cast<const float4*>(p + 16);
-    x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
-    x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
-  } else {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // the lower column sits in the low half
-      x[2 * i] = __uint_as_float(w[i] << 16);
-      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
+// Rows row_base .. row_base + rows of a (rows, W)-element operand (row stride sn) as f32
+// times mul into dst (row pitch W + kPad / 4 floats), 0 past n: K4's and K5's q rows times
+// scale (the rounding every kernel here takes), K6's k rows as they are.
+template <typename T, int W>
+__device__ __forceinline__ void stage_f32(float* dst, const T* src, long long sn, int n,
+                                          int row_base, int rows, float mul) {
+  constexpr int kRow = W + kPad / 4;
+  for (int i = threadIdx.x; i < rows * W; i += kThreads) {
+    const int r = i / W, c = i % W, row = row_base + r;
+    dst[r * kRow + c] = row < n ? fod::to_float(src[row * sn + c]) * mul : 0.f;
   }
 }
 
 // s[jn][e], jn < np: the logit of q row (g + 8 (e >> 1)) of the warp's slab (q0, q1:
 // its rows g and g + 8, f32 * scale) and key 8 (jb + jn) + 2t + (e & 1) of the staged
 // tile ks, each the sequential fmaf chain over c = 0 .. D - 1 that all three kernels
-// take (see the header): bit-equal to K6's logits.
+// take (see the header): bit-equal across the three kernels.
 template <typename T, int D, int kRowK>
 __device__ __forceinline__ void logits(float (&s)[kPassN][4], const float* q0, const float* q1,
                                        const unsigned char* ks, int jb, int np, int t) {
@@ -236,11 +223,6 @@ __device__ __forceinline__ void logits(float (&s)[kPassN][4], const float* q0, c
       }
     }
   }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);  // .x in the low 16 bits
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // (x0, x1) = hi + lo, each a pair of bf16 (the lower column in the low half).
@@ -429,7 +411,7 @@ train_fwd_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
 
   load_tile<T, D, DV>(smem, a, kb, vb, 0, 0);
   fod::cp_async_commit();
-  stage_q<T, D>(qs, a, b, h, L.row_base, 16 * L.slabs);
+  stage_f32<T, D>(qs, at<T>(a.q, b, h, 0), a.q.sn, a.nq, L.row_base, 16 * L.slabs, a.scale);
   const float* q0 = qs + (16 * L.slab + L.g) * G::kRowQ;
   const float* q1 = q0 + 8 * G::kRowQ;
 
@@ -545,14 +527,7 @@ train_fwd_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
     const float inv = 1.f / row_sum[hh];
     T* orow = at<T>(a.o0, b, h, row) + 2 * L.t;
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      const float x0 = o[n][2 * hh] * inv, x1 = o[n][2 * hh + 1] * inv;
-      if constexpr (std::is_same<T, float>::value) {
-        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(x0, x1);
-      }
-    }
+    for (int n = 0; n < DV / 8; ++n) store2<T>(orow + 8 * n, o[n][2 * hh] * inv, o[n][2 * hh + 1] * inv);
     // row_sum >= 1 (the max's own p is exactly 1), so lse >= the row's max logit
     if (L.t == 0) *at<float>(a.lse, b, h, row) = row_max[hh] + logf(row_sum[hh]);
   }
@@ -571,7 +546,7 @@ train_dq_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
 
   load_tile<T, D, DV>(smem, a, kb, vb, 0, 0);
   fod::cp_async_commit();
-  stage_q<T, D>(qs, a, b, h, L.row_base, 16 * L.slabs);
+  stage_f32<T, D>(qs, at<T>(a.q, b, h, 0), a.q.sn, a.nq, L.row_base, 16 * L.slabs, a.scale);
   const float* q0 = qs + (16 * L.slab + L.g) * G::kRowQ;
   const float* q1 = q0 + 8 * G::kRowQ;
   DoFragments<T, DV> dof;
@@ -646,14 +621,8 @@ train_dq_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
     if (row >= a.nq) continue;
     T* drow = at<T>(a.o0, b, h, row) + 2 * L.t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const float x0 = dq[n][2 * hh] * a.scale, x1 = dq[n][2 * hh + 1] * a.scale;
-      if constexpr (std::is_same<T, float>::value) {
-        *reinterpret_cast<float2*>(drow + 8 * n) = make_float2(x0, x1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(drow + 8 * n) = __floats2bfloat162_rn(x0, x1);
-      }
-    }
+    for (int n = 0; n < D / 8; ++n)
+      store2<T>(drow + 8 * n, dq[n][2 * hh] * a.scale, dq[n][2 * hh + 1] * a.scale);
   }
 }
 
@@ -661,104 +630,288 @@ train_dq_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
 // K6
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;  // keys per block, one per thread
-constexpr int kTile = 64;  // queries staged in shared memory per step
-
-// Stage rows [r0, r0 + n) of a (rows, W) operand (row stride sn elements) as f32 times
-// `mul` into s[kTile][W], zero beyond n. Each thread keeps one column and walks its
-// rows by pointer (a 64-bit row index computed for each element made K6 much slower at
-// the encoder's shape on an H100).
-template <typename T, int W>
-__device__ __forceinline__ void stage(float* s, const T* src, long long sn, int r0, int n,
-                                      float mul = 1.f) {
-  static_assert(kRows % W == 0, "a thread keeps one column");
-  constexpr int kStep = kRows / W;  // rows between a thread's elements
-  const int c = threadIdx.x % W;
-  const T* p = src + (r0 + threadIdx.x / W) * sn + c;
-  for (int r = threadIdx.x / W; r < kTile; r += kStep, p += kStep * sn)
-    s[r * W + c] = r < n ? fod::to_float(*p) * mul : 0.f;
-}
-
-// The logit of query row qs (already times scale) and key row ks: the one rounding
-// order all three kernels use.
-template <int D>
-__device__ __forceinline__ float logit(const float* qs, const float* ks) {
-  float dot = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; ++c) dot = fmaf(qs[c], ks[c], dot);
-  return dot;
-}
-
+// K6's shared memory: two stages of a 64-query tile (q and do rows in the storage type,
+// then lse and delta of its queries), q * scale as f32 rows for the logits (for f32 the
+// stage's q tile itself, scaled in place; apart for bf16, whose product takes q as
+// stored), then the block's keys: k rows as f32 and a 64-row tile of v as stored.
 template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kRows)
-train_dkv_kernel(const TrainArgs a, const fod::Dropout dp) {
-  extern __shared__ float4 fod_smem[];
-  float* qs = reinterpret_cast<float*>(fod_smem);  // [kTile][D]
-  float* dos = qs + kTile * D;                      // [kTile][DV]
-  float* lses = dos + kTile * DV;                   // [kTile]
-  float* deltas = lses + kTile;                     // [kTile]
-
-  const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h;
-  const int key = blockIdx.x * kRows + threadIdx.x;
-  const bool valid = key < a.nk;
-  const int kr_row = valid ? key : 0;
-  const T* qb = at<T>(a.q, b, h, 0);
-  const T* dob = at<T>(a.dout, b, h, 0);
-  const T* krow = at<T>(a.k, b, h, kr_row);
-  const T* vrow = at<T>(a.v, b, h, kr_row);
-
-  float kr[D], dkr[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    kr[c] = fod::to_float(krow[c]);
-    dkr[c] = 0.f;
+struct DkvGeometry {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kRowQ = D * (int)sizeof(T) + kPad;   // bytes a staged q row
+  static constexpr int kRowDo = DV * (int)sizeof(T) + kPad; // bytes a staged do row
+  static constexpr int kRowV = DV * (int)sizeof(T) + kPad;  // bytes a staged v row
+  static constexpr int kRowS = D + kPad / 4;                // floats a q * scale or k row
+  static constexpr int kStage = kTileK * (kRowQ + kRowDo) + 2 * kTileK * 4;
+  static constexpr int kScaled = kF32 ? 0 : kTileK * kRowS * 4;
+  // bytes at `rows` keys a block (k rows as f32 for those, v staged as a 64-row tile)
+  static constexpr int smem(int rows) {
+    return 2 * kStage + kScaled + rows * kRowS * 4 + kTileK * kRowV;
   }
-  float vr[DV], dvr[DV];
-#pragma unroll
-  for (int c = 0; c < DV; ++c) {
-    vr[c] = fod::to_float(vrow[c]);
-    dvr[c] = 0.f;
-  }
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims");
+  static_assert(kThreads == 2 * kTileK, "a thread stages one lse or delta of a tile");
+  // the split's sum reuses the two stages: dk and dv a lane, kWarps x 32 lanes
+  static constexpr int kMergeVals = D / 2 + DV / 2;
+  static_assert(kWarps * 32 * kMergeVals * 4 <= 2 * kStage, "merge scratch");
+};
 
-  for (int q0 = 0; q0 < a.nq; q0 += kTile) {
-    const int n = min(kTile, a.nq - q0);  // queries >= nq are never read
-    stage<T, D>(qs, qb, a.q.sn, q0, n, a.scale);  // q * scale, as K4 and K5 round it
-    stage<T, DV>(dos, dob, a.dout.sn, q0, n);
-    for (int i = threadIdx.x; i < kTile; i += kRows) {
-      lses[i] = i < n ? *at<float>(a.lse, b, h, q0 + i) : 0.f;
-      deltas[i] = i < n ? *at<float>(a.delta, b, h, q0 + i) : 0.f;
-    }
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float* qr = qs + i * D;
-      const float* dor = dos + i * DV;
-      const float s = logit<D>(qr, kr);
-      float ds = 0.f;
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// Query tile `tile` into stage buf: its q and do rows (zero past nq) by 16-byte cp.async,
+// the lse and delta of its queries by 4-byte ones (zero past nq: a padded query's are
+// never read).
+template <typename T, int D, int DV>
+__device__ __forceinline__ void load_queries(unsigned char* smem, const TrainArgs& a, int b,
+                                             int h, int tile, int buf) {
+  using G = DkvGeometry<T, D, DV>;
+  unsigned char* st = smem + buf * G::kStage;
+  const int r0 = tile * kTileK;
+  stage_rows<T, D, G::kRowQ>(st, at<T>(a.q, b, h, 0), a.q.sn, a.nq, r0);
+  stage_rows<T, DV, G::kRowDo>(st + kTileK * G::kRowQ, at<T>(a.dout, b, h, 0), a.dout.sn, a.nq,
+                               r0);
+  const int i = threadIdx.x % kTileK, which = threadIdx.x / kTileK;  // 0 lse, 1 delta
+  const bool real = r0 + i < a.nq;
+  float* dst = reinterpret_cast<float*>(st + kTileK * (G::kRowQ + G::kRowDo)) + which * kTileK + i;
+  cp_async4(smem_addr(dst), at<float>(which ? a.delta : a.lse, b, h, real ? r0 + i : 0),
+            real ? 4 : 0);
+}
+
+// The stage's q tile (pitch kRowQ bytes) as f32 times scale into qs (pitch kRowS floats):
+// the rounding every kernel's logits take. For f32, qs is the tile itself.
+template <typename T, int D, int kRowQ, int kRowS>
+__device__ __forceinline__ void scale_queries(float* qs, const unsigned char* qt, float scale) {
+  constexpr int kChunks = D / 8;  // 8 elements a chunk
+  for (int i = threadIdx.x; i < kTileK * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    float x[8];
+    load8<T>(x, qt + r * kRowQ + c * (int)sizeof(T));
+    float4* d = reinterpret_cast<float4*>(qs + r * kRowS + c);
+    d[0] = make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+    d[1] = make_float4(x[4] * scale, x[5] * scale, x[6] * scale, x[7] * scale);
+  }
+}
+
+// ds[jn] = v do^T for the pass's n-tiles of queries (C layout: keys g, g + 8 of the warp's
+// slab x queries 8 (jb + jn) + 2t, + 1): K5's do_vt with the roles swapped. v's A fragments
+// come by ldmatrix from the block's staged v rows (v_addr: this lane's address in the slab,
+// row lane & 15, plus 16 bytes for lanes 16-31; a 16 x 8 tf32 tile or a 16 x 16 bf16 one
+// each 32 bytes), do's B fragments by ldmatrix from the staged do tile dos as do_vt reads
+// v's; a fresh accumulator every 32 columns of v.
+template <typename T, int DV, int kRowDo>
+__device__ __forceinline__ void v_dot(float (&ds)[kPassN][4], uint32_t v_addr, int np,
+                                      const unsigned char* dos, int jb, int lane) {
+  float c[kPassN][4];
 #pragma unroll
-      for (int c = 0; c < DV; ++c) ds = fmaf(vr[c], dor[c], ds);
-      const float p = expf(s - lses[i]);
-      float p_dropped = p;
-      if (dp.active()) {
-        const float m = fod::dropout_value(bh, q0 + i, key, dp);
-        p_dropped = p * m;
-        ds *= m;
+  for (int jn = 0; jn < kPassN; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ds[jn][e] = c[jn][e] = 0.f;
+  const unsigned char* dorow = dos + (8 * jb + (lane & 7)) * kRowDo + (lane >> 3) * 16;
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int ch = 0; ch < DV / 16; ++ch) {  // 16 columns: k-steps 2ch and 2ch + 1
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        uint32_t r[4];
+        ldmatrix_x4(r, v_addr + ch * 64 + s * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(r[e]), ab[s][e], as[s][e]);
       }
-      const float dlogit = p * (ds - deltas[i]);
 #pragma unroll
-      for (int c = 0; c < DV; ++c) dvr[c] = fmaf(p_dropped, dor[c], dvr[c]);
+      for (int jn = 0; jn < kPassN; ++jn) {
+        if (jn >= np) continue;
+        uint32_t b[4], bb[4], bs[4];
+        ldmatrix_x4(b, smem_addr(dorow + 8 * jn * kRowDo + ch * 64));
 #pragma unroll
-      for (int c = 0; c < D; ++c) dkr[c] = fmaf(dlogit, qr[c], dkr[c]);
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(b[e]), bb[e], bs[e]);
+        mma_3xtf32(c[jn], ab[0], as[0], bb[0], bb[1], bs[0], bs[1]);
+        mma_3xtf32(c[jn], ab[1], as[1], bb[2], bb[3], bs[2], bs[3]);
+        if (ch % 2 == 1 || ch == DV / 16 - 1) {  // 32 columns: into ds, a fresh c
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ds[jn][e] += c[jn][e], c[jn][e] = 0.f;
+        }
+      }
     }
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < DV / 32; ++ch) {  // 32 columns: k-steps 2ch and 2ch + 1
+      uint32_t a0[4], a1[4];
+      ldmatrix_x4(a0, v_addr + ch * 64);
+      ldmatrix_x4(a1, v_addr + ch * 64 + 32);
+#pragma unroll
+      for (int jn = 0; jn < kPassN; ++jn) {
+        if (jn >= np) continue;
+        uint32_t b[4];
+        ldmatrix_x4(b, smem_addr(dorow + 8 * jn * kRowDo + ch * 64));
+        mma_bf16(c[jn], a0, b[0], b[1]);
+        mma_bf16(c[jn], a1, b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[jn][e] += c[jn][e], c[jn][e] = 0.f;
+      }
+    }
+    if constexpr (DV % 32 != 0) {  // dv 16 (or 48): one last k-step
+      constexpr int ch = DV / 32;  // lanes 0..15 address its two B chunks
+      uint32_t a0[4];
+      ldmatrix_x4(a0, v_addr + ch * 64);
+#pragma unroll
+      for (int jn = 0; jn < kPassN; ++jn) {
+        if (jn >= np) continue;
+        uint32_t b[2];
+        ldmatrix_x2(b, smem_addr(dorow + 8 * jn * kRowDo + ch * 64));
+        mma_bf16(c[jn], a0, b[0], b[1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[jn][e] += c[jn][e];
+      }
+    }
+  }
+}
+
+// K6 (redesigned for the tensor cores): K5 mirrored, keys in the place of queries. A block
+// of 4 warps; each warp owns a 16-key slab as the M rows of mma.sync and walks the queries
+// in 8-query n-tiles. The block stages its keys once (k as f32 for the logits, v as stored
+// for dS^T's A fragments) and 64-query tiles of q, do, lse and delta, double-buffered by
+// cp.async; each tile's q rows are scaled to f32 once (scale_queries). When 64-key blocks
+// would give fewer than two blocks an SM (the decoder: 6 x 32 = 192 blocks on 132 SMs) the
+// warps of a block share one slab, 2 or 4 of them, and split each tile's queries
+// (`split_for`), summing their dk and dv in shared memory at the end. A warp's pass over
+// its queries of a tile (32; 16 at split 4):
+// - the logits s^T on the CUDA cores, each the sequential chain of the header, at this
+//   lane's C-fragment positions (`logits`, with keys as its rows): bit-equal to K4's and
+//   K5's;
+// - dS^T = v do^T on the tensor cores (`v_dot`);
+// - p = exp(s - lse), the mask, dlogits = p (dS mask - delta) on the CUDA cores, with lse
+//   and delta of the lane's query columns; zero for queries >= nq and keys >= nk;
+// - dv += (p mask)^T do and dk += dlogits^T q on the tensor cores (`product`), p and
+//   dlogits from the registers: the C fragment of s^T is the A operand.
+// Rounding as K5's: f32 as 3xTF32, dk's B the tile's q * scale (so dk takes no scale at the
+// end); bf16 with p and dlogits as hi + lo pairs and q as stored, dk times scale in f32 at
+// the end. Every product starts a fresh accumulator each pass (32 columns of v for dS^T).
+// On an H100 80GB HBM3 at 700 W, f32, dropout 0.1 (chip_smoke.py phase 1b, device time):
+// 100 us a call at the encoder's shape (split 1, 128 registers, 4 blocks an SM) and 29.6
+// at the decoder's (split 2, 156 registers), 0.96 ms a train step against 1.89 for the
+// one-thread-a-key kernel it replaced; its bound is 0.113 ms, its design's floor (the
+// logits' chains on the CUDA cores) 0.081.
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(kThreads, 2)
+train_dkv_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
+  using G = DkvGeometry<T, D, DV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(split);  // rows are keys here, parts split the queries
+  const int rows = 16 * L.slabs;
+  float* kf = reinterpret_cast<float*>(smem + 2 * G::kStage + G::kScaled);
+  unsigned char* vs = reinterpret_cast<unsigned char*>(kf + rows * G::kRowS);
+  const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h;
+
+  // v's 64 rows from the block's first key (past its `rows` keys they go unread)
+  stage_rows<T, DV, G::kRowV>(vs, at<T>(a.v, b, h, 0), a.v.sn, a.nk, L.row_base);
+  load_queries<T, D, DV>(smem, a, b, h, 0, 0);
+  fod::cp_async_commit();
+  stage_f32<T, D>(kf, at<T>(a.k, b, h, 0), a.k.sn, a.nk, L.row_base, rows, 1.f);
+  const float* k0 = kf + (16 * L.slab + L.g) * G::kRowS;
+  const float* k1 = k0 + 8 * G::kRowS;
+  const uint32_t v_addr =
+      smem_addr(vs + (16 * L.slab + (L.lane & 15)) * G::kRowV + (L.lane >> 4) * 16);
+
+  float dk[D / 8][4], dv[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n) dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+
+  const int n_tiles = (a.nq + kTileK - 1) / kTileK;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load_queries<T, D, DV>(smem, a, b, h, tile + 1, (tile + 1) & 1);
+    fod::cp_async_commit();  // possibly empty: the wait below then covers this tile
+    fod::cp_async_wait_one();
     __syncthreads();
+    unsigned char* qt = smem + (tile & 1) * G::kStage;
+    const unsigned char* dos = qt + kTileK * G::kRowQ;
+    const float* lses = reinterpret_cast<const float*>(dos + kTileK * G::kRowDo);
+    const float* deltas = lses + kTileK;
+    float* qs = reinterpret_cast<float*>(G::kF32 ? qt : smem + 2 * G::kStage);
+    scale_queries<T, D, G::kRowQ, G::kRowS>(qs, qt, a.scale);
+    __syncthreads();
+    for (int jb = L.part * L.nt; jb < (L.part + 1) * L.nt; jb += L.np) {
+      float s[kPassN][4], ds[kPassN][4];
+      logits<float, D, G::kRowS * 4>(s, k0, k1, reinterpret_cast<const unsigned char*>(qs), jb,
+                                     L.np, L.t);
+      v_dot<T, DV, G::kRowDo>(ds, v_addr, L.np, dos, jb, L.lane);
+      const int col0 = 8 * jb + 2 * L.t;  // the lane's query of n-tile 0, in the tile
+#pragma unroll
+      for (int jn = 0; jn < kPassN; ++jn) {
+        if (jn >= L.np) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = col0 + 8 * jn + (e & 1), query = tile * kTileK + col;
+          const int key = L.row0 + L.g + 8 * (e >> 1);
+          float p = 0.f, dl = 0.f;
+          if (query < a.nq && key < a.nk) {
+            p = expf(s[jn][e] - lses[col]);
+            float d = ds[jn][e];
+            float pd = p;
+            if (dp.active()) {
+              const float m = fod::dropout_value(bh, query, key, dp);
+              pd = p * m;
+              d *= m;
+            }
+            dl = p * (d - deltas[col]);
+            p = pd;
+          }
+          s[jn][e] = p;  // (p mask)^T
+          ds[jn][e] = dl;  // dlogits^T
+        }
+      }
+      product<T, DV, G::kRowDo>(dv, s, L.np, dos, jb, L.lane);
+      product<T, D, G::kRowQ>(dk, ds, L.np, qt, jb, L.lane);
+    }
+    __syncthreads();  // the next iteration refills this stage
   }
 
-  if (valid) {
-    T* dk = at<T>(a.o0, b, h, key);
-    T* dv = at<T>(a.o1, b, h, key);
+  if (split > 1) {  // sum the slab's parts into part 0: [warp][value][lane] in the stages
+    float* buf = reinterpret_cast<float*>(smem);
+    constexpr int kVals = G::kMergeVals;
+    if (L.part > 0) {
+      float* w = buf + L.warp * kVals * 32 + L.lane;
 #pragma unroll
-    for (int c = 0; c < D; ++c) dk[c] = fod::from_float<T>(dkr[c]);
+      for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < DV; ++c) dv[c] = fod::from_float<T>(dvr[c]);
+        for (int e = 0; e < 4; ++e) w[(4 * n + e) * 32] = dk[n][e];
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[(D / 2 + 4 * n + e) * 32] = dv[n][e];
+    }
+    __syncthreads();
+    if (L.part == 0) {
+      for (int p = 1; p < split; ++p) {
+        const float* w = buf + (L.warp + p * L.slabs) * kVals * 32 + L.lane;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dk[n][e] += w[(4 * n + e) * 32];
+#pragma unroll
+        for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dv[n][e] += w[(D / 2 + 4 * n + e) * 32];
+      }
+    }
+  }
+  if (L.part != 0) return;
+  const float dk_scale = G::kF32 ? 1.f : a.scale;  // f32's dk took q * scale
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = L.row0 + L.g + 8 * hh;
+    if (key >= a.nk) continue;
+    T* dkrow = at<T>(a.o0, b, h, key) + 2 * L.t;
+    T* dvrow = at<T>(a.o1, b, h, key) + 2 * L.t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2<T>(dkrow + 8 * n, dk[n][2 * hh] * dk_scale, dk[n][2 * hh + 1] * dk_scale);
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) store2<T>(dvrow + 8 * n, dv[n][2 * hh], dv[n][2 * hh + 1]);
   }
 }
 
@@ -791,14 +944,15 @@ int sm_count() {
   return n;
 }
 
-// Warps that share a query slab and split its keys (K4, K5): the least of 1, 2 and 4
-// whose grid gives every SM two blocks, else 4. The encoder (64 x 350 queries) takes 1,
-// the decoder (32 x 128 queries) 4.
-int split_for(int nq, int bh) {
+// Warps that share a 16-row slab and split the other operand's rows: the least of 1, 2 and
+// 4 whose grid of n rows (queries for K4 and K5, keys for K6) gives every SM two blocks,
+// else 4. The encoder (64 x 350) takes 1; the decoder (32 x 128 queries, 350 keys) takes 4
+// in K4 and K5, 2 in K6.
+int split_for(int n, int bh) {
   const long long want = 2LL * sm_count();
   for (int split = 1; split < kWarps; split *= 2) {
     const int rows = 16 * (kWarps / split);
-    if ((long long)((nq + rows - 1) / rows) * bh >= want) return split;
+    if ((long long)((n + rows - 1) / rows) * bh >= want) return split;
   }
   return kWarps;
 }
@@ -810,12 +964,17 @@ struct Launch {
 
 template <typename T, int D, int DV>
 Launch plan(Which which, int bh, int nq, int nk) {
-  if (which == kDkv)
-    return {dim3((nk + kRows - 1) / kRows, bh), kRows,
-            (int)(kTile * (D + DV + 2) * sizeof(float)), 1};
-  const int split = split_for(nq, bh);
+  const int split = split_for(which == kDkv ? nk : nq, bh);
   const int rows = 16 * (kWarps / split);
+  if (which == kDkv)
+    return {dim3((nk + rows - 1) / rows, bh), kThreads, DkvGeometry<T, D, DV>::smem(rows), split};
   return {dim3((nq + rows - 1) / rows, bh), kThreads, Geometry<T, D, DV>::kSmem, split};
+}
+
+// The most dynamic shared memory a launch of the kernel takes (K6's shrinks with its split).
+template <typename T, int D, int DV>
+int max_smem(Which which) {
+  return which == kDkv ? DkvGeometry<T, D, DV>::smem(kMaxRows) : Geometry<T, D, DV>::kSmem;
 }
 
 template <typename T, int D, int DV>
@@ -828,8 +987,9 @@ const void* kernel_of(Which which) {
 // Above 48 KB a block's dynamic shared memory needs the opt-in, set once a device and
 // kernel.
 template <typename T, int D, int DV>
-cudaError_t prepare(Which which, int smem) {
+cudaError_t prepare(Which which) {
   static bool done[3][kMaxDevices] = {};
+  const int smem = max_smem<T, D, DV>(which);
   if (smem <= 48 * 1024) return cudaSuccess;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -844,7 +1004,7 @@ cudaError_t prepare(Which which, int smem) {
 template <typename T, int D, int DV>
 int launch(Which which, const TrainArgs& a, const fod::Dropout& dp) {
   const Launch l = plan<T, D, DV>(which, a.b * a.h, a.nq, a.nk);
-  const cudaError_t err = prepare<T, D, DV>(which, l.smem);
+  const cudaError_t err = prepare<T, D, DV>(which);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t stream = static_cast<cudaStream_t>(a.stream);
   if (which == kFwd)
@@ -852,7 +1012,7 @@ int launch(Which which, const TrainArgs& a, const fod::Dropout& dp) {
   else if (which == kDq)
     train_dq_kernel<T, D, DV><<<l.grid, l.threads, l.smem, stream>>>(a, dp, l.split);
   else
-    train_dkv_kernel<T, D, DV><<<l.grid, l.threads, l.smem, stream>>>(a, dp);
+    train_dkv_kernel<T, D, DV><<<l.grid, l.threads, l.smem, stream>>>(a, dp, l.split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -862,7 +1022,7 @@ int launch(Which which, const TrainArgs& a, const fod::Dropout& dp) {
 template <typename T, int D, int DV>
 int info(Which which, int bh, int nq, int nk, int* out) {
   const Launch l = plan<T, D, DV>(which, bh, nq, nk);
-  cudaError_t err = prepare<T, D, DV>(which, l.smem);
+  cudaError_t err = prepare<T, D, DV>(which);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel_of<T, D, DV>(which));
   int blocks = 0;

@@ -48,6 +48,9 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 // Wait until at most one committed group is still in flight.
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n"); }
 
+// Wait until no committed group is in flight.
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n"); }
+
 __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -88,6 +91,41 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// Two f32 values as a pair of bf16 (round to nearest even), the lower column in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);  // .x in the low 16 bits
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 8 consecutive elements of a staged row as f32 (16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void load8(float (&x)[8], const unsigned char* p) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float4 lo = *reinterpret_cast<const float4*>(p);
+    const float4 hi = *reinterpret_cast<const float4*>(p + 16);
+    x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
+    x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // the lower column sits in the low half
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// x0, x1 into two consecutive elements (8- or 4-byte aligned), rounded to T.
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x0, float x1) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+  }
 }
 
 // x = big + small to about 2^-22 relative, each a tf32 value.

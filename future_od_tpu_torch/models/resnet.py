@@ -20,8 +20,9 @@ forward; the two fused ones in inference only):
   equivalent 4x4/1 conv over space_to_depth(x), the weights transformed by
   stem_weights_to_space_to_depth.
 The fused gates fold frozen BN into the conv weights and biases as the JAX
-package does; a bottleneck keeps its folded, packed weights until its
-parameters or buffers change (`Bottleneck.fused_weights`).
+package does; a bottleneck and the stem keep their folded, packed weights
+until their parameters or buffers change (`Bottleneck.fused_weights`,
+`ResNet.fused_stem_weights`).
 
 `space_to_depth` builds the stem with the s2d-format (4, 4, 12, 64) kernel
 (`conv1` is a 12 -> 64 4x4 conv): a 12-channel (host-packed, (di, dj, c)
@@ -45,9 +46,11 @@ from torch import nn
 
 from future_od_tpu_torch.ops.fused_resnet import (
     BottleneckWeights,
+    StemWeights,
     fused_bottleneck_packed,
-    fused_stem,
+    fused_stem_packed,
     pack_bottleneck,
+    pack_stem,
 )
 
 # ImageNet statistics for the uint8 ingestion path (device_normalize).
@@ -72,6 +75,22 @@ def device_normalize(x: torch.Tensor, out_dtype) -> torch.Tensor:
 def fused_resnet_allowed() -> bool:
     """The fused bottleneck gate (opt-in FUTURE_OD_FUSED_RESNET=1)."""
     return os.environ.get("FUTURE_OD_FUSED_RESNET", "0") == "1"
+
+
+def kept_pack(module: nn.Module, attr: str, tensors, dtype, build):
+    """`build()`, the pack of `tensors` for the fused kernels in `dtype`, kept
+    on `module` as `attr` until one of them is replaced, moved, cast or
+    written in place. The pack holds plain tensors without autograd history,
+    also when it is built in inference mode. Tensors made in inference mode
+    keep no version count, so their pack is built anew at every call."""
+    key = None if any(t.is_inference() for t in tensors) else (
+        dtype, *((id(t), t.data_ptr(), t.dtype, t._version) for t in tensors))
+    kept = getattr(module, attr, None)
+    if key is None or kept is None or kept[0] != key:
+        with torch.inference_mode(False), torch.no_grad():
+            kept = (key, build())
+        setattr(module, attr, kept)
+    return kept[1]
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -218,19 +237,9 @@ class Bottleneck(nn.Module):
 
     def fused_weights(self, dtype) -> BottleneckWeights:
         """The block's BN-folded weights packed for the fused kernel in
-        `dtype`, built once and kept until a parameter or buffer is replaced,
-        moved, cast or written in place. The pack holds plain tensors without
-        autograd history, also when it is built in inference mode. Weights
-        made in inference mode keep no version count, so they are packed
-        anew at every call."""
-        tensors = (*self.parameters(), *self.buffers())
-        key = None if any(t.is_inference() for t in tensors) else (
-            dtype, *((id(t), t.data_ptr(), t.dtype, t._version) for t in tensors))
-        if key is None or getattr(self, "_fused_key", None) != key:
-            with torch.inference_mode(False), torch.no_grad():
-                self._fused = self._pack_fused(dtype)
-            self._fused_key = key
-        return self._fused
+        `dtype`, kept until a parameter or buffer changes (`kept_pack`)."""
+        return kept_pack(self, "_fused", (*self.parameters(), *self.buffers()), dtype,
+                         lambda: self._pack_fused(dtype))
 
     def _pack_fused(self, dtype) -> BottleneckWeights:
         s1, t1 = self.bn1.scale_shift()
@@ -315,6 +324,21 @@ class ResNet(nn.Module):
             and x.shape[2] % 2 == 0
         )
 
+    def fused_stem_weights(self, dtype) -> StemWeights:
+        """conv1 with bn1 folded in, as the s2d (4, 4, 12, 64) kernel (the
+        7x7 one transformed unless the model is built with it), packed for
+        the fused stem in `dtype` and kept until conv1's or bn1's tensors
+        change (`kept_pack`)."""
+        def build():
+            scale, shift = self.bn1.scale_shift()
+            w4 = _hwio(self.conv1)
+            if not self.space_to_depth:
+                w4 = stem_weights_to_space_to_depth(w4)
+            return pack_stem(dtype, w4 * scale, shift)
+
+        tensors = (*self.conv1.parameters(), *self.bn1.parameters(), *self.bn1.buffers())
+        return kept_pack(self, "_fused_stem", tensors, dtype, build)
+
     def stem(self, x):
         """(B, H, W, 3) or, with space_to_depth, host-packed (B, H/2, W/2,
         12) video, float or uint8 -> the pooled stem output, NCHW."""
@@ -324,11 +348,9 @@ class ResNet(nn.Module):
         dtype = self.conv1.weight.dtype
         x = device_normalize(x, dtype) if x.dtype == torch.uint8 else x.to(dtype)
         if fused:
-            scale, shift = self.bn1.scale_shift()
-            w4 = _hwio(self.conv1)
             if not self.space_to_depth:
-                x, w4 = space_to_depth(x), stem_weights_to_space_to_depth(w4)
-            return fused_stem(x, w4 * scale, shift).permute(0, 3, 1, 2)
+                x = space_to_depth(x)
+            return fused_stem_packed(x, self.fused_stem_weights(dtype)).permute(0, 3, 1, 2)
         if self.space_to_depth:
             x = self.conv1(F.pad(x.permute(0, 3, 1, 2), (2, 1, 2, 1)))
         elif self.use_s2d_math(x):

@@ -56,9 +56,11 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # cmid, dtype, downsample, int[5] out (launches nothing)
         "fod_fused_bottleneck_info": [_I, _I, _I, _P],
     },
-    # x_s2d, w, bias, out, B, Hc, Wc, dtype, stream
+    # x_s2d, packed w, bias, out, B, Hc, Wc, dtype, stream
     "fused_stem": {
         "fod_fused_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # dtype, int[5] out (launches nothing)
+        "fod_fused_stem_info": [_I, _P],
     },
     "flash_attention_train": {
         # one packed TrainArgs (ops/flash_attention.py::_TRAIN_ARGS)
@@ -94,7 +96,7 @@ KERNELS: Dict[str, Dict[str, list]] = {
 }
 # entry points that launch no kernel, so have no launch counter
 QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info", "fod_flash_train_info",
-           "fod_fused_bottleneck_info")
+           "fod_fused_bottleneck_info", "fod_fused_stem_info")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

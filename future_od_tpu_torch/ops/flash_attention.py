@@ -17,9 +17,9 @@ all three regenerate one dropout mask, a hash of each element's flat index
 in the JAX kernels' padded (nq_pad, nk_pad) geometry and of the seed
 (`dropout_keep_mask`, `csrc/dropout_mask.cuh`). The geometry comes from the
 JAX block sizes (`train_shapes`), never from the CUDA tiles, so the mask is
-the TPU kernels' bit for bit. The forward and dq kernels run their products
-on the tensor cores and compute the logits on the CUDA cores as the dk/dv
-kernel does, bit for bit. The kernels read q, k, v and do by strides, so
+the TPU kernels' bit for bit. All three run their products on the tensor
+cores and compute the logits on the CUDA cores, each the same sequential
+f32 chain, bit for bit. The kernels read q, k, v and do by strides, so
 attend_heads' transposed (B, N, H, d) views go in without a copy, and write
 their outputs in that layout; a call packs its arguments into one struct
 (`_TRAIN_ARGS`), since the host's time a call is part of the kernel's cost.

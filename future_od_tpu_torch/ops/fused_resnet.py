@@ -9,7 +9,9 @@
   (`pack_bottleneck`).
 - `fused_stem` launches `csrc/fused_stem.cu`, which replaces `_stem_kernel`:
   the 7x7/2 stem conv as a 4x4/1 conv over 2x2 space-to-depth input, + bias,
-  ReLU and the 3x3/2 max pool (padding -inf), the conv output kept on chip.
+  ReLU and the 3x3/2 max pool (padding -inf), the conv output kept on chip,
+  the conv an implicit GEMM on the tensor cores. `fused_stem_packed` is the
+  same over weights packed once (`pack_stem`).
 - `fused_bottleneck_v2` and `fused_layer1` launch `csrc/bottleneck_variants.cu`,
   which replaces the kernel-study tool's `_v2_kernel` and `_v3_kernel`
   (tools/bench_fused_bottleneck.py): the bottleneck with a choice of row tile
@@ -24,8 +26,10 @@ kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,6 +46,7 @@ V2_CIN_STEP = 16  # the reduction slice of the variants' block GEMM
 LAYER1_CMID, LAYER1_COUT, LAYER1_BLOCKS = 64, 256, 3  # the shape fod_fused_layer1 takes
 STEM_CIN, STEM_COUT = 12, 64
 STEM_TAPS = 7 * 7 * 3  # taps of the 7x7/2 conv; the s2d 4x4 kernel's other 45 are zeros
+STEM_K = 16 * STEM_CIN  # the s2d kernel's reduction rows, (dy, dx, c) order: 192
 
 
 def _conv1x1_weight(w: torch.Tensor) -> torch.Tensor:
@@ -318,6 +323,45 @@ def stem_plain(x_s2d, w4, bias) -> torch.Tensor:
     return F.max_pool2d(y, 3, 2, 1).to(dt).permute(0, 2, 3, 1)
 
 
+class StemWeights(NamedTuple):
+    """The stem's weights as `fused_stem`'s kernel reads them (`pack_stem`)."""
+
+    w4: torch.Tensor  # (4, 4, 12, 64) HWIO, BN-folded, storage type: the plain version's
+    bias: torch.Tensor  # (64,) f32
+    frag: torch.Tensor  # w4's (192, 64) matrix in the kernel's fragment order
+
+
+@functools.lru_cache(maxsize=None)
+def stem_fragment_order(bf16: bool) -> torch.Tensor:
+    """Flat indices into the stem's (192, 64) weight matrix (rows (dy, dx, c))
+    in the order csrc/fused_stem.cu's lanes load their mma B fragments: for
+    each k-step, each pair of n-tiles jp and each lane (g, t), 16 bytes holding
+    (b0, b1) of n-tile 2jp, then of 2jp + 1, n = 8 n-tile + g. bf16
+    (m16n8k16): b0 is rows 2t, 2t + 1 of the k-step's 16, b1 rows 2t + 8, +
+    9, two values a 32-bit word, the lower row in the low half. f32 (tf32
+    m16n8k8): b0 is row t of the k-step's 8, b1 row t + 4."""
+    step = 16 if bf16 else 8
+    ks, jp, lane, word = np.meshgrid(np.arange(STEM_K // step), np.arange(4), np.arange(32),
+                                     np.arange(4), indexing="ij")
+    g, t, j, which = lane // 4, lane % 4, 2 * jp + word // 2, word % 2
+    if bf16:
+        k = (step * ks + 2 * t + 8 * which)[..., None] + np.arange(2)
+        n = np.broadcast_to((8 * j + g)[..., None], k.shape)
+    else:
+        k, n = step * ks + t + 4 * which, 8 * j + g
+    return torch.from_numpy((k * STEM_COUT + n).reshape(-1))
+
+
+def pack_stem(dtype, w4, bias) -> StemWeights:
+    """The stem's BN-folded s2d kernel w4 (4, 4, 12, 64) and bias packed for
+    x of `dtype`: w4 in the storage type, as its (192, 64) matrix in the
+    kernel's fragment order too (`stem_fragment_order`), and the bias in f32.
+    models/resnet.py's ResNet packs its stem once (`fused_stem_weights`)."""
+    w4 = w4.to(dtype)
+    order = stem_fragment_order(dtype == torch.bfloat16).to(w4.device)
+    return StemWeights(w4, bias.float().contiguous(), w4.reshape(-1)[order].contiguous())
+
+
 def fused_stem(
     x_s2d: torch.Tensor,  # (B, Hc, Wc, 12) space-to-depth(2) input
     w4: torch.Tensor,  # (4, 4, 12, 64) s2d stem kernel, BN-folded
@@ -328,24 +372,46 @@ def fused_stem(
     (models/resnet.py::stem_weights_to_space_to_depth)."""
     if x_s2d.device.type == "cpu":
         return stem_plain(x_s2d, w4, bias)
-    B, Hc, Wc, C = x_s2d.shape
-    if C != STEM_CIN or Hc % 2 or Wc % 2 or w4.shape != (4, 4, STEM_CIN, STEM_COUT):
+    if w4.shape != (4, 4, STEM_CIN, STEM_COUT):
         raise ValueError(f"{STEM}: unsupported shapes x {tuple(x_s2d.shape)} w4 {tuple(w4.shape)}")
-    if x_s2d.dtype not in _kernels.DTYPE_CODES:
-        raise ValueError(f"{STEM}: dtype {x_s2d.dtype}; want f32 or bf16")
+    return fused_stem_packed(x_s2d, pack_stem(x_s2d.dtype, w4, bias))
+
+
+def fused_stem_packed(x_s2d: torch.Tensor, p: StemWeights) -> torch.Tensor:
+    """`fused_stem` of x_s2d (B, Hc, Wc, 12) and weights packed for its
+    dtype by `pack_stem`."""
+    if x_s2d.device.type == "cpu":
+        return stem_plain(x_s2d, p.w4, p.bias)
+    B, Hc, Wc, C = x_s2d.shape
+    if C != STEM_CIN or Hc % 2 or Wc % 2 or p.frag.shape != (STEM_K * STEM_COUT,):
+        raise ValueError(f"{STEM}: unsupported shapes x {tuple(x_s2d.shape)} "
+                         f"weights {tuple(p.frag.shape)}")
     dt = x_s2d.dtype
+    if dt not in _kernels.DTYPE_CODES or p.frag.dtype != dt:
+        raise ValueError(f"{STEM}: dtypes x {dt}, weights {p.frag.dtype}; want one of f32, bf16")
     x_s2d = x_s2d.contiguous()
-    w = w4.to(dt).contiguous()
-    b = bias.float().contiguous()
-    _kernels.check_cuda_operands(STEM, x_s2d, w, b)
+    _kernels.check_cuda_operands(STEM, x_s2d, p.frag, p.bias)
+    if x_s2d.data_ptr() % 16 or p.frag.data_ptr() % 16:
+        raise ValueError(f"{STEM}: x and the packed weights must be 16-byte aligned")
     out = torch.empty((B, Hc // 2, Wc // 2, STEM_COUT), dtype=dt, device=x_s2d.device)
     _kernels.call(
         STEM, "fod_fused_stem",
-        x_s2d.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, Hc, Wc,
+        x_s2d.data_ptr(), p.frag.data_ptr(), p.bias.data_ptr(), out.data_ptr(), B, Hc, Wc,
         _kernels.DTYPE_CODES[dt], _kernels.stream_of(x_s2d),
     )
     _kernels.launch_counts[STEM] += 1
     return out
+
+
+def fused_stem_info(dtype: torch.dtype) -> Dict[str, int]:
+    """The kernel instantiation's resources on the current card: registers a
+    thread, static and dynamic shared bytes a block, local (spill) bytes a
+    thread, resident blocks an SM. Launches nothing."""
+    out = (ctypes.c_int * 5)()
+    _kernels.call(STEM, "fod_fused_stem_info", _kernels.DTYPE_CODES[dtype], ctypes.addressof(out))
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+            "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def bottleneck_cost(B, H, W, cin, cmid, cout, downsample: bool, itemsize: int):
@@ -358,12 +424,13 @@ def bottleneck_cost(B, H, W, cin, cmid, cout, downsample: bool, itemsize: int):
     return ops, nbytes
 
 
-def stem_cost(B, Hc, Wc, itemsize: int):
+def stem_cost(B, Hc, Wc, itemsize: int, taps: int = STEM_TAPS):
     """(operations, bytes) one `fused_stem` call needs at least: the 7x7/2
-    conv's products (not the s2d kernel's structural zeros), the input and
-    the s2d weights read once, the pooled output written once."""
-    k = 16 * STEM_CIN
-    ops = 2 * B * Hc * Wc * STEM_TAPS * STEM_COUT
+    conv's products (`taps` 147, not the s2d kernel's structural zeros; 192
+    counts the products the kernel computes), the input and the s2d weights
+    read once, the pooled output written once."""
+    k = STEM_K
+    ops = 2 * B * Hc * Wc * taps * STEM_COUT
     nbytes = itemsize * (B * Hc * Wc * STEM_CIN + B * (Hc // 2) * (Wc // 2) * STEM_COUT
                          + k * STEM_COUT) + 4 * STEM_COUT
     return ops, nbytes

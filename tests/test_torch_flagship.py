@@ -154,7 +154,7 @@ class TestFlagshipInference:
         monkeypatch.setenv("FUTURE_OD_FUSED_RESNET", "1")
         monkeypatch.setenv("FUTURE_OD_FUSED_STEM", "1")
         blocks = counting(monkeypatch, port_resnet, "fused_bottleneck_packed")
-        stem = counting(monkeypatch, port_resnet, "fused_stem")
+        stem = counting(monkeypatch, port_resnet, "fused_stem_packed")
         assert_matches(port_inference(variables, batch), ref)
         assert len(blocks) == 3 + 3 and len(stem) == 1
 
@@ -163,7 +163,7 @@ class TestFlagshipInference:
         monkeypatch.setenv("FUTURE_OD_FUSED_RESNET", "1")
         monkeypatch.setenv("FUTURE_OD_FUSE_STAGES", "0")
         blocks = counting(monkeypatch, port_resnet, "fused_bottleneck_packed")
-        stem = counting(monkeypatch, port_resnet, "fused_stem")
+        stem = counting(monkeypatch, port_resnet, "fused_stem_packed")
         assert_matches(port_inference(variables, batch), ref)
         assert len(blocks) == 3 and not stem  # layer1 only; stem gate off
 

@@ -106,6 +106,25 @@ def parts_once(p, v):
     return [(bf16(p), v)]
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread(request):
+    """Each test on one torch thread, the count restored after it. The suite
+    runs a whole file on one of its xdist workers (--dist loadfile), and six
+    workers each with torch's default threads (one a core) oversubscribe the
+    cores: the emulations' time went to that, not to their arithmetic. A
+    module's KEEP_TORCH_THREADS names tests that keep the threads they run
+    with. The port's other emulation files import this fixture."""
+    if request.node.originalname in getattr(request.module, "KEEP_TORCH_THREADS", ()):
+        yield
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 # the kernel's designs by storage type
 F32_3XTF32 = dict(k_step=8, qk=parts_3xtf32, pv=parts_3xtf32, pv_per_tile=True)
 BF16_HI_LO = dict(k_step=16, qk=parts_as_stored, pv=parts_hi_lo, pv_per_tile=False)

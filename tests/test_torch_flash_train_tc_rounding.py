@@ -1,4 +1,4 @@
-"""The rounding of the tensor-core training flash kernels K4 and K5
+"""The rounding of the tensor-core training flash kernels K4, K5 and K6
 (csrc/flash_attention_train.cu), emulated on the CPU and held to the
 tolerances their check on the card uses (chip_smoke.py phase 1b).
 
@@ -41,8 +41,22 @@ file measures, split 1; split 4: out 0.031; 0.028 (f32) and 0.568; 0.568
 negative control: one TF32 product (no split of the operands) puts out and
 dq at 15 and 18 times the f32 tolerance at either split.
 
-About 9 s of tests, 14 s with the imports, alone (`JAX_PLATFORMS=cpu python
--m pytest tests/test_torch_flash_train_tc_rounding.py -q`).
+K6 (`emulate_dkv`) is K5 mirrored: keys are the rows, the logits the same
+chain in the transposed layout (bit-equal to `chained_logits`), dSᵀ = v·doᵀ
+with a fresh accumulator every 32 columns, then dv += (p ⊙ mask)ᵀ·do and dk
++= dlogitsᵀ·q a pass of queries into fresh accumulators, the split's parts
+summed in order; f32 takes q·scale rounded to f32 as dk's operand (the
+kernel scales its q tile in place), bf16 q as stored and the scale at the
+end. K6 splits a slab's queries by `split_for` over its keys: split 4 at
+this file's shapes. Worst ratios, split 1 and 4 alike within 0.01: dk 0.072
+and dv 0.027 (f32), dk 0.350 and dv 0.492 (bf16) against `flash_dkv_plain`;
+dk 0.035, dv 0.029 (f32) and 0.373, 0.492 (bf16) against the JAX kernels at
+split 4. One TF32 product puts dk and dv at 22 and 30 times the f32
+tolerance.
+
+About 13 s of tests, 20 s with the imports, alone on one torch thread
+(`one_torch_thread`; `JAX_PLATFORMS=cpu python -m pytest
+tests/test_torch_flash_train_tc_rounding.py -q`).
 """
 import math
 
@@ -55,8 +69,9 @@ import torch
 from future_od_tpu.ops.flash_attention import flash_attention_train as jax_flash_attention_train
 
 from future_od_tpu_torch.ops import flash_attention as fa
-from test_torch_flash_tc_rounding import (
+from test_torch_flash_tc_rounding import (  # noqa: F401 (one_torch_thread: autouse)
     mma_chain,
+    one_torch_thread,
     parts_1xtf32,
     parts_3xtf32,
     parts_as_stored,
@@ -170,6 +185,63 @@ def emulate_dq(q, k, v, do, lse, delta, scale, rate, nq_pad, nk_pad, dl_parts=No
     return (dq * scale).to(dtype)
 
 
+def chained_logits_t(k, q, scale: float) -> torch.Tensor:
+    """K6's logits sᵀ, keys as rows: acc = fmaf(k[c], q[c]·scale, acc) for c
+    in order, in f32 (the same bits as `chained_logits` transposed: fmaf's
+    product is exact, so its two factors may swap)."""
+    qs = q.float() * scale
+    kf = k.float()
+    acc = torch.zeros((*k.shape[:-1], q.shape[-2]))
+    for c in range(k.shape[-1]):
+        acc = (kf[..., c, None].double() * qs[..., None, :, c].double() + acc.double()).float()
+    return acc
+
+
+def emulate_dkv(q, k, v, do, lse, delta, scale, rate, nq_pad, nk_pad, parts=None, split=1):
+    """K6's (dk, dv) with its rounding: K5 mirrored, keys as the rows. The
+    logits in the transposed layout; dSᵀ = v·doᵀ (a fresh accumulator every
+    32 columns of v); p, the mask and dlogits in f32; then each of the
+    `split` warps of a 16-key slab walks its queries of every 64-query tile
+    (`key_passes` over the queries: passes of 32, 16 at split 4) into fresh
+    accumulators, dv += (p ⊙ mask)ᵀ·do and dk += dlogitsᵀ·q', and the block
+    adds parts 1.. to part 0 in order. f32: q' is q·scale rounded to f32, as
+    the kernel scales its q tile in place, and dk takes no scale at the end;
+    bf16: q' is q as stored, and dk is multiplied by the scale at the end."""
+    dtype = q.dtype
+    parts = parts or DESIGNS[dtype][0]
+    logits_t = chained_logits_t(k, q, scale)
+    ds_t = torch.zeros_like(logits_t)
+    dot = do.float().transpose(-1, -2)
+    for c0 in range(0, v.shape[-1], COLUMNS):
+        cols = slice(c0, c0 + COLUMNS)
+        ds_t = ds_t + mma_chain(torch.zeros_like(logits_t),
+                                DESIGNS[dtype][1](v.float()[..., cols], dot[..., cols, :]),
+                                K_STEP[dtype])
+    p_t = torch.exp(logits_t - lse[..., None, :])
+    pd_t = p_t
+    if rate > 0:
+        mask_t = fa._mask_like(SEED, logits_t.transpose(-1, -2), rate, nq_pad,
+                               nk_pad).transpose(-1, -2)
+        pd_t, ds_t = p_t * mask_t, ds_t * mask_t
+    dl_t = p_t * (ds_t - delta[..., None, :])
+    f32 = dtype == torch.float32
+    qb = q.float() * scale if f32 else q.float()
+    dk = dv = None
+    for passes in key_passes(q.shape[-2], split):
+        part_k, part_v = torch.zeros(k.shape), torch.zeros(v.shape)
+        for q0, q1 in passes:
+            part_v = part_v + mma_chain(torch.zeros_like(part_v),
+                                        parts(pd_t[..., q0:q1], do.float()[..., q0:q1, :]),
+                                        K_STEP[dtype])
+            part_k = part_k + mma_chain(torch.zeros_like(part_k),
+                                        parts(dl_t[..., q0:q1], qb[..., q0:q1, :]), K_STEP[dtype])
+        dk = part_k if dk is None else dk + part_k
+        dv = part_v if dv is None else dv + part_v
+    if not f32:
+        dk = dk * scale
+    return dk.to(dtype), dv.to(dtype)
+
+
 def inputs(rng, BH, Nq, Nk, d, dv, dtype):
     arrays = (rng.normal(size=(BH, n, w)).astype(np.float32)
               for n, w in ((Nq, d), (Nk, d), (Nk, dv), (Nq, dv)))
@@ -217,8 +289,9 @@ def test_emulated_k4_k5_within_phase1b_tolerance(rng, dtype, rate, split, BH, Nq
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_emulated_chain_matches_jax_interpret(rng, dtype):
-    """K4's out and lse, then K5's dq from them, against the Pallas forward
-    and backward in interpret mode (out, and dq of the vjp), at dropout 0.1."""
+    """K4's out and lse, then K5's dq and K6's dk and dv from them, against
+    the Pallas forward and backward in interpret mode (out, and dq, dk, dv of
+    the vjp), at dropout 0.1."""
     B, H, Nq, Nk, d, dv = 1, 2, 40, 100, 64, 32
     q, k, v, do = inputs(rng, B * H, Nq, Nk, d, dv, dtype)
     rate, scale = 0.1, 1.0 / math.sqrt(d)
@@ -231,7 +304,7 @@ def test_emulated_chain_matches_jax_interpret(rng, dtype):
         return jax_flash_attention_train(q_, k_, v_, jnp.int32(SEED), scale, rate, 256, 512, True)
 
     ref, vjp = jax.vjp(jax_fn, jq, jk, jv)
-    ref_dq = vjp(jdo)[0]
+    ref_dq, ref_dk, ref_dv = vjp(jdo)
     as_torch = lambda x: torch.from_numpy(np.array(x, np.float32)).reshape(B * H, *x.shape[2:]).to(dtype)  # noqa: E731
     split = kernel_split(Nq, B * H)  # 4, as the kernel splits this shape
     out, lse = emulate_fwd(q, k, v, scale, rate, nq_pad, nk_pad, split=split)
@@ -239,6 +312,11 @@ def test_emulated_chain_matches_jax_interpret(rng, dtype):
     delta = (do.float() * out.float()).sum(-1)
     dq = emulate_dq(q, k, v, do, lse, delta, scale, rate, nq_pad, nk_pad, split=split)
     assert tolerance_ratio(dq, as_torch(ref_dq)) <= 1.0
+    # K6 at its own split at this shape (4: 100 keys over 2 batch*heads)
+    dk, dv_ = emulate_dkv(q, k, v, do, lse, delta, scale, rate, nq_pad, nk_pad,
+                          split=kernel_split(Nk, B * H))
+    assert tolerance_ratio(dk, as_torch(ref_dk)) <= 1.0
+    assert tolerance_ratio(dv_, as_torch(ref_dv)) <= 1.0
 
 
 def test_chained_logits_are_the_sequential_fma():
@@ -262,3 +340,50 @@ def test_one_tf32_product_fails_the_f32_tolerance(rng, split):
     dq = emulate_dq(q, k, v, do, ref_lse, delta, *args[1:], dl_parts=parts_1xtf32, split=split)
     assert tolerance_ratio(out, ref_out) > 1.0
     assert tolerance_ratio(dq, fa.flash_dq_plain(q, k, v, do, ref_lse, delta, *args)) > 1.0
+
+
+def test_k6_split_at_the_main_path():
+    """K6 takes `split_for` over its keys: the encoder (64 x 350 keys) at
+    split 1, the decoder (32 batch*heads, 350 keys: 192 blocks of 64 keys on
+    132 SMs) at split 2, this file's shapes (2 x 100 keys) at split 4."""
+    assert kernel_split(350, 64) == 1 and kernel_split(350, 32) == 2
+    assert kernel_split(100, 2) == 4
+
+
+def test_transposed_logits_are_bit_equal(rng):
+    """K6's chain with keys as rows gives K4's and K5's logits bit for bit."""
+    q, k, _, _ = inputs(rng, 2, 40, 100, 32, 32, torch.float32)
+    assert torch.equal(chained_logits_t(k, q, 1.0 / math.sqrt(32)),
+                       chained_logits(q, k, 1.0 / math.sqrt(32)).transpose(-1, -2))
+
+
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", SHAPES)
+def test_emulated_k6_within_phase1b_tolerance(rng, dtype, rate, split, BH, Nq, Nk, d, dv):
+    """At split 1 (the encoder's walk) and split 4 (the kernel's own at this
+    shape): 16-query passes and the in-block sum of dk and dv."""
+    q, k, v, do = inputs(rng, BH, Nq, Nk, d, dv, dtype)
+    nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+    args = (SEED, 1.0 / math.sqrt(d), rate, nq_pad, nk_pad)
+    ref_out, ref_lse = fa.flash_train_fwd_plain(q, k, v, *args)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    dk, dv_ = emulate_dkv(q, k, v, do, ref_lse, delta, *args[1:], split=split)
+    ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
+    assert dk.dtype == dv_.dtype == dtype and dk.shape == k.shape and dv_.shape == v.shape
+    assert tolerance_ratio(dk, ref_dk) <= 1.0
+    assert tolerance_ratio(dv_, ref_dv) <= 1.0
+
+
+@pytest.mark.parametrize("split", [1, 4])
+def test_k6_one_tf32_product_fails_the_f32_tolerance(rng, split):
+    q, k, v, do = inputs(rng, 2, 40, 100, 64, 32, torch.float32)
+    nq_pad, nk_pad = fa.train_shapes(40, 100, 256, 512)
+    args = (SEED, 0.125, 0.0, nq_pad, nk_pad)
+    ref_out, ref_lse = fa.flash_train_fwd_plain(q, k, v, *args)
+    delta = (do * ref_out).sum(-1)
+    dk, dv_ = emulate_dkv(q, k, v, do, ref_lse, delta, *args[1:], parts=parts_1xtf32, split=split)
+    ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
+    assert tolerance_ratio(dk, ref_dk) > 1.0
+    assert tolerance_ratio(dv_, ref_dv) > 1.0

@@ -187,8 +187,10 @@ def test_fused_bottleneck_every_intermediate_on_a_tie(cuda):
     assert_close(out, bottleneck_plain(x.to(bf16), **w), bf16)
 
 
+# videos: 16 x 24 pools (two row tiles of 7 rows, the second ragged); 10 x 18 and
+# 15 x 25 (ragged row and column tiles of 7 x 8 pools)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,W", [(2, 64, 96), (1, 40, 72)])
+@pytest.mark.parametrize("B,H,W", [(2, 64, 96), (1, 40, 72), (1, 60, 100)])
 def test_fused_stem(cuda, np_rng, dtype, B, H, W):
     x = torch.from_numpy(np_rng.normal(size=(B, H, W, 3)).astype(np.float32))
     w7 = torch.from_numpy((np_rng.normal(size=(7, 7, 3, 64)) * 0.1).astype(np.float32))
@@ -322,6 +324,15 @@ def test_flash_train_kernels(cuda, np_rng, dtype, rate, BH, Nq, Nk, d, dv):
     ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
     assert_close(dk, ref_dk, dtype)
     assert_close(dv_, ref_dv, dtype)
+
+
+def test_flash_train_dkv_splits(cuda):
+    """K6 splits a 16-key slab's queries across 2 or 4 warps where 64-key
+    blocks would not give every SM two: the test shapes reach every split."""
+    splits = {shape: fa.flash_train_info("flash_train_dkv", shape[3], shape[4], torch.float32,
+                                         *shape[:3])["split"]
+              for shape in (TRAIN_SHAPES[0], TRAIN_SHAPES[1], RAGGED_TRAIN_SHAPES[0])}
+    assert sorted(splits.values()) == [1, 2, 4], splits
 
 
 @pytest.mark.parametrize("magnitude", [1e3, 3.2e3])

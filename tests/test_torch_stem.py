@@ -241,7 +241,7 @@ class TestSpaceToDepthFlagship:
         variables, _, clip, imu, ref = s2d_reference
         monkeypatch.setenv("FUTURE_OD_FUSED_RESNET", "1")
         monkeypatch.setenv("FUTURE_OD_FUSED_STEM", "1")
-        stem = counting(monkeypatch, port_resnet, "fused_stem")
+        stem = counting(monkeypatch, port_resnet, "fused_stem_packed")
         transform = counting(monkeypatch, port_resnet, "stem_weights_to_space_to_depth")
         model = port_s2d_model(variables)
         infer = make_inference_fn(model, device="cpu")
@@ -250,7 +250,7 @@ class TestSpaceToDepthFlagship:
         scale, _ = model._model.separate_encoder.backbone.body.bn1.scale_shift()
         conv1 = model._model.separate_encoder.backbone.body.conv1.weight
         assert stem[0][0].shape == (2, 32, 48, 12)
-        assert torch.equal(stem[0][1], conv1.permute(2, 3, 1, 0) * scale)
+        assert torch.equal(stem[0][1].w4, conv1.permute(2, 3, 1, 0) * scale)
 
     def test_fused_gate_reads_the_incoming_video(self, s2d_reference, monkeypatch):
         """At 96x96 the unpacked video passes the gate (96 % 32 == 0); its
@@ -264,7 +264,7 @@ class TestSpaceToDepthFlagship:
         monkeypatch.setenv("FUTURE_OD_FUSED_RESNET", "1")
         monkeypatch.setenv("FUTURE_OD_FUSED_STEM", "1")
         for video, launches in ((clip, 1), (host_space_to_depth(clip), 0)):
-            stem = counting(monkeypatch, port_resnet, "fused_stem")
+            stem = counting(monkeypatch, port_resnet, "fused_stem_packed")
             out = infer(dict(imu, video=video))
             assert len(stem) == launches
             np.testing.assert_allclose(out["class_scores"].numpy(),
