@@ -98,7 +98,30 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    matcher rounds below 1000, the frozen stem+layer1 bit-identical, every
    trainable tensor moved; step times, peak memory, forward stage times and
    one profiled step.
-4. a `kernels` JSON line, then the device JSON line, last.
+6. the flagship's run script, `python -m
+   future_od_tpu_torch.runs.nusc_spatiotemporal_imu_500ms --synthetic --debug
+   --disable_wandb --epochs 2` (its `main()` in this process, its paths in a
+   temporary directory), with FUTURE_OD_TRAIN_FLASH=1 FUTURE_OD_FUSED_RESNET=1
+   FUTURE_OD_FUSED_STEM=1: epoch 1 at 448x800, batch 32 (the gradient audit, 2
+   train steps, 8 eval batches of 2, AP, a checkpoint), epoch 2 at 896x1600,
+   batch 16 (4 train steps, 8 eval batches, AP, the checkpoint and its
+   `_final`, the net alone). First K4-K6 against their plain versions at both
+   stages' shapes (350 tokens at batch 32, 1400 at batch 16; never run by an
+   earlier phase), f32, dropout 0.1. The run must launch K4, K5 and K6 18
+   times a train step and 18 in the audit, K2 6 times and K3 once an eval
+   forward, K1 6 times an eval forward at stage 2 and never at stage 1, and
+   none of K1-K3 in a train-mode forward (the counters are set to 0 as each
+   stage starts); its losses finite, the auction below its round cap, each AP
+   dict of the JAX package's keys and shapes with values in [0, 1] or NaN. A
+   fresh Trainer from the script's `get_trainer` (no --restart) loads the
+   checkpoint bit for bit (weights, optimizer, epoch, step, meters; `_final`'s
+   net too), and each stage's first eval batch, on the final weights, gives
+   the scores and boxes of an all-plain forward within phase 3's tolerances.
+   Per stage: each train step's ms (CUDA events around the call), each eval
+   batch's, the host's wait on the Loader, the peak memory, the launches, and
+   one profiled train step's idle share and top kernels (after the checks).
+4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's
+   run), then the device JSON line, last.
 
 Phases 2 and 3 also say where a request's time goes: the device time of the
 backbone, the encoder and the detector (CUDA events recorded by forward
@@ -159,8 +182,9 @@ ENCODER_RTOL, DECODER_RTOL, SCORE_TOL, BOX_TOL_PX = 1e-3, 1e-5, 1e-5, 1e-2
 PHASE3_TOLS = {"encoder_out_rel": ENCODER_RTOL, "decoder_out_rel": DECODER_RTOL,
                "score_err": SCORE_TOL, "box_err_px": BOX_TOL_PX}
 TOP_KERNELS = 8
-# the port's kernels on the serving path, as the profiler names them
-PORT_KERNEL_NAMES = ("flash_attention_kernel", "fused_bottleneck_kernel", "fused_stem_kernel")
+# the port's kernels on the serving and training paths, as the profiler names them
+PORT_KERNEL_NAMES = ("flash_attention_kernel", "fused_bottleneck_kernel", "fused_stem_kernel",
+                     "train_fwd_kernel", "train_dq_kernel", "train_dkv_kernel")
 # Training: bench_train.py's stage-1 config (448x800, 3 frames, 256 target
 # slots) at batch 4 instead of 32.
 TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS, TRAIN_STEPS = 4, 448, 800, 256, 5
@@ -226,6 +250,42 @@ STEM_KERNELS = {
     "stem_b16": "tools/bench_stem.py:265",
     "stem_d": "tools/bench_stem.py:416",
 }
+
+# Phase 6: the flagship's run script as a user starts it, on the synthetic
+# data (64 train and 16 validation clips), with every gate of K1-K6 on.
+TRAINER_SCRIPT = "future_od_tpu_torch.runs.nusc_spatiotemporal_imu_500ms"
+TRAINER_ARGV = ["--synthetic", "--debug", "--disable_wandb", "--epochs", "2"]
+TRAINER_GATES = {"FUTURE_OD_TRAIN_FLASH": "1", "FUTURE_OD_FUSED_RESNET": "1",
+                 "FUTURE_OD_FUSED_STEM": "1"}
+# the script's two stages at --epochs 2, by the video's height: (name, train
+# steps, eval batches)
+TRAINER_STAGES = {448: ("stage 1 (448x800, batch 32)", 2, 8),
+                  896: ("stage 2 (896x1600, batch 16)", 4, 8)}
+MAIN_KERNELS = ("flash_attention", "fused_bottleneck", "fused_stem") + TRAIN_KERNELS
+# launches a step call must make, by mode and stage: a train step and the
+# gradient audit's backward launch K4-K6 on the 6 encoder and 12 decoder
+# attentions; an eval forward K2 on 6 stride-1 blocks, K3 once, and K1 on the
+# 6 encoder self-attentions where they reach 1024 keys (1400 tokens at stage
+# 2; 350 at stage 1)
+TRAINER_LAUNCHES = {
+    ("train", 448): {name: 18 for name in TRAIN_KERNELS},
+    ("train", 896): {name: 18 for name in TRAIN_KERNELS},
+    ("audit", 448): {name: 18 for name in TRAIN_KERNELS},
+    ("eval", 448): {"fused_bottleneck": 6, "fused_stem": 1},
+    ("eval", 896): {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1},
+}
+AP_KEYS = ("all", "classavg", "threshavg", "classavg threshavg", "generic", "generic threshavg")
+# K4-K6 at the shapes of the script's two stages, which no earlier phase
+# runs: stage 1 (448x800: 350 tokens, batch 32; the decoder's 256 batch-heads
+# take split 1, where phase 1b's batch 4 takes split 4) and stage 2
+# (896x1600: 1400 tokens, batch 16). (label, BH, Nq, Nk, d, dv, calls per
+# train step)
+TRAINER_ATTENTIONS = (
+    ("stage 1 encoder", 32 * 2 * 8, 350, 350, 32, 32, 6),
+    ("stage 1 decoder", 32 * 8, 128, 350, 64, 32, 12),
+    ("stage 2 encoder", 16 * 2 * 8, 1400, 1400, 32, 32, 6),
+    ("stage 2 decoder", 16 * 8, 128, 1400, 64, 32, 12),
+)
 
 
 def log(phase: str, **fields) -> None:
@@ -1534,6 +1594,387 @@ def s2d_phase(torch, batch, phase2_request_s):
         raise AssertionError("s2d fused forward differs from the all-plain forward")
 
 
+def trainer_train_kernels(torch, dev):
+    """Phase 6's K4-K6 at both stages' shapes, f32, dropout 0.1: one call
+    each against its plain version (phase 1b's tolerances), then each one's
+    time beside the plain version's and its bound. Returns per-kernel
+    records."""
+    from future_od_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    records = {name: [] for name in TRAIN_KERNELS}
+    for label, BH, Nq, Nk, d, dv, per_step in TRAINER_ATTENTIONS:
+        q, k, do = (torch.randn(*s, generator=gen, device=dev)
+                    for s in ((BH, Nq, d), (BH, Nk, d), (BH, Nq, dv)))
+        v = torch.randn(BH, Nk, dv, generator=gen, device=dev)
+        nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+        args = (12345, 1.0 / math.sqrt(d), 0.1, nq_pad, nk_pad)
+        tag = f"{label} float32 rate 0.1"
+        ref_out, ref_lse = fa.flash_train_fwd_plain(q, k, v, *args)
+        delta = (do.float() * ref_out.float()).sum(-1)
+        out, lse = fa.flash_train_fwd(q, k, v, *args)
+        errs = {"flash_train_fwd": max(
+            check_close(f"flash_train_fwd out {tag}", out, ref_out, "float32")[0],
+            check_close(f"flash_train_fwd lse {tag}", lse, ref_lse, "float32")[0])}
+        dq = fa.flash_dq(q, k, v, do, ref_lse, delta, *args)
+        errs["flash_train_dq"] = check_close(
+            f"flash_train_dq {tag}", dq, fa.flash_dq_plain(q, k, v, do, ref_lse, delta, *args),
+            "float32")[0]
+        dk, dvv = fa.flash_dkv(q, k, v, do, ref_lse, delta, *args)
+        ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
+        errs["flash_train_dkv"] = max(
+            check_close(f"flash_train_dkv dk {tag}", dk, ref_dk, "float32")[0],
+            check_close(f"flash_train_dkv dv {tag}", dvv, ref_dv, "float32")[0])
+        del ref_out, out, lse, dq, dk, dvv, ref_dk, ref_dv
+        costs = fa.train_attention_cost(BH, Nq, Nk, d, dv, 4)
+        grads = (do, ref_lse, delta, *args)
+        calls = {
+            "flash_train_fwd": (partial(fa.flash_train_fwd, q, k, v, *args),
+                                partial(fa.flash_train_fwd_plain, q, k, v, *args)),
+            "flash_train_dq": (partial(fa.flash_dq, q, k, v, *grads),
+                               partial(fa.flash_dq_plain, q, k, v, *grads)),
+            "flash_train_dkv": (partial(fa.flash_dkv, q, k, v, *grads),
+                                partial(fa.flash_dkv_plain, q, k, v, *grads)),
+        }
+        for name, (kernel, plain) in calls.items():
+            ops, nbytes = costs[name]
+            b_ms, b_by, b_is = tc_bound(ops, nbytes, "float32")
+            records[name].append(dict(
+                attention=label, shape=[BH, Nq, Nk, d, dv], dtype="float32", rate=0.1,
+                per_step=per_step, max_abs_err=errs[name], ms=time_ms(torch, kernel),
+                plain_ms=time_ms(torch, plain), ops=ops, bytes=nbytes, bound_ms=b_ms,
+                bound_by=b_by, bound_is=b_is,
+                launch=launch_plan(torch, fa, name, BH, Nq, Nk, d, dv, torch.float32)))
+        del q, k, v, do, delta, ref_lse, grads, calls
+        torch.cuda.empty_cache()
+    return records
+
+
+class TrainerProbe:
+    """Instruments a run of the Trainer without changing what it computes:
+    the step factories as `train/trainer.py` names them, the Loader's
+    iterator and the AP aggregation are wrapped while it is installed. Per
+    step call it records the mode ("train", "audit" for the gradient report,
+    "eval"), the stage (the video's height), the launches of K1-K6 (host
+    counters, read before and after the call: no sync), CUDA events around
+    the call, the loss and the matcher's rounds; per stage the peak memory
+    and the launch totals (the counters are set to 0 as a stage starts); per
+    batch the host's wait on the Loader; every AP dict; the first batch and
+    output of each stage's train and eval steps."""
+
+    def __init__(self, torch, kernels):
+        self.torch, self.kernels = torch, kernels
+        self.calls, self.waits, self.aps = [], [], []
+        self.peaks, self.totals, self.first = {}, {}, {}
+        self.inner = {}
+        self._stage, self._undo = None, []
+
+    def _patch(self, owner, name, value):
+        self._undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def install(self, trainer_module, loader_module):
+        probe = self
+
+        def factory(make, mode):
+            def wrapped_make(*args, **kwargs):
+                inner = make(*args, **kwargs)
+                probe.inner[mode] = inner
+
+                def step(data, *rest):
+                    return probe._call(mode, data, lambda: inner(data, *rest))
+                step.steps = getattr(inner, "steps", None)
+                return step
+            return wrapped_make
+
+        self._patch(trainer_module, "make_train_step", factory(trainer_module.make_train_step,
+                                                               "train"))
+        self._patch(trainer_module, "make_eval_step", factory(trainer_module.make_eval_step,
+                                                              "eval"))
+        self._patch(trainer_module, "make_grad_report", factory(trainer_module.make_grad_report,
+                                                                "audit"))
+        aggregate = trainer_module.aggregate_mean_average_precision
+
+        def aggregate_and_keep(*args):
+            ap = aggregate(*args)
+            probe.aps.append((probe._stage, ap))
+            return ap
+        self._patch(trainer_module, "aggregate_mean_average_precision", aggregate_and_keep)
+        iterate = loader_module.Loader.__iter__
+
+        def timed_iter(loader):
+            batches = iterate(loader)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(batches)
+                    except StopIteration:
+                        return
+                    probe.waits.append(("train" if loader.shuffle else "eval",
+                                        loader.dataset.image_size[0], time.perf_counter() - t0))
+                    yield batch
+            finally:
+                batches.close()
+        self._patch(loader_module.Loader, "__iter__", timed_iter)
+
+    def restore(self):
+        while self._undo:
+            owner, name, value = self._undo.pop()
+            setattr(owner, name, value)
+
+    def _enter_stage(self, stage):
+        if stage == self._stage:
+            return
+        self.finish()
+        self.kernels.reset_launch_counts()
+        self.torch.cuda.reset_peak_memory_stats()
+        self._stage = stage
+
+    def finish(self):
+        """Close the current stage: its peak memory and launch totals."""
+        if self._stage is not None:
+            self.torch.cuda.synchronize()
+            self.peaks[self._stage] = self.torch.cuda.max_memory_allocated() / 1e9
+            self.totals[self._stage] = launched(self.kernels)
+
+    def _call(self, mode, data, run):
+        torch = self.torch
+        stage = data["video"].shape[2]
+        self._enter_stage(stage)
+        before = dict(self.kernels.launch_counts)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = run()
+        end.record()
+        host_s = time.perf_counter() - t0
+        counts = self.kernels.launch_counts
+        record = dict(mode=mode, stage=stage, events=(start, end), t0=t0, host_s=host_s,
+                      launches={k: counts[k] - before[k] for k in MAIN_KERNELS
+                                if counts[k] != before[k]})
+        if mode != "audit":
+            loss, stats, _, output = out
+            record.update(loss=loss, rounds=stats["matcher_rounds"],
+                          skipped=stats.get("nonfinite_skipped"))
+            if (mode, stage) not in self.first:
+                self.first[(mode, stage)] = (data, {k: v.detach().clone()
+                                                    for k, v in output.items()})
+        self.calls.append(record)
+        return out
+
+
+def equal_trees(torch, a, b, path="") -> list:
+    """The paths where two nested dicts / lists of tensors and values differ
+    (tensors bit for bit)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [p for key in a for p in equal_trees(torch, a[key], b[key], f"{path}.{key}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in equal_trees(torch, x, y, f"{path}[{i}]")]
+    if torch.is_tensor(a):
+        same = torch.is_tensor(b) and a.device == b.device and torch.equal(a, b)
+        return [] if same else [path]
+    return [] if (a == b or (a != a and b != b)) else [path]
+
+
+def check_ap(ap, num_classes: int) -> None:
+    """The JAX package's AP dict: its keys and shapes, every value in
+    [0, 1] or NaN (a class without annotations)."""
+    T, S = 10, 4
+    shapes = {"all": (T, num_classes, S), "classavg": (T, S), "threshavg": (num_classes, S),
+              "classavg threshavg": (S,), "generic": (T, S), "generic threshavg": (S,)}
+    if tuple(ap) != AP_KEYS or any(ap[k].shape != v for k, v in shapes.items()):
+        raise AssertionError(f"AP dict {[(k, v.shape) for k, v in ap.items()]}, want {shapes}")
+    for key, value in ap.items():
+        finite = value[~np.isnan(value)]
+        if ((finite < 0) | (finite > 1)).any():
+            raise AssertionError(f"AP {key} outside [0, 1]: {value}")
+
+
+def trainer_phase(torch):
+    """Phase 6: the flagship's run script, its checks and its numbers.
+    Returns (per-stage records, launch totals per kernel and stage)."""
+    import importlib
+    import tempfile
+
+    from future_od_tpu_torch.data import loader as loader_module
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.runs import _helper
+    from future_od_tpu_torch.runs._model import build_model
+    from future_od_tpu_torch.runs.config import config
+    from future_od_tpu_torch.train import trainer as trainer_module
+
+    script = importlib.import_module(TRAINER_SCRIPT)
+    dev = torch.device("cuda")
+    kernel_records = trainer_train_kernels(torch, dev)
+    log("6-trainer-train-kernels-vs-plain", ok=True, card=gpu_name_and_power(),
+        records=kernel_records)
+    set_gates(**TRAINER_GATES)
+    saved_config = dict(config)
+    probe = TrainerProbe(torch, _kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        config.update(checkpoint_path=os.path.join(tmp, "checkpoints"),
+                      visualization_path=os.path.join(tmp, "visualization"))
+        probe.install(trainer_module, loader_module)
+        try:
+            t0 = time.perf_counter()
+            trainer = script.main(TRAINER_ARGV)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            probe.finish()
+        finally:
+            probe.restore()
+            config.clear()
+            config.update(saved_config)
+        per_stage = check_trainer_run(torch, probe, trainer)
+        per_stage["run_s"] = run_s
+
+        # a fresh Trainer from the script's get_trainer, without --restart,
+        # loads the checkpoint: equal to the trained one bit for bit
+        args = script.build_parser().parse_args(TRAINER_ARGV)
+        args.experiment_idf = TRAINER_SCRIPT.rsplit(".", 1)[1]
+        names = sorted(os.listdir(os.path.join(tmp, "checkpoints")))
+        if names != [args.experiment_idf, args.experiment_idf + "_final"]:
+            raise AssertionError(f"checkpoints written: {names}")
+        config.update(checkpoint_path=os.path.join(tmp, "checkpoints"))
+        try:
+            fresh = _helper.get_trainer(args, config, trainer._args, _helper.get_lr_func(2),
+                                        build_model(args, trainer._args),
+                                        trainer._train_loader, trainer._val_loaders)
+        finally:
+            config.clear()
+            config.update(saved_config)
+        differ = equal_trees(torch, *({"net": t._model.state_dict(),
+                                       "optimizer": t._optimizer.state_dict(),
+                                       "epoch": t._epoch, "step": t.step,
+                                       "stats": {k: m.state_dict() for k, m in t._stats.items()}}
+                                      for t in (fresh, trainer)))
+        final = torch.load(os.path.join(tmp, "checkpoints", names[1]), weights_only=True,
+                           map_location=next(trainer._model.parameters()).device)
+        differ += equal_trees(torch, final["net"], trainer._model.state_dict(), "final.net")
+        if differ:
+            raise AssertionError(f"resumed Trainer differs from the saved one at {differ[:5]}")
+        del fresh, final
+        torch.cuda.empty_cache()
+
+    # each stage's first eval batch through the script's eval step on the
+    # final weights, with the run's gates (its launches as in the run) and
+    # then with every kernel gate off: scores and boxes against each other
+    for stage, (name, _, _) in TRAINER_STAGES.items():
+        data = probe.first[("eval", stage)][0]
+        outputs = {}
+        for label, gates in (("fused", TRAINER_GATES), ("plain", {"FUTURE_OD_DISABLE_FLASH": "1"})):
+            set_gates(**gates)
+            _kernels.reset_launch_counts()
+            outputs[label] = probe.inner["eval"](data)[3]
+            torch.cuda.synchronize()
+            want = TRAINER_LAUNCHES[("eval", stage)] if label == "fused" else {}
+            if launched(_kernels) != want:
+                raise AssertionError(f"{name} {label} eval launched {launched(_kernels)}, "
+                                     f"want {want}")
+        fused, plain = outputs["fused"], outputs["plain"]
+        diffs = {"score_err": (fused["class_scores"] - plain["class_scores"]).abs().max().item(),
+                 "box_err_px": (fused["boxes"] - plain["boxes"]).abs().max().item()}
+        if not all(diffs[k] <= PHASE3_TOLS[k] for k in diffs):
+            raise AssertionError(f"{name} eval through the kernels differs from all plain: "
+                                 f"{diffs}")
+        per_stage[stage]["eval_vs_plain"] = {
+            **diffs, "tolerances": {k: PHASE3_TOLS[k] for k in diffs}}
+        del outputs, fused, plain
+
+    # one profiled train step a stage, on its first batch, after every check
+    set_gates(**TRAINER_GATES)
+    core = trainer._model._model
+    stages = {"backbone": core.separate_encoder.backbone,
+              "encoder": core.separate_encoder.transformer, "detector": core.detector}
+    for stage in TRAINER_STAGES:
+        batch = probe.first[("train", stage)][0]
+        per_stage[stage]["profile"] = profile_request(
+            torch, lambda b: probe.inner["train"](b, 0), batch, stages)
+    totals = {name: {TRAINER_STAGES[s][0]: probe.totals[s].get(name, 0) for s in TRAINER_STAGES}
+              for name in MAIN_KERNELS}
+    del trainer, probe, core, stages
+    torch.cuda.empty_cache()
+    return per_stage, totals, kernel_records
+
+
+def check_trainer_run(torch, probe, trainer):
+    """Phase 6's checks on a recorded run: each step call's launches, finite
+    losses, matcher rounds, the AP dicts; and its numbers per stage."""
+    num_classes = trainer._args.num_classes
+    for call in probe.calls:
+        want = TRAINER_LAUNCHES.get((call["mode"], call["stage"]))
+        if want is None or call["launches"] != want:
+            raise AssertionError(f"{call['mode']} at height {call['stage']}: launches "
+                                 f"{call['launches']}, want {want}")
+        if call["mode"] == "audit":
+            continue
+        loss, rounds = call["loss"].item(), call["rounds"].item()
+        if not math.isfinite(loss) or (call["skipped"] is not None and call["skipped"].item()):
+            raise AssertionError(f"{call['mode']} step at height {call['stage']}: loss {loss}")
+        if rounds >= 1000:
+            raise AssertionError(f"{call['mode']} step: the auction hit its round cap")
+    for stage, (name, steps, batches) in TRAINER_STAGES.items():
+        modes = [c["mode"] for c in probe.calls if c["stage"] == stage]
+        want = {"train": steps, "eval": batches, "audit": 1 if stage == 448 else 0}
+        if {m: modes.count(m) for m in want} != want:
+            raise AssertionError(f"{name}: step calls {modes}, want {want}")
+        stage_sum = {}
+        for call in probe.calls:
+            if call["stage"] == stage:
+                for k, n in call["launches"].items():
+                    stage_sum[k] = stage_sum.get(k, 0) + n
+        if probe.totals[stage] != stage_sum:
+            raise AssertionError(f"{name}: launches outside the steps: {probe.totals[stage]} "
+                                 f"against {stage_sum}")
+    if [s for s, _ in probe.aps] != [448, 448, 896, 896]:
+        raise AssertionError(f"AP aggregations at {[s for s, _ in probe.aps]}")
+    for _, ap in probe.aps:
+        check_ap(ap, num_classes)
+    if trainer._epoch != 2 or trainer.step != sum(n for _, n, _ in TRAINER_STAGES.values()):
+        raise AssertionError(f"trainer at epoch {trainer._epoch}, step {trainer.step}")
+
+    per_stage = {}
+    for stage, (name, _, _) in TRAINER_STAGES.items():
+        calls = [c for c in probe.calls if c["stage"] == stage]
+        train = [c for c in calls if c["mode"] == "train"]
+        evals = [c for c in calls if c["mode"] == "eval"]
+        waits = [w for mode, s, w in probe.waits if s == stage and mode == "train"]
+        per_stage[stage] = {
+            "stage": name,
+            "train_step_ms": [c["events"][0].elapsed_time(c["events"][1]) for c in train],
+            "train_step_host_ms": [1e3 * c["host_s"] for c in train],
+            "train_step_interval_ms": [1e3 * (b["t0"] - a["t0"]) for a, b in zip(train, train[1:])],
+            "eval_ms": [c["events"][0].elapsed_time(c["events"][1]) for c in evals],
+            "audit_ms": [c["events"][0].elapsed_time(c["events"][1]) for c in calls
+                         if c["mode"] == "audit"],
+            "loader_wait_ms": [1e3 * w for w in waits],
+            "eval_loader_wait_ms": [1e3 * w for mode, s, w in probe.waits
+                                    if s == stage and mode == "eval"],
+            "losses": [c["loss"].item() for c in train],
+            "eval_losses": [c["loss"].item() for c in evals],
+            "matcher_rounds": [c["rounds"].item() for c in train + evals],
+            "peak_mem_gb": probe.peaks[stage],
+            "launches": probe.totals[stage],
+            # the validation epoch's AP (a stage aggregates train, then val0)
+            "val0_ap": {k: v.tolist()
+                        for k, v in [ap for s, ap in probe.aps if s == stage][-1].items()
+                        if k.endswith("threshavg")},
+        }
+        # the first call of a stage carries the allocator's and cuDNN's
+        # warm-up at its shapes (and the Loader's first batch): the medians
+        # are of the later ones
+        for key in ("train_step_ms", "eval_ms", "loader_wait_ms"):
+            later = per_stage[stage][key][1:]
+            per_stage[stage][f"median_later_{key}"] = sorted(later)[len(later) // 2]
+    return per_stage
+
+
 def max_rel(a, b) -> float:
     """max |a - b| over max |b|."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -1649,6 +2090,15 @@ def main() -> int:
     t0 = time.perf_counter()
     train_runs, train_counts, train_check = train_phase(torch)
     log("5-train-step", ok=True, **train_check, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    trainer_runs, trainer_counts, trainer_records = trainer_phase(torch)
+    for stage, (name, _, _) in TRAINER_STAGES.items():
+        log(f"6-trainer-{name.split(' (')[0].replace(' ', '-')}", ok=True,
+            card=gpu_name_and_power(), **trainer_runs[stage])
+    log("6-trainer", ok=True, script=TRAINER_SCRIPT, argv=TRAINER_ARGV, gates=TRAINER_GATES,
+        run_s=trainer_runs["run_s"], launches=trainer_counts, seconds=time.perf_counter() - t0)
 
     sources = {
         "flash_attention": "future_od_tpu/ops/flash_attention.py:68",
@@ -1750,6 +2200,11 @@ def main() -> int:
                                    "library_is", "per")},
             "calls": rec["calls"],
         })
+    for row in kernels:  # the launches on phase 6's run, by stage
+        if row["name"] in trainer_counts:
+            row["trainer_launches"] = trainer_counts[row["name"]]
+        if row["name"] in trainer_records:
+            row["trainer_calls"] = trainer_records[row["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Per-step mAP intermediaries (port of future_od_tpu/metrics/od_map.py:
-`_box_size_categories` and `prepare_od_map_stuffs`; the cross-step AP
-aggregation waits for the eval slice).
+"""Object-detection mAP (port of future_od_tpu/metrics/od_map.py): the
+per-step intermediaries (`prepare_od_map_stuffs`, on the step's device) and
+their aggregation over an epoch (`aggregate_mean_average_precision`, in
+torch on the CPU).
 
 Per class, the top-K (50) predictions by score claim annotations greedily at
 all 10 IoU thresholds (.50:.05:.95) at once; COCO-like size categories
@@ -11,8 +12,9 @@ thresholds, M' prediction slots, K kept per class, N annotation slots.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -95,3 +97,53 @@ def prepare_od_map_stuffs(pred_boxes, pred_class_scores, anno_boxes, anno_classe
     anno_sizes = _box_size_categories(anno_boxes, imsize)  # (B, N, S)
     num_annos = (available[:, :, :, None] & anno_sizes[:, None, :, :]).sum(dim=(0, 2))
     return confs_out, is_positive_out, size_cats_out, num_annos.to(torch.int32)
+
+
+def _get_ap(confs, is_positive, size_categories, num_annos):
+    """AP per (class, size) at one threshold (od_map.py:290-314).
+    confs, is_positive (C, Nobj); size_categories (C, S, Nobj) bool;
+    num_annos (C, S) f32, summed over steps."""
+    C, S, Nobj = size_categories.shape
+    # a stable sort of -confs, as jnp.argsort's: tied confidences (padded
+    # entries among them) keep their order
+    ids = torch.argsort(-confs, dim=1, stable=True)[:, None, :].expand(C, S, Nobj)
+    is_positive = is_positive[:, None, :] & size_categories
+    is_positive = torch.gather(is_positive, 2, ids)
+    size_categories = torch.gather(size_categories, 2, ids)
+    precision = torch.cumsum(is_positive, dim=2, dtype=torch.int32) / (
+        torch.cumsum(size_categories, dim=2, dtype=torch.int32) + 1e-5)
+    return (precision * is_positive).sum(dim=2) / num_annos
+
+
+def _ap_all_thresholds(confs, is_positive, size_categories, num_annos):
+    """(T, C, S) AP: `_get_ap` at each threshold."""
+    num_annos = num_annos.to(torch.float32)
+    return torch.stack([_get_ap(c, p, size_categories, num_annos)
+                        for c, p in zip(confs, is_positive)])
+
+
+def aggregate_mean_average_precision(
+    confs: np.ndarray,  # (T, C, num_objects), concatenated over steps
+    is_positive: np.ndarray,
+    size_categories: np.ndarray,  # (C, S, num_objects)
+    num_annos: np.ndarray,  # (C, S, num_steps)
+) -> Dict[str, np.ndarray]:
+    """The epoch's AP dict from the per-step intermediaries (od_map.py:
+    317-364): per-threshold APs, their class and threshold averages, and the
+    generic-objectness class apart. NaN where a class has no annotations,
+    which the nan-means skip, as in the reference."""
+    num_annos_total = torch.as_tensor(np.asarray(num_annos).sum(axis=2))
+    with torch.no_grad():
+        ap = _ap_all_thresholds(
+            torch.as_tensor(np.asarray(confs)), torch.as_tensor(np.asarray(is_positive)),
+            torch.as_tensor(np.asarray(size_categories)), num_annos_total,
+        ).numpy()  # (T, C, S)
+    with np.errstate(invalid="ignore"):
+        return {
+            "all": ap[:, 0:-1, :],
+            "classavg": np.nanmean(ap[:, 0:-1, :], axis=1),
+            "threshavg": np.nanmean(ap[:, 0:-1, :], axis=0),
+            "classavg threshavg": np.nanmean(ap[:, 0:-1, :], axis=(0, 1)),
+            "generic": ap[:, -1, :],
+            "generic threshavg": np.nanmean(ap[:, -1, :], axis=0),
+        }

@@ -51,7 +51,7 @@ def build_flagship(
     if args.int8_backbone or args.int8_static:
         raise NotImplementedError(
             "the int8 PTQ backbone (int8_backbone / int8_static) is not ported yet "
-            "(ROADMAP.md Queue 1 item 16, ops/quant.py)"
+            "(ROADMAP.md Queue 1 item 6, ops/quant.py)"
         )
     device = resolve_device(device)
     if generator is None:

@@ -72,7 +72,8 @@ class CDetrDetectorSpatioTemporal(nn.Module):
     pass per frame over the current frame plus up to num_images-1 remembered
     ones; only the final frame's prediction is returned: its final decoder
     level, and in training with `aux_loss` also the earlier levels
-    (`aux_outputs`)."""
+    (`aux_outputs`); in eval too when the caller asks (`aux_levels`, the
+    eval step's loss)."""
 
     def __init__(self, num_classes: int, hidden_dim: int, num_queries: int = 300,
                  dec_layers: int = 6, dec_heads: int = 8, ff_dim: int = 2048,
@@ -96,9 +97,10 @@ class CDetrDetectorSpatioTemporal(nn.Module):
             self.bbox_embed.layers[-1].bias.zero_()
             self.query_embed.weight.normal_(0.0, 1.0, generator=generator)
 
-    def forward(self, features, pos_enc, egodeep=None):
+    def forward(self, features, pos_enc, egodeep=None, aux_levels: bool = False):
         """features (B, L, h, w, D); pos_enc (L, h, w, D) or (B, L, h, w, D);
-        egodeep (B, L, D) or None."""
+        egodeep (B, L, D) or None; aux_levels: return the aux levels in eval
+        mode too."""
         B, L, h, w, D = features.shape
         frames = features.reshape(B, L, h * w, D)
         memory: List[torch.Tensor] = []
@@ -108,9 +110,10 @@ class CDetrDetectorSpatioTemporal(nn.Module):
             memory = ([frames[:, l]] + memory)[: self.num_images - 1]
         pos = pos_enc.to(features.dtype).expand(B, L, h, w, D)[:, -1].reshape(B, h * w, D)
         ego = egodeep[:, -1:] if egodeep is not None else None
-        return self.detect(frames[:, -1], pos, ego, memory)
+        return self.detect(frames[:, -1], pos, ego, memory, aux_levels)
 
-    def detect(self, frame_features, pos_embed, egodeep, memory: List[torch.Tensor]):
+    def detect(self, frame_features, pos_embed, egodeep, memory: List[torch.Tensor],
+               aux_levels: bool = False):
         """One decoder pass over the current frame + remembered frames."""
         B = frame_features.shape[0]
         query_pos = self.query_embed.weight[None].expand(B, self.num_queries, self.hidden_dim)
@@ -129,10 +132,10 @@ class CDetrDetectorSpatioTemporal(nn.Module):
             return self.class_embed(levels), torch.sigmoid(coords)
 
         # the final level alone in inference; the aux levels in one batched
-        # call in training
+        # call in training and in the eval step
         final_class, final_coord = heads(hs[-1])
         out = {"pred_logits": final_class, "pred_boxes": final_coord}
-        if self.aux_loss and self.training:
+        if self.aux_loss and (self.training or aux_levels):
             aux_class, aux_coord = heads(hs[:-1])
             out["aux_outputs"] = [
                 {"pred_logits": aux_class[i], "pred_boxes": aux_coord[i]}
@@ -152,11 +155,11 @@ class FuturePredCore(nn.Module):
         self.separate_encoder = separate_encoder
         self.detector = detector
 
-    def forward(self, images, imu=None):
+    def forward(self, images, imu=None, aux_levels: bool = False):
         images = images[:, :-1]
         if imu is not None:
             imu = imu[:, :-1]
         features, egodeep = self.separate_encoder(images, imu)
         B, L, h, w, D = features.shape
         pos_enc = spatio_temporal_encoding(L, h, w, D, no_temporal=True, device=features.device)
-        return self.detector(features, pos_enc, egodeep)
+        return self.detector(features, pos_enc, egodeep, aux_levels)

@@ -45,7 +45,7 @@ class CriterionConfig:
         assert self.matcher in SOLVERS
         if self.masks:
             raise NotImplementedError(
-                "mask losses are not ported yet (ROADMAP.md Queue 1, Slice C item 10)"
+                "mask losses are not ported yet (ROADMAP.md Queue 1 item 1e)"
             )
 
 

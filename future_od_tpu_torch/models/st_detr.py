@@ -115,11 +115,13 @@ class SpatioTemporalDETR(nn.Module):
         self._model = core
         self.args = args
 
-    def forward(self, data: Dict[str, torch.Tensor]):
+    def forward(self, data: Dict[str, torch.Tensor], aux_levels: bool = False):
+        """aux_levels: the detector's aux levels in eval mode too (the eval
+        step's loss; training always returns them with `aux_loss`)."""
         imu = None
         if data.get("translation") is not None:
             imu = torch.cat([data[k] for k in self.args.imu_keys()], dim=2)
-        return self._model(data["video"], imu)
+        return self._model(data["video"], imu, aux_levels)
 
 
 def normalize_outputs(outputs):

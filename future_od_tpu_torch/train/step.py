@@ -1,15 +1,19 @@
-"""Train step and inference entry point (port of future_od_tpu/train/step.py:
-`make_train_step` with its helpers, and `make_inference_fn`).
+"""Train, eval and inference steps (port of future_od_tpu/train/step.py:
+`make_train_step`, `make_eval_step`, `make_grad_report` with
+`dead_param_names`, and `make_inference_fn`).
 
 One train step: forward in training mode -> matching + set loss -> backward
 -> global-norm clip -> AdamW -> post-processing -> mAP intermediaries. The
 non-finite guard keeps the old parameters and optimizer state when the
-global gradient norm is not finite. The eval step, mixed precision,
-gradient accumulation and the host-matched steps are not ported yet.
+global gradient norm is not finite. An eval step is the forward in eval mode,
+the loss over every decoder level (the JAX model returns the aux levels in
+eval too) and the same post-processing. Mixed precision, gradient
+accumulation and the host-matched steps are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+import contextlib
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -32,10 +36,13 @@ def to_device_batch(data: Dict[str, Any], device: torch.device) -> Dict[str, Any
 
 
 def forward_and_loss(model: torch.nn.Module, criterion_cfg: CriterionConfig,
-                     data: Dict[str, torch.Tensor], pred_idx_all=None, num_boxes=None):
+                     data: Dict[str, torch.Tensor], pred_idx_all=None, num_boxes=None,
+                     aux_levels: bool = False):
     """(loss, (stats, pred_logits, pred_boxes)) of one forward in the model's
-    current mode; pred_idx_all injects the matcher's indices."""
-    out = model(data)
+    current mode; pred_idx_all injects the matcher's indices; aux_levels asks
+    the model for its aux levels in eval mode too, as the JAX model returns
+    them (its inference program drops them)."""
+    out = model(data, aux_levels=aux_levels)
     annotated, pred_logits, pred_boxes = normalize_outputs(out)
     loss, stats = compute_loss(annotated, data, criterion_cfg, pred_idx_all, num_boxes)
     return loss, (stats, pred_logits, pred_boxes)
@@ -56,6 +63,18 @@ def step_seed(seed: int, step: int) -> int:
     """The torch seed of step `step` of a run seeded `seed` (the counterpart
     of jax.random.fold_in(rng, step))."""
     return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0])
+
+
+@contextlib.contextmanager
+def seeded(seed: int, step: int, device: torch.device):
+    """torch's generators seeded from (seed, step) inside, restored after:
+    the dropout of step `step` of a run seeded `seed`."""
+    devices = []
+    if device.type == "cuda":
+        devices = [torch.cuda.current_device() if device.index is None else device.index]
+    with torch.random.fork_rng(devices=devices):
+        torch.manual_seed(step_seed(seed, step))
+        yield
 
 
 def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
@@ -79,23 +98,19 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     is 1.0 then (else 0.0). The step counter advances either way."""
     if mixed_precision:
         raise NotImplementedError(
-            "mixed_precision is not ported yet (ROADMAP.md Queue 1, Slice C item 11)")
+            "mixed_precision is not ported yet (ROADMAP.md Queue 1 item 1a)")
     if accum_steps != 1:
         raise NotImplementedError(
-            "accum_steps > 1 is not ported yet (ROADMAP.md Queue 1, Slice C item 11)")
+            "accum_steps > 1 is not ported yet (ROADMAP.md Queue 1 item 1b)")
     device = resolve_device(device)
     params = list(optimizer.parameters())
-    fork_devices = []
-    if device.type == "cuda":
-        fork_devices = [torch.cuda.current_device() if device.index is None else device.index]
     steps = [0]
 
     def train_step(data: Dict[str, Any], seed: int):
         batch = to_device_batch(data, device)
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with torch.random.fork_rng(devices=fork_devices):
-            torch.manual_seed(step_seed(seed, steps[0]))
+        with seeded(seed, steps[0], device):
             loss, (stats, pred_logits, pred_boxes) = forward_and_loss(
                 model, criterion_cfg, batch)
             loss.backward()
@@ -115,6 +130,65 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
 
     train_step.steps = steps
     return train_step
+
+
+def make_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
+                   device: DeviceLike = None) -> Callable:
+    """Returns eval_step(data) -> (loss, stats, od_map_stuffs, output): the
+    forward in eval mode without autograd, the loss with every decoder
+    level, post-processing and the mAP intermediaries. `data` is the JAX
+    package's batch dict, moved to `device` (default CUDA; raises without a
+    card), where the model must live."""
+    device = resolve_device(device)
+
+    def eval_step(data: Dict[str, Any]):
+        batch = to_device_batch(data, device)
+        model.eval()
+        with torch.no_grad():
+            loss, (stats, pred_logits, pred_boxes) = forward_and_loss(
+                model, criterion_cfg, batch, aux_levels=True)
+            output, od_map_stuffs = postproc_and_map(pred_logits, pred_boxes, batch)
+        return loss, stats, od_map_stuffs, output
+
+    return eval_step
+
+
+def make_grad_report(model: torch.nn.Module, criterion_cfg: CriterionConfig,
+                     device: DeviceLike = None) -> Callable:
+    """Returns report(data, seed, step) -> {parameter name: the L2 norm of
+    its gradient on `data`} (f32 scalars on `device`), from one forward in
+    training mode with the dropout of train step `step` and one backward
+    that leaves the parameters' `.grad` as it was. Frozen parameters
+    (requires_grad False) and trainable ones the loss does not reach report
+    0. The port of the JAX epoch-1 audit: under autograd a gradient that is
+    identically zero on a real batch marks a dead branch or a mis-masked
+    parameter, as the reference's `grad is None` check (trainer.py:181-185)
+    does."""
+    device = resolve_device(device)
+
+    def report(data: Dict[str, Any], seed: int, step: int) -> Dict[str, torch.Tensor]:
+        batch = to_device_batch(data, device)
+        model.train()
+        named = list(model.named_parameters())
+        trainable = [p for _, p in named if p.requires_grad]
+        with seeded(seed, step, device):
+            loss, _ = forward_and_loss(model, criterion_cfg, batch)
+            grads = iter(torch.autograd.grad(loss, trainable, allow_unused=True))
+        norms = {}
+        for name, p in named:
+            g = next(grads) if p.requires_grad else None
+            norms[name] = (torch.zeros((), device=device) if g is None
+                           else torch.sqrt(g.float().square().sum()))
+        return norms
+
+    return report
+
+
+def dead_param_names(grad_norms: Dict[str, Any], labels: Dict[str, str]) -> List[str]:
+    """The names whose gradient norm is exactly zero, leaving out the
+    parameters frozen on purpose (label "frozen", train/optimizer.py)."""
+    return [name for name, norm in grad_norms.items()
+            if labels[name] != "frozen" and float(norm) == 0.0]
 
 
 def make_inference_fn(model: torch.nn.Module, device: DeviceLike = None) -> Callable:

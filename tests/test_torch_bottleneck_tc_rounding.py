@@ -32,9 +32,12 @@ bf16's truncating chain puts 442-2109 outputs off, a fresh accumulator every
 (cin 64, cmid 64, cout 256, with the downsample) each emulation also lies
 within the tolerance of the JAX kernel in interpret mode: with seeds 0-2 at
 0.030-0.037 of it in f32 and 0-0.68 in bf16, as the port's plain version
-lies at 0-0.68. The file takes
-about 8 s of tests, 14 s with the imports, alone (`one_torch_thread`: one
-torch thread but for the near-tie test).
+lies at 0-0.68. The near-tie test
+holds the bf16 emulation against `chained`, the block with every sum one
+sequential fmaf chain, whose order no thread count changes: with seed 0, 3
+outputs off with the recompute and 60 without, on 1, 2 and 4 threads. The
+file takes about 9 s of tests, 15 s with the imports, alone
+(`one_torch_thread`: one torch thread a test).
 """
 import math
 
@@ -61,11 +64,6 @@ NEAR_TIE = 2.0**-18  # csrc/fused_bottleneck.cu's kNearTie
 K_STEP = {torch.float32: 8, torch.bfloat16: 16}
 # (parts, a fresh accumulator every FRESH_ROWS rows) by storage type: the kernel's
 DESIGNS = {torch.float32: (parts_3xtf32, True), torch.bfloat16: (parts_as_stored, True)}
-# Tests that keep torch's threads rather than one (one_torch_thread): the near-tie test's
-# reference, bottleneck_plain on the CPU, sums its f32 convolutions in an order that
-# changes with the thread count, and on one thread its assertion fails (365 outputs off
-# with the recompute, 422 without; ROADMAP Queue 3).
-KEEP_TORCH_THREADS = ("test_near_tie_recompute_flips_fewer_outputs",)
 
 
 def product(a, b, dtype, design=None):
@@ -90,6 +88,17 @@ def sequential(a, b):
     s = torch.zeros(a.shape[0])
     for k in range(a.shape[1]):
         s = (s.double() + a[:, k].double() * b[k].double()).float()
+    return s
+
+
+def chain(a, b):
+    """a (M, K) @ b (K, N) with every output one sequential fmaf chain, k
+    ascending (`sequential` on every pair): an order fixed by the function,
+    whatever torch's thread count."""
+    s = torch.zeros(a.shape[0], b.shape[1])
+    a64, b64 = a.double(), b.double()
+    for k in range(a.shape[1]):
+        s = (s.double() + a64[:, k, None] * b64[k]).float()
     return s
 
 
@@ -130,6 +139,25 @@ def emulate(x, w, design=None, near_tie=NEAR_TIE):
         acc = product(torch.cat([h2, xs], 1), torch.cat([mats["w3"], stored(w["wd"], dtype)]),
                       dtype, design)
         out = acc + w["b3"] + w["bd"]
+    return torch.relu(out).to(dtype).reshape(B, H, W, -1)
+
+
+def chained(x, w):
+    """The block (identity residual) with every reduction one sequential
+    fmaf chain in the kernel's (dy, dx, channel) order, each intermediate
+    rounded to x's dtype after bias and relu, as the kernel's recompute
+    rounds a near tie."""
+    dtype = x.dtype
+    B, H, W, cin = x.shape
+    cmid = w["w1"].shape[1]
+    xs = x.float().reshape(-1, cin)
+    h1 = stored(torch.relu(chain(xs, stored(w["w1"], dtype)) + w["b1"]), dtype)
+    h1 = h1.reshape(B, H, W, cmid).permute(0, 3, 1, 2)
+    cols = F.unfold(h1, 3, padding=1).reshape(B, cmid, 9, H * W)
+    cols = cols.permute(0, 3, 2, 1).reshape(B * H * W, 9 * cmid)
+    w2 = stored(w["w2"], dtype).reshape(9 * cmid, cmid)
+    h2 = stored(torch.relu(chain(cols, w2) + w["b2"]), dtype)
+    out = chain(h2, stored(w["w3"], dtype)) + w["b3"] + xs
     return torch.relu(out).to(dtype).reshape(B, H, W, -1)
 
 
@@ -196,9 +224,10 @@ def test_bf16_fresh_accumulator_flips_fewer_outputs(rng):
 
 def test_near_tie_recompute_flips_fewer_outputs(rng):
     """Intermediates near a bf16 rounding boundary, summed as sequential FMA
-    chains, round as the plain version's chained sums do."""
+    chains, round as a reference that chains every sum does (`chained`, whose
+    order does not depend on torch's threads)."""
     x, w = layer2_block(rng, torch.bfloat16)
-    ref = bottleneck_plain(x, **w)
+    ref = chained(x, w)
     off = {near_tie: int((emulate(x, w, near_tie=near_tie) != ref).sum())
            for near_tie in (NEAR_TIE, 0.0)}
     assert 5 * off[NEAR_TIE] < off[0.0], off

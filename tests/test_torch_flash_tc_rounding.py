@@ -107,16 +107,13 @@ def parts_once(p, v):
 
 
 @pytest.fixture(autouse=True)
-def one_torch_thread(request):
+def one_torch_thread():
     """Each test on one torch thread, the count restored after it. The suite
     runs a whole file on one of its xdist workers (--dist loadfile), and six
     workers each with torch's default threads (one a core) oversubscribe the
-    cores: the emulations' time went to that, not to their arithmetic. A
-    module's KEEP_TORCH_THREADS names tests that keep the threads they run
-    with. The port's other emulation files import this fixture."""
-    if request.node.originalname in getattr(request.module, "KEEP_TORCH_THREADS", ()):
-        yield
-        return
+    cores: the emulations' time went to that, not to their arithmetic. The
+    port's other emulation files, and its trainer tests, import this
+    fixture."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:

@@ -287,6 +287,13 @@ def test_fused_layer1(cuda, np_rng, dtype, tile_h):
 # self-attention over 4 clips x 2 past frames x 8 heads, and the decoder's
 # image cross-attention with concat heads over 4 clips x 8 heads.
 TRAIN_SHAPES = [(64, 350, 350, 32, 32), (32, 128, 350, 64, 32)]
+# The flagship script's training shapes: stage 1 (448x800: 350 tokens) at
+# batch 32, where the decoder's 256 batch-heads take split 1, and stage 2
+# (896x1600: 1400 tokens) at batch 16: the encoder's self-attention over
+# clips x 2 past frames x 8 heads, the decoder's image cross-attention over
+# clips x 8 heads.
+SCRIPT_TRAIN_SHAPES = [(512, 350, 350, 32, 32), (256, 128, 350, 64, 32),
+                       (256, 1400, 1400, 32, 32), (128, 128, 1400, 64, 32)]
 # the same attentions at heads of 16 (runs/nuim_single_frame.py --debug), and
 # an encoder self-attention at heads of 64
 HEAD16_TRAIN_SHAPES = [(32, 350, 350, 16, 16), (16, 128, 350, 32, 16)]
@@ -300,8 +307,8 @@ RAGGED_TRAIN_SHAPES = [(BH, Nq, Nk, d, dv) for d, dv in fa.SUPPORTED_HEAD_DIMS
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES + HEAD16_TRAIN_SHAPES + HEAD64_TRAIN_SHAPES
-                         + RAGGED_TRAIN_SHAPES)
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES + SCRIPT_TRAIN_SHAPES + HEAD16_TRAIN_SHAPES
+                         + HEAD64_TRAIN_SHAPES + RAGGED_TRAIN_SHAPES)
 def test_flash_train_kernels(cuda, np_rng, dtype, rate, BH, Nq, Nk, d, dv):
     """K4, K5 and K6 against their plain versions on the same inputs (K5 and
     K6 given the plain forward's lse and delta)."""

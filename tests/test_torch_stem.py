@@ -291,5 +291,5 @@ class TestSpaceToDepthFlagship:
 
 @pytest.mark.parametrize("flag", ["int8_backbone", "int8_static"])
 def test_int8_backbone_not_built_silently(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         build_flagship(SpatioTemporalDETRArgs(**TINY, **{flag: True}), device="cpu")
