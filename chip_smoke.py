@@ -69,7 +69,8 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    whose logits are exact in f32, v2 over tile_h 8/16/32 x im2col at
    layer1 and at tile 8 at block 0, layer2 and layer3, v3 at tile 8 and 16;
    and each kernel's time at the tools' full bf16 shapes beside its plain
-   version's and, for T1, SDPA's forward.
+   version's and a yardstick (T1: SDPA's forward; T2 v2 and v3: K2's,
+   cuDNN's convolutions of the same blocks, channels-last).
 1d. the stem study (future_od_tpu_torch/tools/bench_stem.py, the main path
    of its slice): `run()` whole at its full bf16 shape (24 x 896x1600) with
    the launch counts reset before and read after (T3 A, B, B16 and D must
@@ -120,8 +121,27 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    Per stage: each train step's ms (CUDA events around the call), each eval
    batch's, the host's wait on the Loader, the peak memory, the launches, and
    one profiled train step's idle share and top kernels (after the checks).
+6b. the same script with --bf16, then with --bf16 --accum 2, each run and
+   checked as phase 6 runs and checks it: K4-K6 18 times a micro-batch (36
+   a step at --accum 2) and in the f32 audit, K1-K3 only in the f32 eval;
+   losses finite; the bf16 run's first train step within the stated
+   tolerance of phase 6's f32 one (same weights, batch and dropout); the
+   checkpoint's weights and AdamW's state f32 and a bit-equal resume; the
+   dtypes K4-K6 receive (the JAX package's mixed precision promotes the
+   transformer's operands to f32, models/precision.py); per stage the
+   numbers of phase 6 and one profiled train step. Then one f32 step at
+   dropout 0 of phase 5's full-width model and batch, --accum 2 against 1:
+   loss and every gradient within the stated tolerances.
+7. the data path at nuScenes' size, on the host: the committed 1600x900
+   JPEGs (future_od_tpu_torch/data/fixtures/) decoded by the port's decoder
+   (csrc/jpeg_decode.cpp, built with g++) must hash to the digests cv2 gave;
+   per frame the decode's, the normalization's and the resizes' ms (to
+   448x800 and 896x1600, float32 and uint8); the thread-pool Loader's and
+   the worker-process loader's frames a second over clips of the fixtures
+   through the dataset's transforms, beside the frames a second phase 6's
+   and 6b's stage-1 steps consume.
 4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's
-   run), then the device JSON line, last.
+   and 6b's runs), then the device JSON line, last.
 
 Phases 2 and 3 also say where a request's time goes: the device time of the
 backbone, the encoder and the detector (CUDA events recorded by forward
@@ -275,6 +295,33 @@ TRAINER_LAUNCHES = {
     ("eval", 896): {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1},
 }
 AP_KEYS = ("all", "classavg", "threshavg", "classavg threshavg", "generic", "generic threshavg")
+# Phase 6b: the script in bf16 and with accumulation (label, extra argv,
+# micro-batches a step). The bf16 run's first train step against phase 6's
+# f32 one on the same weights, batch and dropout: the loss within
+# BF16_FIRST_LOSS_RTOL (bf16 moves the CPU test's tiny flagship 1.5e-3
+# from JAX's bf16 loss and 6e-4 from f32; at full width, 10x that margin
+# and more for the deeper backbone).
+PRECISION_RUNS = (("bf16", ["--bf16"], 1), ("bf16 accum 2", ["--bf16", "--accum", "2"], 2))
+BF16_FIRST_LOSS_RTOL = 5e-2
+# --accum 2 against 1 at dropout 0, f32, TF32 off: the loss, and each
+# group's largest gradient difference over its largest gradient, at 10x the
+# gaps measured on an H100 (loss 5.9e-7; encoder 2.7e-4, detector 5.6e-4).
+# On the CPU the same comparison is at 1.6e-6 (tests/test_torch_mixed_
+# precision.py); on the card the half batch changes cuDNN's algorithms and
+# K4-K6's split of a slab across warps (chosen from batch x heads), and the
+# random-init encoder's softmax, one-hot at logits near 1e6, amplifies
+# those roundings as it does phase 5a's (GRAD_RTOL). Phase 5a's
+# per-parameter form is reported beside it (the query embedding, whose
+# gradient nearly cancels over the batch: 2.2e-2 of its own largest).
+ACCUM_LOSS_RTOL = 6e-6
+ACCUM_GRAD_RTOL = {"separate_encoder": 2.7e-3, "detector": 5.6e-3}
+# Phase 7: the committed 1600x900 fixtures, decoded and timed on the host.
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "future_od_tpu_torch",
+                           "data", "fixtures")
+DATA_REPEATS = 10
+DATA_BATCHES = 3
+DATA_WORKERS = 8
+TRAINER_STAGES_BATCH = {448: 32, 896: 16}
 # K4-K6 at the shapes of the script's two stages, which no earlier phase
 # runs: stage 1 (448x800: 350 tokens, batch 32; the decoder's 256 batch-heads
 # take split 1, where phase 1b's batch 4 takes split 4) and stage 2
@@ -529,6 +576,32 @@ def check_close(name, out, ref, dtype, atol=None):
     return diff.max().item(), tol.flatten()[int(diff.argmax())].item()
 
 
+def conv_weight(torch, w, dt):
+    """An (in, out) matrix or HWIO kernel as cuDNN takes it: OIHW,
+    channels-last, in dt."""
+    w = w.t()[:, :, None, None] if w.dim() == 2 else w.permute(3, 2, 0, 1)
+    return w.to(dt).contiguous(memory_format=torch.channels_last)
+
+
+def yardstick_weights(torch, weights, dt):
+    """A bottleneck's weights ((in, out) matrices, HWIO 3x3, biases) as
+    cuDNN takes them (`conv_weight`), biases in dt."""
+    return {k: (t.to(dt) if k.startswith("b") else conv_weight(torch, t, dt))
+            for k, t in weights.items()}
+
+
+def block_yardstick(torch, x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
+    """K2's yardstick: cuDNN's convolutions of the block on channels-last
+    NHWC x (`yardstick_weights`), plus the add and the relus (no library
+    call fuses the block). Returns NHWC."""
+    F = torch.nn.functional
+    xc = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last NCHW view
+    h = F.relu(F.conv2d(xc, w1, b1))
+    h = F.relu(F.conv2d(h, w2, b2, padding=1))
+    h = F.conv2d(h, w3, b3)
+    return F.relu(h + (xc if wd is None else F.conv2d(xc, wd, bd))).permute(0, 2, 3, 1)
+
+
 def kernel_phase(torch, dev):
     """Phase 1 on device `dev`. Returns per-kernel records (per-call
     numbers per shape)."""
@@ -571,19 +644,6 @@ def kernel_phase(torch, dev):
         records["flash_attention"].append(rec)
         log("kernel", kernel="flash_attention", **rec)
 
-    def conv_weight(w, dt):  # (in, out) matrix or HWIO -> OIHW, channels-last, in dt
-        w = w.t()[:, :, None, None] if w.dim() == 2 else w.permute(3, 2, 0, 1)
-        return w.to(dt).contiguous(memory_format=torch.channels_last)
-
-    def block_yardstick(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
-        """K2's yardstick: cuDNN's convolutions of the block on channels-last
-        x, plus the add and the relus (no library call fuses the block)."""
-        xc = x.permute(0, 3, 1, 2)  # NHWC memory: a channels-last NCHW view
-        h = F.relu(F.conv2d(xc, w1, b1))
-        h = F.relu(F.conv2d(h, w2, b2, padding=1))
-        h = F.conv2d(h, w3, b3)
-        return F.relu(h + (xc if wd is None else F.conv2d(xc, wd, bd)))
-
     # K2: layer1 block 0 (downsample), a layer1 inner block, a layer2 inner block.
     n_img = 2 * BATCH
     blocks = [
@@ -610,14 +670,13 @@ def kernel_phase(torch, dev):
             err, tol = check_close(f"fused_bottleneck {label}", out, ref, dtype)
             ops, nbytes = fr.bottleneck_cost(B, H, W, cin, cmid, cout, ds, x.element_size())
             b_ms, b_by, b_is = tc_bound(ops, nbytes, dtype)
-            yard = {k: (t.to(dt) if k.startswith("b") else conv_weight(t, dt))
-                    for k, t in w32.items()}
+            yard = yardstick_weights(torch, w32, dt)
             rec = dict(
                 block=label, shape=[B, H, W, cin], cmid=cmid, cout=cout, dtype=dtype,
                 per_forward=per_forward, max_abs_err=err, tol=tol,
                 ms=time_ms(torch, lambda: fr.fused_bottleneck_packed(x, packed)),
                 plain_ms=time_ms(torch, lambda: fr.bottleneck_plain(x, **w)),
-                library_ms=time_ms(torch, lambda: block_yardstick(x, **yard)),
+                library_ms=time_ms(torch, lambda: block_yardstick(torch, x, **yard)),
                 library_is=f"a yardstick: {K2_YARDSTICK}",
                 bound_ms=b_ms, bound_by=b_by, bound_is=b_is, ops=ops, bytes=nbytes,
             )
@@ -633,7 +692,7 @@ def kernel_phase(torch, dev):
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         xs, w4 = xs32.to(dt), w4_32.to(dt)
-        frames, w7c, bias_dt = video.to(dt).permute(0, 3, 1, 2), conv_weight(w7, dt), bias.to(dt)
+        frames, w7c, bias_dt = video.to(dt).permute(0, 3, 1, 2), conv_weight(torch, w7, dt), bias.to(dt)
         packed = fr.pack_stem(dt, w4, bias)  # once, as the model packs its stem
         out = fr.fused_stem_packed(xs, packed)
         ref = fr.stem_plain(xs, w4, bias)
@@ -1022,6 +1081,15 @@ def tools_phase(torch, dev):
     w1 = {k_: torch.from_numpy(v_).to(dev, bf16) for k_, v_ in weights(256, 64, 256, False).items()}
     x0 = (torch.randn(t2.BATCH, t2.HEIGHT, t2.WIDTH, 64, generator=gen, device=dev) * 0.1).to(bf16)
     blocks = blocks_from_numpy(blocks_np, bf16, dev)
+    # T2's yardsticks (K2's): cuDNN's convolutions of the same blocks
+    yard1 = yardstick_weights(torch, w1, bf16)
+    yard_blocks = [yardstick_weights(torch, bk, bf16) for bk in blocks]
+
+    def layer1_yardstick(x):
+        for bk in yard_blocks:
+            x = block_yardstick(torch, x, **bk)
+        return x
+
     timed = {
         "attention_floor": dict(
             per=f"one bf16sm call at {t1.SHAPE}, block_k {t1.BLOCK_K}; library: SDPA forward "
@@ -1036,12 +1104,16 @@ def tools_phase(torch, dev):
         "bottleneck_v2": dict(
             per=f"one call at layer1's inner block {tuple(x1.shape)} -> 256, tile 8, im2col",
             ms=time_ms(torch, lambda: fr.fused_bottleneck_v2(x1, **w1, tile_h=8, im2col=True)),
-            plain_ms=time_ms(torch, lambda: fr.bottleneck_plain(x1, **w1)), library_ms=None,
+            plain_ms=time_ms(torch, lambda: fr.bottleneck_plain(x1, **w1)),
+            library_ms=time_ms(torch, lambda: block_yardstick(torch, x1, **yard1)),
+            library_is=f"a yardstick: {K2_YARDSTICK}",
             cost=fr.bottleneck_cost(t2.BATCH, t2.HEIGHT, t2.WIDTH, 256, 64, 256, False, 2)),
         "fused_layer1": dict(
             per=f"one call over layer1's 3 blocks {tuple(x0.shape)} -> 256, tile 8",
             ms=time_ms(torch, lambda: fr.fused_layer1(x0, blocks, tile_h=8)),
-            plain_ms=time_ms(torch, lambda: fr.layer1_plain(x0, blocks)), library_ms=None,
+            plain_ms=time_ms(torch, lambda: fr.layer1_plain(x0, blocks)),
+            library_ms=time_ms(torch, lambda: layer1_yardstick(x0)),
+            library_is=f"a yardstick: {K2_YARDSTICK}, for each of the 3 blocks in turn",
             cost=fr.layer1_cost(t2.BATCH, t2.HEIGHT, t2.WIDTH, 64, 2)),
     }
     torch.cuda.synchronize()
@@ -1796,9 +1868,14 @@ def check_ap(ap, num_classes: int) -> None:
             raise AssertionError(f"AP {key} outside [0, 1]: {value}")
 
 
-def trainer_phase(torch):
-    """Phase 6: the flagship's run script, its checks and its numbers.
-    Returns (per-stage records, launch totals per kernel and stage)."""
+def run_trainer_script(torch, argv, accum: int = 1):
+    """The flagship's script, `main(argv)` in this process with K1-K6 gated
+    on, its paths in a temporary directory, instrumented by a TrainerProbe:
+    the run's checks (`check_trainer_run`, K4-K6 18 times a micro-batch of
+    `accum`), and a fresh Trainer from the script's `get_trainer` (no
+    --restart) that loads the checkpoint bit for bit (weights, optimizer,
+    epoch, step, meters; `_final`'s net too) with every weight f32. Returns
+    (per-stage records, the probe, the trained Trainer)."""
     import importlib
     import tempfile
 
@@ -1810,10 +1887,6 @@ def trainer_phase(torch):
     from future_od_tpu_torch.train import trainer as trainer_module
 
     script = importlib.import_module(TRAINER_SCRIPT)
-    dev = torch.device("cuda")
-    kernel_records = trainer_train_kernels(torch, dev)
-    log("6-trainer-train-kernels-vs-plain", ok=True, card=gpu_name_and_power(),
-        records=kernel_records)
     set_gates(**TRAINER_GATES)
     saved_config = dict(config)
     probe = TrainerProbe(torch, _kernels)
@@ -1823,7 +1896,7 @@ def trainer_phase(torch):
         probe.install(trainer_module, loader_module)
         try:
             t0 = time.perf_counter()
-            trainer = script.main(TRAINER_ARGV)
+            trainer = script.main(argv)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             probe.finish()
@@ -1831,12 +1904,10 @@ def trainer_phase(torch):
             probe.restore()
             config.clear()
             config.update(saved_config)
-        per_stage = check_trainer_run(torch, probe, trainer)
+        per_stage = check_trainer_run(torch, probe, trainer, accum)
         per_stage["run_s"] = run_s
 
-        # a fresh Trainer from the script's get_trainer, without --restart,
-        # loads the checkpoint: equal to the trained one bit for bit
-        args = script.build_parser().parse_args(TRAINER_ARGV)
+        args = script.build_parser().parse_args(argv)
         args.experiment_idf = TRAINER_SCRIPT.rsplit(".", 1)[1]
         names = sorted(os.listdir(os.path.join(tmp, "checkpoints")))
         if names != [args.experiment_idf, args.experiment_idf + "_final"]:
@@ -1859,8 +1930,28 @@ def trainer_phase(torch):
         differ += equal_trees(torch, final["net"], trainer._model.state_dict(), "final.net")
         if differ:
             raise AssertionError(f"resumed Trainer differs from the saved one at {differ[:5]}")
+        not_f32 = [k for k, v in final["net"].items() if v.is_floating_point()
+                   and v.dtype != torch.float32]
+        not_f32 += [k for st in trainer._optimizer.state.values() for k, v in st.items()
+                    if v.dim() and v.dtype != torch.float32]
+        if not_f32:
+            raise AssertionError(f"master weights or AdamW state not f32: {not_f32[:5]}")
         del fresh, final
         torch.cuda.empty_cache()
+    return per_stage, probe, trainer
+
+
+def trainer_phase(torch):
+    """Phase 6: the flagship's run script, its checks and its numbers.
+    Returns (per-stage records, launch totals per kernel and stage, K4-K6's
+    records at the stages' shapes)."""
+    from future_od_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda")
+    kernel_records = trainer_train_kernels(torch, dev)
+    log("6-trainer-train-kernels-vs-plain", ok=True, card=gpu_name_and_power(),
+        records=kernel_records)
+    per_stage, probe, trainer = run_trainer_script(torch, TRAINER_ARGV)
 
     # each stage's first eval batch through the script's eval step on the
     # final weights, with the run's gates (its launches as in the run) and
@@ -1887,7 +1978,16 @@ def trainer_phase(torch):
             **diffs, "tolerances": {k: PHASE3_TOLS[k] for k in diffs}}
         del outputs, fused, plain
 
-    # one profiled train step a stage, on its first batch, after every check
+    profile_train_steps(torch, trainer, probe, per_stage)
+    totals = launch_totals(probe)
+    del trainer, probe
+    torch.cuda.empty_cache()
+    return per_stage, totals, kernel_records
+
+
+def profile_train_steps(torch, trainer, probe, per_stage) -> None:
+    """One profiled train step a stage, on its first batch, after every
+    check: per_stage[stage]["profile"]."""
     set_gates(**TRAINER_GATES)
     core = trainer._model._model
     stages = {"backbone": core.separate_encoder.backbone,
@@ -1896,19 +1996,23 @@ def trainer_phase(torch):
         batch = probe.first[("train", stage)][0]
         per_stage[stage]["profile"] = profile_request(
             torch, lambda b: probe.inner["train"](b, 0), batch, stages)
-    totals = {name: {TRAINER_STAGES[s][0]: probe.totals[s].get(name, 0) for s in TRAINER_STAGES}
-              for name in MAIN_KERNELS}
-    del trainer, probe, core, stages
-    torch.cuda.empty_cache()
-    return per_stage, totals, kernel_records
 
 
-def check_trainer_run(torch, probe, trainer):
-    """Phase 6's checks on a recorded run: each step call's launches, finite
-    losses, matcher rounds, the AP dicts; and its numbers per stage."""
+def launch_totals(probe) -> dict:
+    """{kernel: {stage name: launches in the run}}."""
+    return {name: {TRAINER_STAGES[s][0]: probe.totals[s].get(name, 0) for s in TRAINER_STAGES}
+            for name in MAIN_KERNELS}
+
+
+def check_trainer_run(torch, probe, trainer, accum: int = 1):
+    """Phase 6's checks on a recorded run: each step call's launches (a
+    train step's K4-K6 once a micro-batch of `accum`), finite losses,
+    matcher rounds, the AP dicts; and its numbers per stage."""
     num_classes = trainer._args.num_classes
     for call in probe.calls:
         want = TRAINER_LAUNCHES.get((call["mode"], call["stage"]))
+        if want is not None and call["mode"] == "train":
+            want = {k: n * accum for k, n in want.items()}
         if want is None or call["launches"] != want:
             raise AssertionError(f"{call['mode']} at height {call['stage']}: launches "
                                  f"{call['launches']}, want {want}")
@@ -1973,6 +2077,189 @@ def check_trainer_run(torch, probe, trainer):
             later = per_stage[stage][key][1:]
             per_stage[stage][f"median_later_{key}"] = sorted(later)[len(later) // 2]
     return per_stage
+
+
+def precision_phase(torch, f32_first_loss: float):
+    """Phase 6b: the script with --bf16, then --bf16 --accum 2, as phase 6
+    runs it (`run_trainer_script`); the first train step's loss against
+    phase 6's f32 one (same weights, batch and dropout), the dtypes K4-K6
+    receive, per stage the numbers of phase 6 and one profiled train step.
+    Returns ({label: per-stage records}, {label: launch totals})."""
+    from future_od_tpu_torch.models import layers
+
+    runs, totals = {}, {}
+    for label, extra, accum in PRECISION_RUNS:
+        dtypes = {}
+        original = layers.flash_attention_train
+
+        def recording(q, k, v, *rest):
+            key = "/".join(str(t.dtype)[6:] for t in (q, k, v))
+            dtypes[key] = dtypes.get(key, 0) + 1
+            return original(q, k, v, *rest)
+        layers.flash_attention_train = recording
+        try:
+            per_stage, probe, trainer = run_trainer_script(torch, TRAINER_ARGV + extra, accum)
+        finally:
+            layers.flash_attention_train = original
+        first = per_stage[448]["losses"][0]
+        gap = abs(first - f32_first_loss) / abs(f32_first_loss)
+        if gap > BF16_FIRST_LOSS_RTOL:
+            raise AssertionError(f"{label}: first step's loss {first} against f32 "
+                                 f"{f32_first_loss}: {gap} > {BF16_FIRST_LOSS_RTOL}")
+        profile_train_steps(torch, trainer, probe, per_stage)
+        per_stage["first_loss_vs_f32"] = {"loss": first, "f32_loss": f32_first_loss,
+                                          "relative_gap": gap, "tolerance": BF16_FIRST_LOSS_RTOL}
+        per_stage["k4_k6_input_dtypes"] = dtypes
+        runs[label] = per_stage
+        totals[label] = launch_totals(probe)
+        del trainer, probe
+        torch.cuda.empty_cache()
+    return runs, totals
+
+
+def accum_exactness(torch):
+    """Phase 6b's exactness check: one f32 train step at dropout 0 of phase
+    5's full-width model and batch (4 clips at 448x800, TF32 off), with
+    --accum 2 against 1 from the same weights: the loss and every
+    parameter's (clipped) gradient within the stated tolerances."""
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.train.optimizer import build_optimizer
+    from future_od_tpu_torch.train.step import make_train_step
+
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4,
+                                  freeze_stem=True, matcher="auction", cost_slots=128)
+    data = make_train_batch(seed=0)
+    set_gates(FUTURE_OD_TRAIN_FLASH="1")
+    results = {}
+    for accum in (1, 2):
+        model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+        randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+        set_dropout(torch, model, 0.0)
+        optimizer = build_optimizer(model, args.lr, args.lr_backbone)
+        step = make_train_step(model, args.criterion_config(), optimizer, accum_steps=accum)
+        loss, stats, _, _ = step(data, 0)
+        results[accum] = (loss.item(), {n: p.grad.detach().clone()
+                                        for n, p in model.named_parameters()
+                                        if p.grad is not None},
+                          {k: v.item() for k, v in stats.items()})
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+    (loss1, grads1, stats1), (loss2, grads2, stats2) = results[1], results[2]
+    loss_gap = abs(loss2 - loss1) / abs(loss1)
+    # each group's largest |difference| over its largest |gradient|; beside
+    # it, phase 5a's per-parameter form (over each tensor's own largest)
+    by_group = {}
+    for name, g in grads1.items():
+        group = name.split(".")[1]
+        diff, top = (grads2[name] - g).abs().max().item(), g.abs().max().item()
+        d0, t0 = by_group.get(group, (0.0, 0.0))
+        by_group[group] = (max(d0, diff), max(t0, top))
+    group_gap = {k: d / t for k, (d, t) in by_group.items()}
+    if loss_gap > ACCUM_LOSS_RTOL or any(v > ACCUM_GRAD_RTOL[k] for k, v in group_gap.items()):
+        raise AssertionError(f"--accum 2 against 1: loss gap {loss_gap}, gradients {group_gap}")
+    return {"loss": [loss1, loss2], "loss_gap": loss_gap, "loss_rtol": ACCUM_LOSS_RTOL,
+            "grad_gap_by_group": group_gap, "grad_rtol": ACCUM_GRAD_RTOL,
+            "grad_gap_per_parameter": worst_per_group(gradient_gaps(grads2, grads1)),
+            "matcher_rounds": [stats1["matcher_rounds"], stats2["matcher_rounds"]]}
+
+
+class FixtureClips:
+    """Phase 7's dataset: clips of 3 of the committed 1600x900 JPEGs, read,
+    normalized and transformed as the nuScenes dataset's __getitem__ does
+    (RandomSizedCrop(0.5, 1) then JointResize to the stage's size, dense
+    targets), from files on disk."""
+
+    def __init__(self, paths, size, clips, device_normalize=False):
+        self.paths, self.size, self.clips = paths, size, clips
+        self.device_normalize = device_normalize
+
+    def __len__(self):
+        return self.clips
+
+    def __getitem__(self, i):
+        from future_od_tpu_torch.data import transforms as T
+        from future_od_tpu_torch.data.image import read_image_rgb
+        from future_od_tpu_torch.ops.target_utils import construct_box_targets
+
+        video = np.stack([read_image_rgb(self.paths[(i + k) % len(self.paths)])
+                          for k in range(FRAMES)])
+        if not self.device_normalize:
+            video = T.remap_and_normalize(video)
+        boxes = np.array([[100.0, 200.0, 400.0, 500.0], [900.0, 300.0, 1200.0, 700.0]],
+                         np.float32)
+        video, boxes, classes = T.JointCompose(
+            [T.RandomSizedCrop(0.5, 1.0), T.JointResize(self.size)])(video, boxes,
+                                                                        np.array([0, 3]))
+        boxes, classes, ignore, active = construct_box_targets(boxes, classes, 256)
+        return {"video": video, "boxes": boxes, "classes": classes, "active": active,
+                "annotated_frame_idx": np.int64(FRAMES - 1), "ignore_boxes": ignore}
+
+
+def data_phase(torch, stage1_step_ms: dict):
+    """Phase 7: the data path at nuScenes' size, on the host. Each committed
+    fixture decoded by the port's decoder must hash to the digest cv2 gave
+    (`fixtures/manifest.json`); per 900x1600 frame, the decode's, the
+    resizes' (float32 as the dataset resizes normalized frames, and uint8
+    under device_normalize) and the normalization's ms; the thread-pool
+    Loader's and the worker-process loader's frames a second over clips of
+    the fixtures, beside phase 6's stage-1 appetite."""
+    import hashlib
+
+    from future_od_tpu_torch.data import transforms as T
+    from future_od_tpu_torch.data.image import read_image_rgb, resize_linear
+    from future_od_tpu_torch.data.loader import Loader, WorkerLoader
+
+    with open(os.path.join(FIXTURE_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    paths = [os.path.join(FIXTURE_DIR, name) for name in sorted(manifest)]
+    digests = {}
+    for name, path in zip(sorted(manifest), paths):
+        pixels = read_image_rgb(path)
+        digests[name] = hashlib.sha256(pixels.tobytes()).hexdigest()
+        if pixels.shape != (900, 1600, 3) or digests[name] != manifest[name]["pixels_sha256"]:
+            raise AssertionError(f"{name}: decoded {pixels.shape}, digest {digests[name]}, "
+                                 f"want cv2's {manifest[name]['pixels_sha256']}")
+
+    def per_frame_ms(fn, repeats=DATA_REPEATS):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / repeats
+
+    frame = read_image_rgb(paths[0])
+    norm = T.remap_and_normalize(frame[None])[0]
+    ms = {
+        "decode": {name: per_frame_ms(lambda p=path: read_image_rgb(p))
+                   for name, path in zip(sorted(manifest), paths)},
+        "normalize": per_frame_ms(lambda: T.remap_and_normalize(frame[None])),
+        "resize_f32": {f"{h}x{w}": per_frame_ms(lambda s=(h, w): resize_linear(norm, s))
+                       for h, w in ((448, 800), (896, 1600))},
+        "resize_u8": {f"{h}x{w}": per_frame_ms(lambda s=(h, w): resize_linear(frame, s))
+                      for h, w in ((448, 800), (896, 1600))},
+    }
+    appetite = {label: TRAINER_STAGES_BATCH[448] * FRAMES / (step_ms / 1e3)
+                for label, step_ms in stage1_step_ms.items()}
+    loaders = {}
+    for name, cls in (("thread Loader", Loader), ("worker-process loader", WorkerLoader)):
+        clips = FixtureClips(paths, (448, 800), DATA_BATCHES * TRAINER_STAGES_BATCH[448])
+        loader = cls(clips, batch_size=TRAINER_STAGES_BATCH[448], shuffle=True,
+                     num_workers=DATA_WORKERS)
+        passes = []
+        for epoch in (1, 2):  # the first pass starts the worker processes
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            n = sum(b["video"].shape[0] * b["video"].shape[1] for b in loader)
+            passes.append((n, time.perf_counter() - t0))
+        del loader  # stops the worker processes
+        loaders[name] = {"frames": passes[1][0], "seconds": passes[1][1],
+                         "frames_per_s": passes[1][0] / passes[1][1],
+                         "first_pass_frames_per_s": passes[0][0] / passes[0][1],
+                         "workers": DATA_WORKERS}
+    return {"digests_equal_cv2": digests, "ms_per_900x1600_frame": ms,
+            "loaders": loaders, "stage1_appetite_frames_per_s": appetite,
+            "host_cpus": os.cpu_count(), "card": gpu_name_and_power()}
 
 
 def max_rel(a, b) -> float:
@@ -2100,6 +2387,25 @@ def main() -> int:
     log("6-trainer", ok=True, script=TRAINER_SCRIPT, argv=TRAINER_ARGV, gates=TRAINER_GATES,
         run_s=trainer_runs["run_s"], launches=trainer_counts, seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    precision_runs, precision_totals = precision_phase(torch, trainer_runs[448]["losses"][0])
+    for label, runs in precision_runs.items():
+        for stage, (name, _, _) in TRAINER_STAGES.items():
+            log(f"6b-{label.replace(' ', '-')}-{name.split(' (')[0].replace(' ', '-')}", ok=True,
+                card=gpu_name_and_power(), **runs[stage])
+        argv = TRAINER_ARGV + next(extra for name, extra, _ in PRECISION_RUNS if name == label)
+        log(f"6b-{label.replace(' ', '-')}", ok=True, argv=argv, run_s=runs["run_s"],
+            first_loss_vs_f32=runs["first_loss_vs_f32"],
+            k4_k6_input_dtypes=runs["k4_k6_input_dtypes"], launches=precision_totals[label])
+    log("6b-accum-exactness", ok=True, **accum_exactness(torch))
+    log("6b-trainer-precision", ok=True, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    appetite = {"f32": trainer_runs[448]["median_later_train_step_ms"],
+                "bf16": precision_runs["bf16"][448]["median_later_train_step_ms"]}
+    log("7-data-path", ok=True, **data_phase(torch, appetite), seconds=time.perf_counter() - t0)
+
     sources = {
         "flash_attention": "future_od_tpu/ops/flash_attention.py:68",
         "fused_bottleneck": "future_od_tpu/ops/fused_resnet.py:44",
@@ -2187,7 +2493,8 @@ def main() -> int:
             "source": f"future_od_tpu_torch/csrc/{TOOL_SOURCES[name]}",
             "replaces": TOOL_KERNELS[name], "launches": tool_counts[name],
             "max_abs_err": max(c["max_abs_err"] for c in rec["calls"] if c["dtype"] == "bfloat16"),
-            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per")},
+            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "library_is", "per") if k in rec},
             "calls": rec["calls"],
         })
     for name, rec in stem_records.items():
@@ -2200,9 +2507,11 @@ def main() -> int:
                                    "library_is", "per")},
             "calls": rec["calls"],
         })
-    for row in kernels:  # the launches on phase 6's run, by stage
+    for row in kernels:  # the launches on phase 6's and 6b's runs, by stage
         if row["name"] in trainer_counts:
             row["trainer_launches"] = trainer_counts[row["name"]]
+            for label, counts in precision_totals.items():
+                row[f"trainer_launches_{label.replace(' ', '_')}"] = counts[row["name"]]
         if row["name"] in trainer_records:
             row["trainer_calls"] = trainer_records[row["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, Sequence
 
@@ -164,3 +165,71 @@ class Loader:
             sample = dict(sample)
             sample["video"] = host_space_to_depth(sample["video"])
         return sample
+
+
+class _Samples:
+    """The map-style dataset a DataLoader worker indexes: the Loader's own
+    sample path (with its host space-to-depth packing)."""
+
+    def __init__(self, loader: "Loader"):
+        self.dataset, self.space_to_depth = loader.dataset, loader.space_to_depth
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        sample = self.dataset[int(i)]
+        if self.space_to_depth:
+            sample = dict(sample, video=host_space_to_depth(sample["video"]))
+        return sample
+
+
+class _Order:
+    """The sampler of a WorkerLoader's DataLoader: the Loader's batches for
+    its current epoch, flattened, read anew at every pass. It holds the
+    loader weakly, so that dropping the loader frees the DataLoader and
+    stops its workers at once (a cycle would wait for the collector)."""
+
+    def __init__(self, loader: "Loader"):
+        self.loader = weakref.proxy(loader)
+
+    def __iter__(self):
+        return (int(i) for b in self.loader._batch_indices() for i in b)
+
+    def __len__(self):
+        return sum(len(b) for b in self.loader._batch_indices())
+
+
+def _as_is(sample):
+    return sample
+
+
+class WorkerLoader(Loader):
+    """The Loader's contract over worker processes (`--loader grain`, in
+    place of the JAX package's grain loader), for datasets whose Python work
+    holds the interpreter lock: a torch.utils.data.DataLoader whose
+    `num_workers` processes load samples one at a time, in the Loader's
+    order for its seed and epoch, a few batches ahead; this process stacks
+    them into the Loader's batches. Each worker draws its own augmentations,
+    as the thread Loader's threads share theirs. The workers are spawned
+    (not forked: the trainer's process runs threads) at the first pass and
+    kept for the later ones."""
+
+    def __init__(self, dataset, *args, **kwargs):
+        super().__init__(dataset, *args, **kwargs)
+        self._loader = None
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        if self._loader is None:
+            from torch.utils.data import DataLoader
+
+            workers = self.num_workers if len(self.dataset) > 1 else 0
+            ahead = -(-self.prefetch * self.batch_size // max(workers, 1))
+            self._loader = DataLoader(
+                _Samples(self), sampler=_Order(self), batch_size=None, collate_fn=_as_is,
+                num_workers=workers, prefetch_factor=ahead if workers else None,
+                persistent_workers=workers > 0,
+                multiprocessing_context="spawn" if workers else None)
+        samples = iter(self._loader)
+        for idxs in self._batch_indices():
+            yield collate([next(samples) for _ in idxs])

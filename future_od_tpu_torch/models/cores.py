@@ -19,6 +19,7 @@ from torch import nn
 from future_od_tpu_torch.models.decoder import TransformerDecoder
 from future_od_tpu_torch.models.encoder import TransformerEncoder
 from future_od_tpu_torch.models.layers import MLP
+from future_od_tpu_torch.models.precision import cast_like
 from future_od_tpu_torch.models.resnet import CDetrBackbone
 from future_od_tpu_torch.ops.misc import inverse_sigmoid
 from future_od_tpu_torch.ops.posenc import spatial_encoding, spatio_temporal_encoding
@@ -56,10 +57,10 @@ class SeparateEncoder(nn.Module):
         B, L, H, W, C = images.shape
         features = self.backbone(images.reshape(B * L, H, W, C))
         _, h, w, D = features.shape
-        egodeep = None if imu is None else self.imu_layers(imu.to(features.dtype))
+        egodeep = None if imu is None else self.imu_layers(cast_like(imu, features))
         if self.transformer is not None:
             pos = spatial_encoding(h, w, D, device=features.device)
-            pos = pos.reshape(1, h * w, D).to(features.dtype)
+            pos = cast_like(pos.reshape(1, h * w, D), features)
             tokens = features.reshape(B * L, h * w, D)
             ego_tok = None if egodeep is None else egodeep.reshape(B * L, 1, D)
             features = self.transformer(tokens, pos, ego_tok)
@@ -108,7 +109,7 @@ class CDetrDetectorSpatioTemporal(nn.Module):
             # a non-final frame's decoder pass is dead: only the raw frame
             # joins the image memory
             memory = ([frames[:, l]] + memory)[: self.num_images - 1]
-        pos = pos_enc.to(features.dtype).expand(B, L, h, w, D)[:, -1].reshape(B, h * w, D)
+        pos = cast_like(pos_enc, features).expand(B, L, h, w, D)[:, -1].reshape(B, h * w, D)
         ego = egodeep[:, -1:] if egodeep is not None else None
         return self.detect(frames[:, -1], pos, ego, memory, aux_levels)
 

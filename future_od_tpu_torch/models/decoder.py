@@ -23,6 +23,7 @@ from future_od_tpu_torch.models.layers import (
     SlotToSlotAttention,
     layer_norm,
 )
+from future_od_tpu_torch.models.precision import cast_like
 from future_od_tpu_torch.ops.posenc import gen_sineembed_for_position
 
 
@@ -96,9 +97,8 @@ class TransformerDecoder(nn.Module):
         """Returns (per-layer outputs (num_layers, B, M, D), reference points
         (B, M, 2))."""
         reference_points = torch.sigmoid(self.ref_point_head(query_pos))
-        unscaled_query_sine = gen_sineembed_for_position(reference_points, self.dim).to(
-            query_pos.dtype
-        )
+        unscaled_query_sine = cast_like(
+            gen_sineembed_for_position(reference_points, self.dim), query_pos)
         intermediate = []
         x = query_content
         for layer_id, layer in enumerate(self.layers):

@@ -87,7 +87,10 @@ def attention_core(scale: float, logits, v, dropout: nn.Dropout) -> torch.Tensor
 
 def attend_heads(qh, kh, vh, scale: float, dropout: nn.Dropout) -> torch.Tensor:
     """Multi-head attention core: qh, kh (B, N, H, d); vh (B, Nk, H, dv)
-    -> (B, Nq, H*dv)."""
+    -> (B, Nq, H*dv). Operands of mixed dtypes (the JAX package's mixed
+    precision, `models/precision.py`) promote as jnp's do."""
+    dtype = torch.promote_types(torch.promote_types(qh.dtype, kh.dtype), vh.dtype)
+    qh, kh, vh = qh.to(dtype), kh.to(dtype), vh.to(dtype)
     q, k, v = qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2)  # (B, H, N, d)
     out = None
     if dropout.training:

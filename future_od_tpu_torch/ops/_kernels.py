@@ -1,4 +1,5 @@
-"""Build, load and launch the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels, and build and load its
+host C++ libraries.
 
 Every kernel is CUDA C++ for Hopper under `future_od_tpu_torch/csrc/`, with a
 plain C entry point. At first use all kernel libraries are compiled from
@@ -14,8 +15,13 @@ kernel entry point (its name without the `fod_` prefix), which its wrapper
 increments where it launches the kernel and nowhere else; `chip_smoke.py`
 reads them to show the main path went through the kernels.
 
+The host libraries (`HOST_LIBRARIES`: the JPEG decoder, the resizes and the
+normalization)
+are plain C++ built with g++, which both the CPU-only test machines and the
+card's machine have, so they run and are tested everywhere.
+
 Nothing here runs at import time: the CPU tests import every module, and
-this machine has no nvcc.
+a machine without a card has no nvcc.
 """
 from __future__ import annotations
 
@@ -94,6 +100,22 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "fod_stem_d": [_P] * 3 + [_I] * 4 + [_P],
     },
 }
+# host libraries (csrc/<name>.cpp, no CUDA): built with g++, here and on the
+# card's machine alike; {C entry point: (argtypes, restype)}
+GXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
+HOST_LIBRARIES: Dict[str, Dict[str, tuple]] = {
+    "jpeg_decode": {
+        # data, size, int* height, int* width, int* components
+        "fod_jpeg_header": ([_P, ctypes.c_int64, _P, _P, _P], _I),
+        # data, size, out (H, W, 3) uint8, height, width
+        "fod_jpeg_decode": ([_P, ctypes.c_int64, _P, _I, _I], _I),
+        # src, sh, sw, cn, dst, dh, dw
+        "fod_resize_linear_u8": ([_P, _I, _I, _I, _P, _I, _I], None),
+        "fod_resize_linear_f32": ([_P, _I, _I, _I, _P, _I, _I], None),
+        # src uint8, pixels, channels, mean, std, dst float32
+        "fod_normalize_u8": ([_P, ctypes.c_int64, _I, _P, _P, _P], None),
+    },
+}
 # entry points that launch no kernel, so have no launch counter
 QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info", "fod_flash_train_info",
            "fod_fused_bottleneck_info", "fod_fused_stem_info")
@@ -166,6 +188,39 @@ def build_all() -> float:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - start
+
+
+def host_library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cpp").read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library `name` (`HOST_LIBRARIES`), compiled with g++
+    from csrc/<name>.cpp at first use (a few seconds) into the build
+    directory. Processes that build it at once (loader workers) each write a
+    temporary file and rename it into place."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = host_library_path(name)
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            gxx = shutil.which("g++") or shutil.which("c++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: {name} is built from csrc/{name}.cpp")
+            proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cpp")],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name} build failed:\n{proc.stderr[-4000:]}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        for fn, (argtypes, restype) in HOST_LIBRARIES[name].items():
+            entry = getattr(lib, fn)
+            entry.argtypes, entry.restype = argtypes, restype
+        _libs[name] = lib
+    return lib
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -4,9 +4,8 @@ option strings, and the LR schedule.
 
 The port runs in one process on one card. Options it cannot honour yet
 raise NotImplementedError naming their ROADMAP.md item when a run uses them,
-never silently: `--mesh_model` > 1 and the `--dist_*` options (item 4),
-`--bf16` (item 1a), `--accum` > 1 (item 1b), `--int8` (item 6), and in the
-loader functions `--device_normalize` and `--loader grain` (items 2a, 2b).
+never silently: `--mesh_model` > 1 and the `--dist_*` options (item 4) and
+`--int8` (item 6). `--bf16` and `--accum` reach the Trainer's train step.
 `--prng` picks the JAX package's dropout generator, which torch's has no
 counterpart for; it changes nothing here.
 """
@@ -34,7 +33,7 @@ def category_dict_for(train_loader):
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a run option the port does not honour
-    yet (the Trainer refuses `--bf16` and `--accum` > 1 itself)."""
+    yet."""
     if int(getattr(args, "mesh_model", 1)) > 1:
         raise NotImplementedError(
             "--mesh_model > 1 (tensor parallelism) is not ported yet "
@@ -86,6 +85,64 @@ def get_trainer(args, config, detr_args, lr_func, model, train_loader, val_loade
     if not args.restart:
         trainer.load_checkpoint(args.checkpoint, getattr(args, "load_only_net", False))
     return trainer
+
+
+# the training scripts' two stages: (image size, train batch size)
+STAGES = (((448, 800), 32), ((896, 1600), 16))
+
+
+def two_stage_train(model, args, detr_args, config, get_loaders, offsets, lr_func):
+    """The scripts' resolution curriculum (`STAGES`): stage 1 to 60 % of the
+    epochs, stage 2 to the end. Returns the Trainer."""
+    (size1, batch1), (size2, batch2) = STAGES
+    print("starting dataset loading...")
+    train_loader, val_loaders = get_loaders(
+        size1, offsets=offsets, config=config, args=args, train_batch_size=batch1
+    )
+    trainer = get_trainer(args, config, detr_args, lr_func, model, train_loader, val_loaders)
+
+    print("Starting first training stage")
+    trainer.train(int(args.epochs * 0.60))
+
+    print("Starting second training stage")
+    trainer._train_loader, trainer._val_loaders = get_loaders(
+        size2, offsets=offsets, config=config, args=args, train_batch_size=batch2
+    )
+    trainer.train(args.epochs)
+    return trainer
+
+
+def script_parser(epochs: int):
+    parser = build_base_parser()
+    parser.add_argument("--epochs", default=epochs, type=int)
+    return parser
+
+
+def run_script(script_file: str, argv, epochs: int, config, get_loaders, offsets,
+               category_dict, lr_func=None, **detr_kw):
+    """A training script's main(): parse `argv` (default: the command line),
+    build the flagship for `category_dict`'s classes (with `detr_kw`) and
+    train it in two stages on `get_loaders`' data at `offsets`, with
+    `lr_func` (default `get_lr_func(epochs)`). Returns the Trainer."""
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.runs._model import build_model
+
+    print(f"Started script: {os.path.basename(script_file)}")
+    args = script_parser(epochs).parse_args(argv)
+    args.experiment_idf = os.path.splitext(os.path.basename(script_file))[0]
+    detr_args = SpatioTemporalDETRArgs(
+        num_classes=len(category_dict),
+        num_queries=128,
+        lr_backbone=1e-4,
+        matcher=args.matcher,
+        cost_slots=args.cost_slots,
+        space_to_depth=args.s2d,
+        **detr_kw,
+    )
+    model = build_model(args, detr_args)
+    print("built model")
+    return two_stage_train(model, args, detr_args, config, get_loaders, offsets,
+                           lr_func or get_lr_func(args.epochs))
 
 
 def build_base_parser():
@@ -140,13 +197,12 @@ def add_tpu_args(parser):
     )
     parser.add_argument(
         "--loader", default="thread", choices=["thread", "grain"],
-        help="input pipeline backend: the thread pool; grain is not ported "
-        "yet (raises)",
+        help="input pipeline backend: the thread pool, or (grain) worker "
+        "processes",
     )
     parser.add_argument(
         "--device_normalize", action="store_true", default=False,
-        help="ship uint8 video and normalize on the device; not ported yet "
-        "(raises)",
+        help="ship uint8 video and normalize on the device",
     )
     parser.add_argument(
         "--checkpoint_every_iters", default=0, type=int,
@@ -154,12 +210,12 @@ def add_tpu_args(parser):
     )
     parser.add_argument(
         "--bf16", action="store_true", default=False,
-        help="bfloat16 forward/backward with f32 master params; not ported "
-        "yet (raises)",
+        help="bfloat16 forward/backward with f32 master params",
     )
     parser.add_argument(
         "--accum", type=int, default=1,
-        help="gradient-accumulation micro-steps; > 1 is not ported yet (raises)",
+        help="gradient-accumulation micro-steps (exact: the batch splits into "
+        "this many micro-batches)",
     )
     parser.add_argument(
         "--prng", default="rbg", choices=["rbg", "threefry2x32"],

@@ -1,15 +1,21 @@
 """The run scripts' loader functions (port of runs/_loader.py).
 
-`--synthetic` swaps in the synthetic moving-box dataset at the requested
-resolution, so the whole pipeline runs with no data mounted; `--debug` and
-`--short_train` take its 64-clip train split (and `--debug` its 16-clip
-validation split). The nuScenes and nuImages datasets, with their JPEG
-decode and joint transforms, are not ported yet: without `--synthetic` the
-functions raise.
+Train = random-sized crop + resize; val = center crop, in the fixed
+validation order. `--debug` and `--short_train` take the mini splits and
+batch 2; `--synthetic` swaps in the synthetic moving-box dataset at the
+requested resolution (64 train clips under `--debug`/`--short_train`, 16
+validation clips under `--debug`), so the whole pipeline runs with no data
+mounted. `--device_normalize` has the datasets emit uint8 video, which the
+backbone normalizes on the device; `--loader grain` loads in worker
+processes (`data/loader.py::WorkerLoader`).
 """
 from __future__ import annotations
 
-from future_od_tpu_torch.data.loader import VAL_SEED, Loader
+from typing import Tuple
+
+import future_od_tpu_torch.data.transforms as T
+from future_od_tpu_torch.data import nu_images, nu_scenes
+from future_od_tpu_torch.data.loader import VAL_SEED, Loader, WorkerLoader
 from future_od_tpu_torch.data.synthetic import SyntheticClipDataset
 
 
@@ -40,42 +46,84 @@ def get_synthetic_loaders(img_size, offsets, args, config, train_batch_size, num
     return _build_loaders(args, train_batch_size, training_data, validation_data)
 
 
-def _refuse_real_data(name: str):
-    raise NotImplementedError(
-        f"the {name} dataset (JPEG decode, joint transforms) is not ported yet "
-        "(ROADMAP.md Queue 1 item 2a); run with --synthetic")
-
-
-def get_nuim_loaders(img_size, offsets, args, config, train_batch_size, random_aug=None,
-                     val_annotated_frame_override=None):
+def get_nuim_loaders(img_size: Tuple[int, int], offsets, args, config, train_batch_size: int,
+                     random_aug=None, val_annotated_frame_override=None):
     if getattr(args, "synthetic", False):
         return get_synthetic_loaders(img_size, offsets, args, config, train_batch_size)
-    _refuse_real_data("nuImages")
+    train_offsets, val_offsets = _split_offsets(offsets)
+    random_aug = random_aug or T.RandomSizedCrop(0.5, 1.0)
+    device_normalize = getattr(args, "device_normalize", False)
+    training_data = nu_images.NuImagesDataset(
+        root_path=config["nuimages_path"],
+        split="mini" if args.debug or args.short_train else "train",
+        night=args.night,
+        front_camera_only=True,
+        joint_transform=T.JointCompose([random_aug, T.JointResize(size=img_size)]),
+        frames=[nu_images.ANNOTATED_FRAME + o for o in train_offsets],
+        device_normalize=device_normalize,
+    )
+    print("Loaded training set with", len(training_data), "samples")
+    validation_data = nu_images.NuImagesDataset(
+        root_path=config["nuimages_path"],
+        split="mini" if args.debug else "val",
+        night=args.night,
+        front_camera_only=True,
+        max_frame_random_offset=0,
+        joint_transform=T.JointCompose([T.JointCenterCrop(size=img_size)]),
+        frames=[nu_images.ANNOTATED_FRAME + o for o in val_offsets],
+        annotated_frame_idx_override=val_annotated_frame_override,
+        device_normalize=device_normalize,
+    )
+    print("Loaded validation set with", len(validation_data), "samples")
+    return _build_loaders(args, train_batch_size, training_data, validation_data)
 
 
-def get_nusc_loaders(img_size, offsets, args, config, train_batch_size, random_aug=None,
-                     val_annotated_frame_override=None, filter_offsets=None):
+def get_nusc_loaders(img_size: Tuple[int, int], offsets, args, config, train_batch_size: int,
+                     random_aug=None, val_annotated_frame_override=None, filter_offsets=None):
     if getattr(args, "synthetic", False):
         return get_synthetic_loaders(img_size, offsets, args, config, train_batch_size)
-    _refuse_real_data("nuScenes")
+    train_offsets, val_offsets = _split_offsets(offsets)
+    random_aug = random_aug or T.RandomSizedCrop(0.5, 1.0)
+    device_normalize = getattr(args, "device_normalize", False)
+    training_data = nu_scenes.NuScenesDataset(
+        root_path=config["nuscenes_path"],
+        split="mini_train" if args.debug or args.short_train else "train",
+        night=args.night,
+        front_camera_only=True,
+        joint_transform=T.JointCompose([random_aug, T.JointResize(size=img_size)]),
+        frame_offsets=train_offsets,
+        filter_offsets=filter_offsets,
+        device_normalize=device_normalize,
+    )
+    print("Loaded training set with", len(training_data), "samples")
+    validation_data = nu_scenes.NuScenesDataset(
+        root_path=config["nuscenes_path"],
+        split="mini_val" if args.debug else "val",
+        night=args.night,
+        front_camera_only=True,
+        joint_transform=T.JointCompose([T.JointCenterCrop(size=img_size)]),
+        frame_offsets=val_offsets,
+        annotated_frame_idx_override=val_annotated_frame_override,
+        filter_offsets=filter_offsets,
+        device_normalize=device_normalize,
+    )
+    print("Loaded validation set with", len(validation_data), "samples")
+    return _build_loaders(args, train_batch_size, training_data, validation_data)
 
 
 def _make_loader(args, dataset, **kw):
-    """The thread-pool Loader (`--loader thread`); `--s2d` packs each
+    """`--loader thread` (the thread-pool Loader: the JPEG decode and the
+    resize release the interpreter lock) or `--loader grain` (worker
+    processes, for datasets whose Python work holds it); `--s2d` packs each
     sample's video 2x2 into 12 channels on the host."""
-    if getattr(args, "loader", "thread") == "grain":
-        raise NotImplementedError(
-            "--loader grain is not ported yet (ROADMAP.md Queue 1 item 2b)")
     if getattr(args, "s2d", False):
         kw["space_to_depth"] = True
+    if getattr(args, "loader", "thread") == "grain":
+        return WorkerLoader(dataset, **kw)
     return Loader(dataset, **kw)
 
 
 def _build_loaders(args, train_batch_size, training_data, validation_data):
-    if getattr(args, "device_normalize", False):
-        raise NotImplementedError(
-            "--device_normalize (uint8 video from the nuScenes/nuImages datasets) is "
-            "not ported yet (ROADMAP.md Queue 1 item 2a)")
     num_workers = getattr(args, "num_workers", 16)
     train_bs = (
         min(2, train_batch_size)

@@ -7,18 +7,20 @@ One train step: forward in training mode -> matching + set loss -> backward
 non-finite guard keeps the old parameters and optimizer state when the
 global gradient norm is not finite. An eval step is the forward in eval mode,
 the loss over every decoder level (the JAX model returns the aux levels in
-eval too) and the same post-processing. Mixed precision, gradient
-accumulation and the host-matched steps are not ported yet.
+eval too) and the same post-processing. The train step takes the JAX
+package's mixed precision and exact gradient accumulation; the host-matched
+steps are not ported yet.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from future_od_tpu_torch.metrics.od_map import prepare_od_map_stuffs
+from future_od_tpu_torch.models.precision import half_state, jax_promotion
 from future_od_tpu_torch.models.set_criterion import CriterionConfig
 from future_od_tpu_torch.models.st_detr import compute_loss, normalize_outputs, post_process
 from future_od_tpu_torch.ops.misc import video_hw
@@ -42,7 +44,27 @@ def forward_and_loss(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     current mode; pred_idx_all injects the matcher's indices; aux_levels asks
     the model for its aux levels in eval mode too, as the JAX model returns
     them (its inference program drops them)."""
-    out = model(data, aux_levels=aux_levels)
+    return loss_of_outputs(model(data, aux_levels=aux_levels), data, criterion_cfg,
+                           pred_idx_all, num_boxes)
+
+
+def half_forward_and_loss(model: torch.nn.Module, criterion_cfg: CriterionConfig,
+                          data: Dict[str, torch.Tensor], pred_idx_all=None, num_boxes=None):
+    """forward_and_loss in training mode under the JAX package's mixed
+    precision: the forward on bf16 copies of every f32 parameter and buffer
+    under jnp's type promotion (`models/precision.py`), f32 video cast to
+    bf16 and uint8 video left uint8 (the JAX `_to_half` and `_cast_data`).
+    The criterion, which casts its inputs to f32, runs as in f32; the
+    gradients land in f32 on the master parameters."""
+    if data["video"].dtype == torch.float32:
+        data = dict(data, video=data["video"].to(torch.bfloat16))
+    with jax_promotion():
+        out = torch.func.functional_call(model, half_state(model), (data,))
+    return loss_of_outputs(out, data, criterion_cfg, pred_idx_all, num_boxes)
+
+
+def loss_of_outputs(out, data, criterion_cfg: CriterionConfig, pred_idx_all=None,
+                    num_boxes=None):
     annotated, pred_logits, pred_boxes = normalize_outputs(out)
     loss, stats = compute_loss(annotated, data, criterion_cfg, pred_idx_all, num_boxes)
     return loss, (stats, pred_logits, pred_boxes)
@@ -66,15 +88,34 @@ def step_seed(seed: int, step: int) -> int:
 
 
 @contextlib.contextmanager
-def seeded(seed: int, step: int, device: torch.device):
+def seeded(seed: int, step: int, device: torch.device, micro: Optional[int] = None):
     """torch's generators seeded from (seed, step) inside, restored after:
-    the dropout of step `step` of a run seeded `seed`."""
+    the dropout of step `step` of a run seeded `seed`; with `micro`, that of
+    its micro-batch `micro` (the JAX package's fold_in of k)."""
     devices = []
     if device.type == "cuda":
         devices = [torch.cuda.current_device() if device.index is None else device.index]
     with torch.random.fork_rng(devices=devices):
-        torch.manual_seed(step_seed(seed, step))
+        torch.manual_seed(step_seed(seed, step) if micro is None
+                          else step_seed(step_seed(seed, step), micro))
         yield
+
+
+# each stat's combination over micro-batches (train_step_accum): the
+# loss-derived stats are sums over the full batch's num_boxes and the drop
+# count is a count, so they add; the rounds take the max; the rest are means
+_ADDED_STATS = ("labels", "box_l1", "box_giou", "matcher_dropped")
+
+
+def _combine_stats(total: Optional[Dict[str, torch.Tensor]], stats: Dict[str, torch.Tensor],
+                   K: int) -> Dict[str, torch.Tensor]:
+    stats = {k: v.detach().float() for k, v in stats.items()}
+    if total is None:
+        return {k: v if k in _ADDED_STATS or k == "matcher_rounds" else v / K
+                for k, v in stats.items()}
+    return {k: torch.maximum(total[k], v) if k == "matcher_rounds"
+            else total[k] + (v if k in _ADDED_STATS else v / K)
+            for k, v in stats.items()}
 
 
 def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
@@ -93,27 +134,55 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     it found it. The dropout streams cannot equal the JAX package's (rbg),
     except inside the train flash kernels, whose mask is a hash of a seed.
 
+    mixed_precision: the forward and backward run on bf16 copies of every f32
+    parameter and buffer under jnp's type promotion (`models/precision.py`),
+    with f32 video cast to bf16 and uint8 video left uint8; the master
+    parameters, their gradients, AdamW's state and the loss stay f32, with no
+    loss scaling (the JAX `_to_half` and `_cast_data`).
+
+    accum_steps: K > 1 splits the batch into K interleaved micro-batches
+    (micro-batch k takes rows k::K) and runs the forward and backward of one
+    at a time, so only one micro-batch's activations are held. Each micro
+    loss is normalised by the full batch's num_boxes, so the summed
+    gradients are the whole batch's; one clip and one AdamW update follow.
+    Post-processing and the mAP intermediaries run once, on the reassembled
+    batch. Each micro-batch draws its own dropout; the stats combine as the
+    JAX `train_step_accum` combines them. B % K != 0 raises ValueError.
+
     skip_nonfinite: when the global gradient norm is not finite, the step
     keeps the old parameters and optimizer state; stats["nonfinite_skipped"]
     is 1.0 then (else 0.0). The step counter advances either way."""
-    if mixed_precision:
-        raise NotImplementedError(
-            "mixed_precision is not ported yet (ROADMAP.md Queue 1 item 1a)")
-    if accum_steps != 1:
-        raise NotImplementedError(
-            "accum_steps > 1 is not ported yet (ROADMAP.md Queue 1 item 1b)")
     device = resolve_device(device)
     params = list(optimizer.parameters())
     steps = [0]
+    K = int(accum_steps)
+
+    def loss_of(batch, num_boxes=None):
+        fn = half_forward_and_loss if mixed_precision else forward_and_loss
+        return fn(model, criterion_cfg, batch, num_boxes=num_boxes)
 
     def train_step(data: Dict[str, Any], seed: int):
         batch = to_device_batch(data, device)
+        B = batch["active"].shape[0]
+        if B % K:
+            raise ValueError(f"batch {B} not divisible by accum_steps {K}")
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with seeded(seed, steps[0], device):
-            loss, (stats, pred_logits, pred_boxes) = forward_and_loss(
-                model, criterion_cfg, batch)
-            loss.backward()
+        num_boxes = batch["active"].sum().float().clamp(min=1.0)
+        split = {k: v for k, v in batch.items()
+                 if torch.is_tensor(v) and v.ndim and v.shape[0] == B}
+        loss, stats, outputs = 0.0, None, []
+        for k in range(K):
+            micro = {**batch, **{key: v[k::K] for key, v in split.items()}}
+            with seeded(seed, steps[0], device, micro=k if K > 1 else None):
+                loss_k, (stats_k, logits_k, boxes_k) = loss_of(micro, num_boxes)
+                loss_k.backward()
+            loss = loss + loss_k.detach()
+            stats = _combine_stats(stats, stats_k, K)
+            outputs.append((logits_k.detach(), boxes_k.detach()))
+        # micro-batch k's row j is row j*K + k of the batch
+        pred_logits, pred_boxes = (torch.stack(list(out), 1).flatten(0, 1)
+                                   for out in zip(*outputs))
         grads = [p.grad for p in params if p.grad is not None]
         norm = global_norm(grads)
         ok = bool(torch.isfinite(norm))  # the step's one decision on the host
@@ -121,12 +190,11 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
             if optimizer.max_norm:
                 clip_by_global_norm_(grads, norm, optimizer.max_norm)
             optimizer.step()
-        stats = {k: v.detach() for k, v in stats.items()}
         if skip_nonfinite:
             stats["nonfinite_skipped"] = torch.tensor(0.0 if ok else 1.0, device=device)
         steps[0] += 1
-        output, od_map_stuffs = postproc_and_map(pred_logits.detach(), pred_boxes.detach(), batch)
-        return loss.detach(), stats, od_map_stuffs, output
+        output, od_map_stuffs = postproc_and_map(pred_logits, pred_boxes, batch)
+        return loss, stats, od_map_stuffs, output
 
     train_step.steps = steps
     return train_step

@@ -57,8 +57,9 @@ def _to_host(tree):
 class Trainer:
     """The JAX Trainer's arguments, with `device` in place of the JAX
     package's device placement and `seed` seeding the dropout of every step
-    (`train/step.py::step_seed`). Not ported yet, and refused: `mesh`,
-    `tracker`, `mixed_precision`, `accum_steps` > 1."""
+    (`train/step.py::step_seed`). `mixed_precision` and `accum_steps` go to
+    the train step (`train/step.py::make_train_step`); eval stays f32, as
+    the JAX Trainer's does. Not ported yet, and refused: `mesh`, `tracker`."""
 
     def __init__(
         self,

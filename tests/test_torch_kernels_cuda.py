@@ -406,6 +406,38 @@ def test_flash_train_strided_views(cuda, np_rng, dtype, BH, Nq, Nk, d, dv):
     assert results[0][1].transpose(1, 2).is_contiguous()
 
 
+@pytest.mark.parametrize("BH,Nq,Nk,d,dv", SCRIPT_TRAIN_SHAPES)
+def test_flash_train_bf16_autograd_at_step_shapes(cuda, np_rng, BH, Nq, Nk, d, dv):
+    """K4-K6 in bf16 under autograd at the Trainer step's shapes, in the
+    model's (B, N, H, d) layout, from f32 master tensors cast to bf16 (as
+    `train/step.py`'s mixed precision casts its parameters): the masters'
+    gradients are f32 and equal those of autograd through the plain version
+    within the bf16 tolerance, and each kernel launches once."""
+    H = 8
+    masters = [torch.from_numpy(np_rng.normal(size=(BH // H, n, H, w)).astype(np.float32))
+               .to(cuda).requires_grad_(True) for n, w in ((Nq, d), (Nk, d), (Nk, dv))]
+    doh = on(cuda, torch.float32, np_rng.normal(size=(BH // H, Nq, H, dv)))[0]
+    args = (777, 1.0 / math.sqrt(d), 0.1, *fa.train_shapes(Nq, Nk, 256, 512))
+    grads = []
+    for kernel in (True, False):
+        q, k, v = (m.to(torch.bfloat16).transpose(1, 2) for m in masters)
+        before = dict(_kernels.launch_counts)
+        out = (fa.FlashAttentionTrain.apply(q, k, v, *args) if kernel
+               else fa.flash_train_fwd_plain(q, k, v, *args)[0])
+        assert out.dtype == torch.bfloat16
+        out.float().backward(doh.transpose(1, 2))
+        torch.cuda.synchronize()
+        launched = {n for n in ("flash_train_fwd", "flash_train_dq", "flash_train_dkv")
+                    if _kernels.launch_counts[n] == before[n] + 1}
+        assert len(launched) == (3 if kernel else 0)
+        assert all(m.grad.dtype == torch.float32 for m in masters)
+        grads.append([m.grad.clone() for m in masters])
+        for m in masters:
+            m.grad = None
+    for got, want in zip(*grads):
+        assert_close(got.to(torch.bfloat16), want.to(torch.bfloat16), torch.bfloat16)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES)
 def test_dropout_mask_kernel_bits(cuda, rate, BH, Nq, Nk, d, dv):

@@ -1,0 +1,132 @@
+"""The port's training and eval scripts on the CPU at a tiny config: each
+script's `main()` runs whole (the Trainer, its grad audit, both stages,
+checkpoints, the eval epoch and AP), with the flagship built tiny (hidden 32,
+4 heads, 1+2 layers, 12 queries, `TINY`), the stages at (48, 64) and
+(64, 96), the Trainer on the CPU, and real data from the fabricated
+nuScenes/nuImages archives of tests/test_dataset_files.py (its file-boundary
+devkit stubs; the archive's one scene is copied to every split's version,
+and its sweeps retimed to reach the 50 and 100 ms offsets).
+The eval scripts load a fabricated checkpoint. About 25 s alone.
+"""
+import dataclasses
+import json
+import shutil
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from future_od_tpu_torch.models.build import build_flagship
+from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+from future_od_tpu_torch.data.synthetic import SyntheticClipDataset
+from future_od_tpu_torch.runs import _helper, _loader, _model
+from future_od_tpu_torch.runs import nuim_spatiotemporal_imu as nuim
+from future_od_tpu_torch.runs import nusc_spatiotemporal_imu_250ms as nusc250
+from future_od_tpu_torch.runs import nusc_spatiotemporal_imu_500ms as nusc500
+from future_od_tpu_torch.runs import nusc_spatiotemporal_imu_prevframe as prevframe
+from future_od_tpu_torch.runs.config import config
+from future_od_tpu_torch.runs.eval import _common
+from future_od_tpu_torch.runs.eval import nuim_spatiotemporal_imu_eval as nuim_eval
+from future_od_tpu_torch.runs.eval import nusc_50ms_attendprev_decoder_eval as eval50
+from future_od_tpu_torch.runs.eval import nusc_100ms_attendprev_decoder_eval as eval100
+from future_od_tpu_torch.runs.eval import nusc_250ms_attendprev_decoder_eval as eval250
+from future_od_tpu_torch.runs.eval import nusc_500ms_attendprev_decoder_eval as eval500
+from future_od_tpu_torch.runs.eval import nusc_tracker_baseline_eval as tracker_eval
+from future_od_tpu_torch.train import trainer as trainer_module
+from future_od_tpu_torch.utils.checkpoint import save_checkpoint
+from test_dataset_files import build_nuimages_archive, build_nuscenes_archive, install_file_devkits
+from test_torch_flash_tc_rounding import one_torch_thread  # noqa: F401 (autouse)
+
+TINY = dict(num_queries=12, hidden_dim=32, enc_layers=1, dec_layers=2, dim_feedforward=64,
+            enc_nheads=4, nheads=4)
+
+
+def tiny_model(args, detr_args, store_attention=False):
+    del args, store_attention
+    return build_flagship(dataclasses.replace(detr_args, **TINY), device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+
+
+@pytest.fixture
+def tiny_runs(tmp_path, monkeypatch):
+    """The scripts' environment at the tiny config, with both archives."""
+    install_file_devkits(monkeypatch)
+    monkeypatch.setattr(sys.modules["nuscenes.utils.splits"], "create_splits_scenes",
+                        lambda: {k: ["scene-0001"] for k in ("mini_train", "mini_val", "train",
+                                                             "val")})
+    nusc = build_nuscenes_archive(str(tmp_path / "nuscenes"))
+    # sweeps 50 and 100 ms before the keyframe, for the 50/100 ms evals
+    with open(tmp_path / "nuscenes" / "v1.0-mini" / "sample_data.json") as f:
+        records = json.load(f)
+    key = records[-1]["timestamp"]
+    for record, back in zip(records, (1.5, 1.25, 1.0, 0.75, 0.5, 0.25, 0.1, 0.05, 0.0)):
+        record["timestamp"] = key - int(back * 1_000_000)
+    with open(tmp_path / "nuscenes" / "v1.0-mini" / "sample_data.json", "w") as f:
+        json.dump(records, f)
+    nuimg = build_nuimages_archive(str(tmp_path / "nuimages"))
+    shutil.copytree(tmp_path / "nuscenes" / "v1.0-mini", tmp_path / "nuscenes" / "v1.0-trainval")
+    for split in ("train", "val"):
+        shutil.copytree(tmp_path / "nuimages" / "v1.0-mini", tmp_path / "nuimages" / f"v1.0-{split}")
+    for key, value in (("nuscenes_path", nusc), ("nuimages_path", nuimg),
+                       ("checkpoint_path", str(tmp_path / "ckpt")),
+                       ("visualization_path", str(tmp_path / "vis"))):
+        monkeypatch.setitem(config, key, value)
+    monkeypatch.setattr(_model, "build_model", tiny_model)
+    monkeypatch.setattr(_helper, "STAGES", (((48, 64), 2), ((64, 96), 2)))
+    monkeypatch.setattr(_common, "EVAL_IMAGE_SIZE", (64, 96))
+    monkeypatch.setattr(trainer_module, "resolve_device", lambda device=None: torch.device("cpu"))
+    return tmp_path
+
+
+@pytest.mark.parametrize("script,flags", [
+    (nusc500, ["--bf16"]),
+    (nusc250, ["--accum", "2", "--synthetic"]),
+    (prevframe, ["--loader", "grain", "--num_workers", "2"]),
+    (nuim, ["--device_normalize"]),
+])
+def test_training_script_runs(tiny_runs, script, flags, capsys, monkeypatch):
+    """Each script on the fabricated files (one clip a split), and with
+    --synthetic where a batch of one clip cannot split in two (4 clips)."""
+    monkeypatch.setattr(_loader, "SyntheticClipDataset",
+                        lambda **kw: SyntheticClipDataset(**{**kw, "num_samples": 4}))
+    trainer = script.main(["--debug", "--disable_wandb", "--epochs", "1", *flags])
+    out = capsys.readouterr().out
+    assert "Starting second training stage" in out and "Finished training!" in out
+    assert trainer.step >= 1 and trainer._epoch == 1
+    assert set(trainer._ap_by_mode) == {"train", "val0"}
+    assert np.isfinite(trainer._stats["train labels loss"].history[-1])
+    name = script.__name__.rsplit(".", 1)[1]
+    assert (tiny_runs / "ckpt" / f"{name}_final").exists()
+
+
+def test_prevframe_builds_with_encode_offset(tiny_runs, monkeypatch):
+    seen = []
+    monkeypatch.setattr(_model, "build_model",
+                        lambda args, detr_args: seen.append(detr_args) or tiny_model(args,
+                                                                                     detr_args))
+    prevframe.main(["--debug", "--disable_wandb", "--epochs", "1", "--no_checkpoints"])
+    assert seen[0].encode_offset and seen[0].num_classes == 8
+    assert prevframe.OFFSETS == ["prev", "prev", 0] and nusc250.OFFSETS == [-0.5, -0.25, 0]
+    assert nuim.lr_func(0) == 1 / 21 and nuim.lr_func(300) == 0.5
+
+
+@pytest.mark.parametrize("script,encode_offset", [
+    (nuim_eval, False), (eval50, True), (eval100, True), (eval250, False), (eval500, False)])
+def test_eval_script_on_a_fabricated_checkpoint(tiny_runs, script, encode_offset):
+    detr_args = SpatioTemporalDETRArgs(num_classes=8, encode_offset=encode_offset)
+    net = tiny_model(None, detr_args).state_dict()
+    for k in net:
+        net[k] = net[k] + 0.01 if net[k].is_floating_point() else net[k]
+    path = save_checkpoint(str(tiny_runs / "fabricated"), "w6", {
+        "net": net, "net_type": "SpatioTemporalDETR", "detr_args": {}})
+    trainer = script.main(["--checkpoint", path, "--disable_wandb"])
+    loaded = trainer._model.state_dict()
+    assert all(torch.equal(loaded[k], v) for k, v in net.items())
+    assert trainer._args.encode_offset == encode_offset
+    assert "val0" in trainer._ap_by_mode and trainer.step == 0
+
+
+def test_tracker_eval_still_refuses():
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 3"):
+        tracker_eval.main([])

@@ -640,12 +640,19 @@ class TestEntryPoints:
             make_train_step(model, args.criterion_config(), optimizer)
 
     @pytest.mark.parametrize("kw", [dict(mixed_precision=True), dict(accum_steps=2)])
-    def test_unported_options_raise(self, kw):
+    def test_precision_options_take_a_step(self, kw):
+        """The options the step refused before it had them: one step each
+        (tests/test_torch_mixed_precision.py holds them against JAX)."""
         args = port_args()
-        model = build_flagship(args, device="cpu")
+        model = randomized_port_model(args)
         optimizer = opt.build_optimizer(model, args.lr, args.lr_backbone)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(model, args.criterion_config(), optimizer, device="cpu", **kw)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_train_step(model, args.criterion_config(), optimizer, device="cpu", **kw)
+        loss, stats, _, output = step(make_data(7), 0)
+        assert np.isfinite(float(loss)) and float(stats["nonfinite_skipped"]) == 0.0
+        assert output["boxes"].shape == (B, 1, 1, TINY["num_queries"], 4)
+        moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
+        assert len(moved) > 100 and all(p.dtype == torch.float32 for p in model.parameters())
 
     def test_aux_outputs_only_in_training(self):
         model = build_flagship(dataclasses.replace(port_args(), dec_layers=3), device="cpu")

@@ -8,8 +8,10 @@ tests/test_trainer_e2e.py's `TINY` config (hidden 32, 4 heads, 1+2 layers,
 2 steps, 4 validation clips in 2 batches, 64x96), from one set of weights
 (the port's, bridged by the JAX package's reference converter). The JAX
 Trainer's epoch-1 gradient audit is skipped here, which saves its compile:
-tests/test_torch_eval.py holds the audit against JAX's. About 45 s alone
-(two JAX compiles: the train and eval steps).
+tests/test_torch_eval.py holds the audit against JAX's. A second pair of
+Trainers runs at an init whose encoder softmax does not saturate, and the
+port's Trainer runs under bf16 and accumulation. About 95 s alone (four
+JAX compiles).
 """
 import argparse
 import os
@@ -31,7 +33,7 @@ from future_od_tpu.train.trainer import Trainer as JaxTrainer
 from future_od_tpu.utils.checkpoint_convert import convert_reference_checkpoint
 from future_od_tpu.utils.wandb import WandBConfig as JaxWandBConfig
 
-from future_od_tpu_torch.data import loader
+from future_od_tpu_torch.data import loader, nu_scenes
 from future_od_tpu_torch.data.synthetic import CATEGORY_DICT, SyntheticClipDataset
 from future_od_tpu_torch.models.build import build_flagship
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
@@ -39,6 +41,7 @@ from future_od_tpu_torch.runs import _helper, _loader
 from future_od_tpu_torch.runs.nusc_spatiotemporal_imu_500ms import build_parser
 from future_od_tpu_torch.train.trainer import Trainer
 from future_od_tpu_torch.utils.jax_weights import flagship_state_arrays, load_jax_variables
+from test_dataset_files import build_nuscenes_archive, install_file_devkits
 from test_torch_flash_tc_rounding import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,6 +73,12 @@ _ENCODER_ATTENTION = "_model.separate_encoder.transformer.layers.0.self_attn.att
 SATURATED_ROWS = {_ENCODER_ATTENTION + "in_proj_weight": 2 * TINY["hidden_dim"],
                   _ENCODER_ATTENTION + "in_proj_bias": 2 * TINY["hidden_dim"]}
 SATURATED_ATOL = 1e-3
+# At UNSATURATED_PROJ_SCALE every row is compared, the encoder's q and k
+# rows too, with the same form of tolerance at 10x the gaps measured: the
+# worst relative gap 8.7e-4 after step 1 and 1.18e-3 after step 2, the worst
+# gap of a tensor that barely moves 9.7e-4 lr.
+UNSATURATED_PROJ_SCALE = 0.01
+UNSATURATED_RTOL, UNSATURATED_ATOL = (8.7e-3, 1.2e-2), 9.7e-3
 DRIFT_METER_RTOL = 2.4e-3
 METER_RTOL = 7e-7
 AP_ATOL = 1e-6
@@ -133,8 +142,10 @@ def both_trainers(tmp_path_factory):
     """The JAX and the port's Trainer after one epoch: 2 train steps, the
     eval epoch over val0, AP over each; with the common starting weights
     and each step's (loss, weights after it) on both sides."""
-    tmp = tmp_path_factory.mktemp("trainers")
-    model = port_model()
+    return run_both_trainers(tmp_path_factory.mktemp("trainers"), port_model())
+
+
+def run_both_trainers(tmp, model, evaluate=True):
     before = port_arrays(model)
     train, val = loaders(jax_loader, JaxSyntheticClipDataset)
     jmodel = jax_build_flagship(JaxArgs(**TINY))
@@ -151,6 +162,8 @@ def both_trainers(tmp_path_factory):
         checkpoint_epochs=False, wandb_config=JaxWandBConfig(enabled=False),
         variables=jax.tree.map(jnp.asarray, variables))
     jtrainer._grad_audit = lambda data: None
+    if not evaluate:
+        jtrainer._run_eval = lambda: None
     jsteps, steps = [], []
     jtrainer._train_step = recording(jtrainer._train_step, jsteps, 1,
                                      lambda out: jax_arrays(out[0]))
@@ -158,6 +171,8 @@ def both_trainers(tmp_path_factory):
     trainer = port_trainer(tmp, model=model, checkpoint_epochs=False)
     trainer._train_step = recording(trainer._train_step, steps, 0,
                                     lambda out: port_arrays(model))
+    if not evaluate:
+        trainer._run_eval = lambda: None
     trainer.train(1)
     return jtrainer, trainer, jsteps, steps, before
 
@@ -193,6 +208,30 @@ def test_train_epoch_tracks_jax(both_trainers):
     assert all(np.array_equal(final[k], v) for k, v in steps[-1][1].items())
     want = jax_arrays(jtrainer.state)
     assert all(np.array_equal(want[k], v) for k, v in jsteps[-1][1].items())
+
+
+def test_unsaturated_epoch_tracks_jax_in_every_row(tmp_path):
+    """At an init whose encoder softmax does not saturate (the input
+    projection scaled by UNSATURATED_PROJ_SCALE: the logits span about 20,
+    not 1.4e5), every row's update, the encoder's q and k rows too, against
+    the JAX Trainer's over the epoch's two steps (no eval epoch)."""
+    model = port_model()
+    with torch.no_grad():
+        model._model.separate_encoder.backbone.input_proj.weight.mul_(UNSATURATED_PROJ_SCALE)
+    jtrainer, trainer, jsteps, steps, before = run_both_trainers(tmp_path, model,
+                                                                 evaluate=False)
+    lr = TINY["lr"]
+    for step, ((loss, ours), (jloss, theirs)) in enumerate(zip(steps, jsteps)):
+        np.testing.assert_allclose(loss, jloss, rtol=STEP_LOSS_RTOL[step])
+        for name, start in before.items():
+            ours_d, theirs_d = (ours[name] - start) / lr, (theirs[name] - start) / lr
+            gap = float(np.sqrt(np.mean(np.square(ours_d - theirs_d))))
+            update = float(np.sqrt(np.mean(np.square(theirs_d))))
+            assert gap <= UNSATURATED_RTOL[step] * update + UNSATURATED_ATOL, (step + 1, name, gap,
+                                                                          update)
+    q_and_k = _ENCODER_ATTENTION + "in_proj_weight"
+    assert np.abs(steps[-1][1][q_and_k][:2 * TINY["hidden_dim"]]
+                  - before[q_and_k][:2 * TINY["hidden_dim"]]).max() > lr
 
 
 def assert_ap_equal(ours, ap, label):
@@ -309,11 +348,31 @@ def test_missing_checkpoint_warns(tmp_path, capsys):
     assert "does not exist" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(tracker=object()),
-                                dict(mixed_precision=True), dict(accum_steps=2)])
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(tracker=object())])
 def test_trainer_refuses_unported_options(tmp_path, kw):
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item \d"):
         port_trainer(tmp_path, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(mixed_precision=True), dict(accum_steps=2)])
+def test_trainer_runs_and_resumes_under_the_precision_options(tmp_path, kw, capsys):
+    """bf16 and accumulation through the Trainer: the audit, an epoch with
+    f32 master weights and AdamW state, and a resume from its checkpoint
+    that trains the second epoch bit for bit as the run that went on."""
+    trainer = port_trainer(tmp_path, **kw)
+    trainer.train(1)
+    assert "identically-zero gradient" in capsys.readouterr().out
+    assert all(p.dtype == torch.float32 for p in trainer._model.parameters())
+    assert all(v.dtype == torch.float32 for s in trainer._optimizer.state.values()
+               for v in s.values() if v.ndim)
+    saved = state_of(trainer)
+    fresh = port_trainer(tmp_path, model=port_model(seed=5), **kw)
+    fresh.load_checkpoint()
+    assert_equal_trees(state_of(fresh), saved)
+    trainer.train(2)
+    fresh.train(2)
+    assert fresh.step == trainer.step == 4
+    assert_equal_trees(state_of(fresh), state_of(trainer))
 
 
 def test_trainer_checks_freeze_and_device(tmp_path, monkeypatch):
@@ -395,9 +454,21 @@ def test_get_trainer_refuses_unported_flags(kw):
 
 @pytest.mark.parametrize("kw", [dict(loader="grain"), dict(device_normalize=True),
                                 dict(synthetic=False)])
-def test_loaders_refuse_unported_flags(kw):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 2"):
-        _loader.get_nusc_loaders((64, 96), [-1.0, -0.5, 0], script_args(**kw), {}, 4)
+def test_loaders_take_the_ported_flags(kw, tmp_path, monkeypatch):
+    """The flags the loader functions refused before the datasets were
+    ported, each on the fabricated nuScenes archive of
+    tests/test_dataset_files.py: worker processes, uint8 video, real data."""
+    install_file_devkits(monkeypatch)
+    root = build_nuscenes_archive(str(tmp_path))
+    args = script_args(**{"synthetic": False, **kw})
+    train, val = _loader.get_nusc_loaders((64, 96), [-1.0, -0.5, 0], args,
+                                          {"nuscenes_path": root}, 4)
+    want = loader.WorkerLoader if kw.get("loader") == "grain" else loader.Loader
+    assert type(train) is want and type(val["val0"]) is want
+    batch = next(iter(train))
+    assert batch["video"].shape == (1, 3, 64, 96, 3)
+    assert batch["video"].dtype == (np.uint8 if kw.get("device_normalize") else np.float32)
+    assert _helper.category_dict_for(train) == nu_scenes.CATEGORY_DICT
 
 
 def test_synthetic_loaders_equal_jax(monkeypatch):
