@@ -140,8 +140,34 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    the worker-process loader's frames a second over clips of the fixtures
    through the dataset's transforms, beside the frames a second phase 6's
    and 6b's stage-1 steps consume.
-4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's
-   and 6b's runs), then the device JSON line, last.
+8. every other model the JAX package builds, at full width (ResNet-50,
+   D=256, 8 heads, ff 2048, 6+6 layers, 128 queries):
+   8a. the single-frame script, `python -m
+   future_od_tpu_torch.runs.nuim_single_frame --synthetic --short_train
+   --epochs 1 --disable_wandb` (its `main()` in this process, as phase 6),
+   with K2-K6 gated on, at its own 448x800 and batch 32 of single frames:
+   first K4-K6 against their plain versions at its shapes (350 tokens, one
+   image attention a decoder layer); K4-K6 12 times a train step and in the
+   audit, K2 6 times and K3 once an eval forward, no K1; losses finite,
+   the AP dicts checked; a later train step's ms, eval ms a batch, peak
+   memory and one profiled train step.
+   8b. the tracker eval script (`...runs.eval.nusc_tracker_baseline_eval
+   --synthetic`, 896x1600, 3 frames) on a checkpoint of a random
+   `build_single_frame` with nuScenes' 8 classes, K2/K3 gated on: the
+   tracker baseline loads it bit for bit (one tree), K1 6, K2 6 and K3 1
+   launches an eval batch, AP in [0, 1] or NaN; eval ms a batch and the
+   host tracker's ms apart.
+   8c. one request of 2 clips x 3 frames at 896x1600 through
+   `make_inference_fn` for the joint, sequential and F2F encoders, the
+   slotstates and "attend all at once" detectors and the capturing
+   flagship, default gates: K1's launches as counted (joint 8, sequential
+   14, else 6), scores and boxes equal an all-plain forward's within phase
+   3's tolerances (f32, TF32 off), the captured rows sum to 1; request ms.
+   Then K1 against its plain version on the inputs of its joint call (2800
+   tokens) and of the sequential encoder's prevout and frame-memory
+   cross-attentions.
+4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's,
+   6b's and 8's runs), then the device JSON line, last.
 
 Phases 2 and 3 also say where a request's time goes: the device time of the
 backbone, the encoder and the detector (CUDA events recorded by forward
@@ -332,6 +358,54 @@ TRAINER_ATTENTIONS = (
     ("stage 1 decoder", 32 * 8, 128, 350, 64, 32, 12),
     ("stage 2 encoder", 16 * 2 * 8, 1400, 1400, 32, 32, 6),
     ("stage 2 decoder", 16 * 8, 128, 1400, 64, 32, 12),
+)
+
+# Phase 8: every model the JAX package builds, at full width (ResNet-50,
+# D=256, 8 heads, ff 2048, 6+6 layers, 128 queries).
+# 8a: the single-frame script as a user starts it, on the synthetic data (64
+# train clips of one frame at 448x800, batch 32: 2 train steps; 128
+# validation clips at batch 12: 11 eval batches), with every gate of K2-K6 on.
+SINGLE_FRAME_SCRIPT = "future_od_tpu_torch.runs.nuim_single_frame"
+SINGLE_FRAME_ARGV = ["--synthetic", "--short_train", "--epochs", "1", "--disable_wandb"]
+SINGLE_FRAME_CALLS = {"train": 2, "audit": 1, "eval": 11}
+# K4-K6 at its shapes: 32 single frames, 350 tokens, 8 heads; one image
+# attention a decoder layer. (label, BH, Nq, Nk, d, dv, calls per train step)
+SINGLE_FRAME_ATTENTIONS = (
+    ("single-frame encoder", 32 * 8, 350, 350, 32, 32, 6),
+    ("single-frame decoder", 32 * 8, 128, 350, 64, 32, 6),
+)
+# launches a step call must make: K4-K6 on the 6 encoder self-attentions and
+# the 6 decoder image attentions of a train step (and of the audit's
+# backward); K2 on 6 stride-1 blocks and K3 once an eval forward; no K1 (350
+# keys)
+SINGLE_FRAME_LAUNCHES = {
+    "train": {name: 12 for name in TRAIN_KERNELS},
+    "audit": {name: 12 for name in TRAIN_KERNELS},
+    "eval": {"fused_bottleneck": 6, "fused_stem": 1},
+}
+# 8b: the tracker eval script on the synthetic data at 896x1600 (128
+# validation clips of 3 frames at batch 12), on a checkpoint of a random
+# build_single_frame with nuScenes' 8 classes, with K2 and K3 gated on: an
+# eval batch folds its 2 past frames into one backbone and encoder call, so
+# K1 launches on the 6 encoder self-attentions (1400 tokens), K2 6 times and
+# K3 once.
+TRACKER_SCRIPT = "future_od_tpu_torch.runs.eval.nusc_tracker_baseline_eval"
+TRACKER_GATES = {"FUTURE_OD_FUSED_RESNET": "1", "FUTURE_OD_FUSED_STEM": "1"}
+TRACKER_EVAL_BATCHES = 11
+TRACKER_LAUNCHES = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1}
+# 8c: one request of 2 clips x 3 frames at 896x1600 a variant, default gates:
+# K1 launches a forward. The per-frame encoder's 6 (the 2 past frames
+# folded); joint: 2 layers over the 2 frames' 2800 tokens; sequential: 2
+# layers x (frame 0: self; frame 1: self, prevout, frame memory); the
+# decoder's 128 queries stay plain (K1 needs 256 queries).
+VARIANT_K1 = {"joint": 8, "sequential": 14, "f2f": 6, "slotstates": 6,
+              "attend all at once": 6, "capturing flagship": 6}
+# K1's calls held against its plain version on the variants' own inputs:
+# (variant, index of the K1 call in a forward, what it is)
+VARIANT_K1_CALLS = (
+    ("joint", 6, "joint self-attention over 2 frames, 2800 tokens"),
+    ("sequential", 9, "prevout cross-attention: frame 1's queries, frame 0's encoder output"),
+    ("sequential", 10, "frame-memory cross-attention: frame 1's queries, frame 0's raw tokens"),
 )
 
 
@@ -1666,16 +1740,16 @@ def s2d_phase(torch, batch, phase2_request_s):
         raise AssertionError("s2d fused forward differs from the all-plain forward")
 
 
-def trainer_train_kernels(torch, dev):
-    """Phase 6's K4-K6 at both stages' shapes, f32, dropout 0.1: one call
-    each against its plain version (phase 1b's tolerances), then each one's
-    time beside the plain version's and its bound. Returns per-kernel
-    records."""
+def trainer_train_kernels(torch, dev, attentions=TRAINER_ATTENTIONS):
+    """Phase 6's K4-K6 at both stages' shapes (phase 8a's: `attentions`),
+    f32, dropout 0.1: one call each against its plain version (phase 1b's
+    tolerances), then each one's time beside the plain version's and its
+    bound. Returns per-kernel records."""
     from future_od_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(6)
     records = {name: [] for name in TRAIN_KERNELS}
-    for label, BH, Nq, Nk, d, dv, per_step in TRAINER_ATTENTIONS:
+    for label, BH, Nq, Nk, d, dv, per_step in attentions:
         q, k, do = (torch.randn(*s, generator=gen, device=dev)
                     for s in ((BH, Nq, d), (BH, Nk, d), (BH, Nq, dv)))
         v = torch.randn(BH, Nk, dv, generator=gen, device=dev)
@@ -2009,37 +2083,17 @@ def check_trainer_run(torch, probe, trainer, accum: int = 1):
     train step's K4-K6 once a micro-batch of `accum`), finite losses,
     matcher rounds, the AP dicts; and its numbers per stage."""
     num_classes = trainer._args.num_classes
-    for call in probe.calls:
-        want = TRAINER_LAUNCHES.get((call["mode"], call["stage"]))
-        if want is not None and call["mode"] == "train":
-            want = {k: n * accum for k, n in want.items()}
-        if want is None or call["launches"] != want:
-            raise AssertionError(f"{call['mode']} at height {call['stage']}: launches "
-                                 f"{call['launches']}, want {want}")
-        if call["mode"] == "audit":
-            continue
-        loss, rounds = call["loss"].item(), call["rounds"].item()
-        if not math.isfinite(loss) or (call["skipped"] is not None and call["skipped"].item()):
-            raise AssertionError(f"{call['mode']} step at height {call['stage']}: loss {loss}")
-        if rounds >= 1000:
-            raise AssertionError(f"{call['mode']} step: the auction hit its round cap")
+
+    def launches(call):
+        counts = TRAINER_LAUNCHES.get((call["mode"], call["stage"]))
+        if counts is not None and call["mode"] == "train":
+            counts = {k: n * accum for k, n in counts.items()}
+        return counts
+    check_step_calls(probe.calls, launches)
     for stage, (name, steps, batches) in TRAINER_STAGES.items():
-        modes = [c["mode"] for c in probe.calls if c["stage"] == stage]
-        want = {"train": steps, "eval": batches, "audit": 1 if stage == 448 else 0}
-        if {m: modes.count(m) for m in want} != want:
-            raise AssertionError(f"{name}: step calls {modes}, want {want}")
-        stage_sum = {}
-        for call in probe.calls:
-            if call["stage"] == stage:
-                for k, n in call["launches"].items():
-                    stage_sum[k] = stage_sum.get(k, 0) + n
-        if probe.totals[stage] != stage_sum:
-            raise AssertionError(f"{name}: launches outside the steps: {probe.totals[stage]} "
-                                 f"against {stage_sum}")
-    if [s for s, _ in probe.aps] != [448, 448, 896, 896]:
-        raise AssertionError(f"AP aggregations at {[s for s, _ in probe.aps]}")
-    for _, ap in probe.aps:
-        check_ap(ap, num_classes)
+        check_stage_calls(probe, stage, name,
+                          {"train": steps, "eval": batches, "audit": 1 if stage == 448 else 0})
+    check_aps(probe.aps, (448, 448, 896, 896), num_classes)
     if trainer._epoch != 2 or trainer.step != sum(n for _, n, _ in TRAINER_STAGES.values()):
         raise AssertionError(f"trainer at epoch {trainer._epoch}, step {trainer.step}")
 
@@ -2262,6 +2316,334 @@ def data_phase(torch, stage1_step_ms: dict):
             "host_cpus": os.cpu_count(), "card": gpu_name_and_power()}
 
 
+def check_step_calls(calls, want) -> None:
+    """Each recorded step call's launches (`want(call)`), and for the train
+    and eval steps a finite loss, no skipped update and the auction below
+    its round cap."""
+    for call in calls:
+        if want(call) is None or call["launches"] != want(call):
+            raise AssertionError(f"{call['mode']} at height {call['stage']}: launches "
+                                 f"{call['launches']}, want {want(call)}")
+        if call["mode"] == "audit":
+            continue
+        loss, rounds = call["loss"].item(), call["rounds"].item()
+        if not math.isfinite(loss) or (call["skipped"] is not None and call["skipped"].item()):
+            raise AssertionError(f"{call['mode']} step at height {call['stage']}: loss {loss}")
+        if rounds >= 1000:
+            raise AssertionError(f"{call['mode']} step: the auction hit its round cap")
+
+
+def check_stage_calls(probe, stage, name, want) -> None:
+    """The step calls a mode at one stage (`want`), and no launch outside
+    the step calls."""
+    modes = [c["mode"] for c in probe.calls if c["stage"] == stage]
+    if {m: modes.count(m) for m in want} != want:
+        raise AssertionError(f"{name}: step calls {modes}, want {want}")
+    stage_sum = {}
+    for call in probe.calls:
+        if call["stage"] == stage:
+            for k, n in call["launches"].items():
+                stage_sum[k] = stage_sum.get(k, 0) + n
+    if probe.totals[stage] != stage_sum:
+        raise AssertionError(f"{name}: launches outside the steps: {probe.totals[stage]} "
+                             f"against {stage_sum}")
+
+
+def check_aps(aps, stages, num_classes: int) -> None:
+    """The AP aggregations were at `stages` (video heights), each dict the
+    JAX package's."""
+    if [s for s, _ in aps] != list(stages):
+        raise AssertionError(f"AP aggregations at {[s for s, _ in aps]}")
+    for _, ap in aps:
+        check_ap(ap, num_classes)
+
+
+def single_frame_phase(torch):
+    """Phase 8a: the single-frame script, its checks and its numbers.
+    Returns (record, K4-K6's records at its shapes, launch totals)."""
+    import importlib
+    import tempfile
+
+    from future_od_tpu_torch.data import loader as loader_module
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.runs.config import config
+    from future_od_tpu_torch.train import trainer as trainer_module
+
+    kernel_records = trainer_train_kernels(torch, torch.device("cuda"), SINGLE_FRAME_ATTENTIONS)
+    log("8a-single-frame-train-kernels-vs-plain", ok=True, card=gpu_name_and_power(),
+        records=kernel_records)
+    script = importlib.import_module(SINGLE_FRAME_SCRIPT)
+    set_gates(**TRAINER_GATES)
+    saved_config = dict(config)
+    probe = TrainerProbe(torch, _kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        config.update(checkpoint_path=os.path.join(tmp, "checkpoints"),
+                      visualization_path=os.path.join(tmp, "visualization"))
+        probe.install(trainer_module, loader_module)
+        try:
+            t0 = time.perf_counter()
+            trainer = script.main(SINGLE_FRAME_ARGV)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            probe.finish()
+        finally:
+            probe.restore()
+            config.clear()
+            config.update(saved_config)
+            names = sorted(os.listdir(os.path.join(tmp, "checkpoints")))
+    if names != ["nuim_single_frame", "nuim_single_frame_final"]:
+        raise AssertionError(f"checkpoints written: {names}")
+    video = probe.first[("train", 448)][0]["video"]
+    if tuple(video.shape) != (32, 1, 448, 800, 3):
+        raise AssertionError(f"single-frame train batch {tuple(video.shape)}")
+    check_step_calls(probe.calls, lambda call: SINGLE_FRAME_LAUNCHES[call["mode"]])
+    check_stage_calls(probe, 448, "the single-frame run", SINGLE_FRAME_CALLS)
+    check_aps(probe.aps, (448, 448), trainer._args.num_classes)
+    train = [c for c in probe.calls if c["mode"] == "train"]
+    evals = [c for c in probe.calls if c["mode"] == "eval"]
+    eval_ms = [c["events"][0].elapsed_time(c["events"][1]) for c in evals]
+    record = {
+        "script": SINGLE_FRAME_SCRIPT, "argv": SINGLE_FRAME_ARGV, "gates": TRAINER_GATES,
+        "run_s": run_s,
+        "train_step_ms": [c["events"][0].elapsed_time(c["events"][1]) for c in train],
+        "audit_ms": [c["events"][0].elapsed_time(c["events"][1]) for c in probe.calls
+                     if c["mode"] == "audit"],
+        "eval_ms": eval_ms, "median_later_eval_ms": sorted(eval_ms[1:])[len(eval_ms[1:]) // 2],
+        "losses": [c["loss"].item() for c in train],
+        "eval_losses": [c["loss"].item() for c in evals],
+        "peak_mem_gb": probe.peaks[448], "launches": probe.totals[448],
+        "val0_ap": {k: v.tolist() for k, v in probe.aps[-1][1].items()
+                    if k.endswith("threshavg")},
+    }
+    record["later_train_step_ms"] = record["train_step_ms"][1:]
+    core = trainer._model._model
+    stages = {"backbone": core.separate_encoder.backbone,
+              "encoder": core.separate_encoder.transformer, "detector": core.detector}
+    set_gates(**TRAINER_GATES)
+    record["profile"] = profile_request(
+        torch, lambda b: probe.inner["train"](b, 0), probe.first[("train", 448)][0], stages)
+    totals = dict(probe.totals[448])
+    del trainer, probe, core, stages
+    torch.cuda.empty_cache()
+    return record, kernel_records, totals
+
+
+def tracker_eval_phase(torch):
+    """Phase 8b: the tracker eval script on a random single-frame
+    checkpoint, its checks and its numbers. Returns (record, launch
+    totals)."""
+    import dataclasses
+    import importlib
+    import tempfile
+
+    from future_od_tpu_torch.data import nu_scenes
+    from future_od_tpu_torch.models.build import build_single_frame
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.train import trainer as trainer_module
+    from future_od_tpu_torch.utils.checkpoint import save_checkpoint
+
+    script = importlib.import_module(TRACKER_SCRIPT)
+    args = SpatioTemporalDETRArgs(num_classes=len(nu_scenes.CATEGORY_DICT), num_queries=128,
+                                  lr_backbone=1e-4)
+    model = build_single_frame(args, generator=torch.Generator().manual_seed(8))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(9))
+    net = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    calls, tracker_ms = [], []
+    make_tracker_eval_step = trainer_module.make_tracker_eval_step
+
+    def timed_tracker(tracker):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = tracker(*a)
+            tracker_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    def instrumented(model, cfg, tracker, **kw):
+        step = make_tracker_eval_step(model, cfg, timed_tracker(tracker), **kw)
+
+        def run(data):
+            before = dict(_kernels.launch_counts)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(data)
+            end.record()
+            counts = _kernels.launch_counts
+            calls.append(dict(events=(start, end), loss=out[0], rounds=out[1]["matcher_rounds"],
+                              shape=tuple(data["video"].shape),
+                              launches={k: counts[k] - before[k] for k in counts
+                                        if counts[k] != before[k]}))
+            return out
+        return run
+
+    aps = []
+    aggregate = trainer_module.aggregate_mean_average_precision
+    set_gates(**TRACKER_GATES)
+    _kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer_module.make_tracker_eval_step = instrumented
+    trainer_module.aggregate_mean_average_precision = lambda *a: aps.append(aggregate(*a)) or (
+        aps[-1])
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = save_checkpoint(tmp, "nuim_single_frame_final", {
+                "net": net, "net_type": "SpatioTemporalDETR",
+                "detr_args": dataclasses.asdict(args)})
+            t0 = time.perf_counter()
+            trainer = script.main(["--checkpoint", path, "--synthetic", "--disable_wandb"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    finally:
+        trainer_module.make_tracker_eval_step = make_tracker_eval_step
+        trainer_module.aggregate_mean_average_precision = aggregate
+    totals = launched(_kernels)
+    differ = equal_trees(torch, {k: v.cpu() for k, v in trainer._model.state_dict().items()}, net)
+    if differ:
+        raise AssertionError(f"the tracker baseline did not load the single-frame net: "
+                             f"{differ[:5]}")
+    if len(calls) != TRACKER_EVAL_BATCHES or len(tracker_ms) != len(calls):
+        raise AssertionError(f"{len(calls)} eval calls, {len(tracker_ms)} tracker calls")
+    for call in calls:
+        if call["launches"] != TRACKER_LAUNCHES or call["shape"][1:] != (3, 896, 1600, 3):
+            raise AssertionError(f"tracker eval batch {call['shape']}: launches "
+                                 f"{call['launches']}, want {TRACKER_LAUNCHES}")
+        if not math.isfinite(call["loss"].item()) or call["rounds"].item() >= 1000:
+            raise AssertionError(f"tracker eval loss {call['loss'].item()}")
+    if len(aps) != 1:
+        raise AssertionError(f"{len(aps)} AP aggregations, want the validation epoch's")
+    check_ap(aps[0], args.num_classes)
+    eval_ms = [c["events"][0].elapsed_time(c["events"][1]) for c in calls]
+    record = {
+        "script": TRACKER_SCRIPT, "gates": TRACKER_GATES, "run_s": run_s, "eval_ms": eval_ms,
+        "median_later_eval_ms": sorted(eval_ms[1:])[len(eval_ms[1:]) // 2],
+        "tracker_host_ms": tracker_ms,
+        "median_tracker_host_ms": sorted(tracker_ms)[len(tracker_ms) // 2],
+        "eval_losses": [c["loss"].item() for c in calls],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": totals,
+        "val0_ap": {k: v.tolist() for k, v in aps[0].items() if k.endswith("threshavg")},
+    }
+    del trainer
+    torch.cuda.empty_cache()
+    return record, totals
+
+
+def variants_phase(torch):
+    """Phase 8c: one request a variant through make_inference_fn with the
+    default gates against an all-plain forward, K1's launches, the captured
+    weights; then K1 against its plain version on the variants' own inputs
+    (2800 tokens, and as a cross-attention). Returns (per-variant records,
+    K1's records, K1's launch total)."""
+    import torch.nn.functional as F
+
+    from future_od_tpu_torch.models import build, layers
+    from future_od_tpu_torch.models.cores import FuturePredCore
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs, captured_attention
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.ops import flash_attention as fa
+    from future_od_tpu_torch.train.step import make_inference_fn
+
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128)
+
+    def with_detector(**mode):
+        return lambda g: build.assemble(FuturePredCore(build._separate_encoder(args),
+                                                       build._detector(args, 2, **mode)),
+                                        args, generator=g)
+    builders = {
+        "joint": lambda g: build.build_with_joint_encoder(args, "joint", generator=g),
+        "sequential": lambda g: build.build_with_joint_encoder(args, "sequential", generator=g),
+        "f2f": lambda g: build.build_with_joint_encoder(args, "f2f", generator=g),
+        "slotstates": with_detector(use_slotstates=True),
+        "attend all at once": with_detector(image_memory_mode="attend all at once"),
+        "capturing flagship": lambda g: build.build_flagship(args, generator=g,
+                                                             store_attention=True),
+    }
+    batch = make_batch(seed=8)
+    wanted = {(name, index): what for name, index, what in VARIANT_K1_CALLS}
+    kept = {}
+    original = layers.flash_attention
+    records, total = {}, 0
+    for name, make in builders.items():
+        t0 = time.perf_counter()
+        model = make(torch.Generator().manual_seed(8))
+        randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(9))
+        infer = make_inference_fn(model)
+        seen = [0]
+
+        def keeping(q, k, v, scale, name=name, seen=seen):
+            if (name, seen[0]) in wanted:
+                kept[(name, seen[0])] = (q.clone(), k.clone(), v.clone(), scale)
+            seen[0] += 1
+            return original(q, k, v, scale)
+        set_gates()
+        layers.flash_attention = keeping
+        _kernels.reset_launch_counts()
+        try:
+            out, request_s = forward(torch, infer, batch, 1)
+        finally:
+            layers.flash_attention = original
+        out, more_s = forward(torch, infer, batch, 1)
+        counts = launched(_kernels)
+        want = {"flash_attention": 2 * VARIANT_K1[name]}
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts} in 2 requests, want {want}")
+        total += counts["flash_attention"]
+        check_output(torch, out, args.num_queries, args.num_classes)
+        record = {"request_s": request_s + more_s, "launches_per_request": VARIANT_K1[name]}
+        if name == "capturing flagship":
+            captured = captured_attention(model)
+            if len(captured) != 2 * args.dec_layers or any(len(w) != 1
+                                                            for w in captured.values()):
+                raise AssertionError(f"captured {[(k, len(w)) for k, w in captured.items()]}")
+            record["captured"] = {
+                "paths": len(captured),
+                "shape": list(captured["core/detector/decoder/layer0/image_attend1"][0].shape),
+                "row_sum_err": max((w[0].sum(-1) - 1).abs().max().item()
+                                   for w in captured.values())}
+            if record["captured"]["row_sum_err"] > 1e-5:
+                raise AssertionError(f"captured rows do not sum to 1: {record['captured']}")
+        set_gates(FUTURE_OD_DISABLE_FLASH="1")
+        _kernels.reset_launch_counts()
+        plain, plain_s = forward(torch, infer, batch, 1)
+        if any(_kernels.launch_counts.values()):
+            raise AssertionError(f"{name} all-plain forward launched {_kernels.launch_counts}")
+        record.update(
+            score_err=(out["class_scores"] - plain["class_scores"]).abs().max().item(),
+            box_err_px=(out["boxes"] - plain["boxes"]).abs().max().item(),
+            plain_request_s=plain_s, seconds=time.perf_counter() - t0)
+        if record["score_err"] > SCORE_TOL or record["box_err_px"] > BOX_TOL_PX:
+            raise AssertionError(f"{name}: the kernels' forward differs from all plain: "
+                                 f"{record}")
+        records[name] = record
+        log("8c-variant", variant=name, ok=True, **record)
+        del model, infer, out, plain
+        torch.cuda.empty_cache()
+    set_gates()
+    k1 = []
+    for (name, index), what in wanted.items():
+        q, k, v, scale = kept[(name, index)]
+        err, tol = check_close(f"flash_attention {what}", fa.flash_attention(q, k, v, scale),
+                               fa.reference_attention(q, k, v, scale), "float32")
+        B, H, Nq, d = q.shape
+        Nk, dv = k.shape[2], v.shape[3]
+        ops, nbytes = fa.attention_cost(B, H, Nq, Nk, d, dv, q.element_size())
+        b_ms, b_by, b_is, _ = flash_bound(torch, ops, nbytes, fa.attention_exponentials(
+            B, H, Nq, Nk), "float32")
+        k1.append(dict(
+            variant=name, call=index, attention=what, shape=[B, H, Nq, Nk, d, dv],
+            dtype="float32", max_abs_err=err, tol=tol,
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, scale)),
+            plain_ms=time_ms(torch, lambda: fa.reference_attention(q, k, v, scale)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                             scale=scale)),
+            bound_ms=b_ms, bound_by=b_by, bound_is=b_is))
+        log("8c-k1-vs-plain", **k1[-1])
+    del kept
+    torch.cuda.empty_cache()
+    return records, k1, total
+
+
 def max_rel(a, b) -> float:
     """max |a - b| over max |b|."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -2406,6 +2788,24 @@ def main() -> int:
                 "bf16": precision_runs["bf16"][448]["median_later_train_step_ms"]}
     log("7-data-path", ok=True, **data_phase(torch, appetite), seconds=time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
+    single_record, single_kernels, single_totals = single_frame_phase(torch)
+    log("8a-single-frame-script", ok=True, card=gpu_name_and_power(), **single_record,
+        seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tracker_record, tracker_totals = tracker_eval_phase(torch)
+    log("8b-tracker-eval", ok=True, card=gpu_name_and_power(), **tracker_record,
+        seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    variant_records, variant_k1, variant_k1_total = variants_phase(torch)
+    log("8c-variants", ok=True, card=gpu_name_and_power(), variants=variant_records,
+        k1_vs_plain=variant_k1, seconds=time.perf_counter() - t0)
+    phase8_launches = {
+        name: {"8a single-frame script": single_totals.get(name, 0),
+               "8b tracker eval": tracker_totals.get(name, 0),
+               "8c variants": variant_k1_total if name == "flash_attention" else 0}
+        for name in MAIN_KERNELS}
+
     sources = {
         "flash_attention": "future_od_tpu/ops/flash_attention.py:68",
         "fused_bottleneck": "future_od_tpu/ops/fused_resnet.py:44",
@@ -2507,7 +2907,13 @@ def main() -> int:
                                    "library_is", "per")},
             "calls": rec["calls"],
         })
-    for row in kernels:  # the launches on phase 6's and 6b's runs, by stage
+    for row in kernels:  # the launches on phase 6's, 6b's and 8's runs, by stage
+        if row["name"] in phase8_launches:
+            row["phase8_launches"] = phase8_launches[row["name"]]
+        if row["name"] == "flash_attention":
+            row["phase8_calls"] = variant_k1
+        if row["name"] in single_kernels:
+            row["phase8_calls"] = single_kernels[row["name"]]
         if row["name"] in trainer_counts:
             row["trainer_launches"] = trainer_counts[row["name"]]
             for label, counts in precision_totals.items():

@@ -2,15 +2,17 @@
 conditioning (port of future_od_tpu/models/decoder.py).
 
 Carried over exactly: post-norm order (self-attention -> one conditional
-image attention per remembered frame -> egodeep attention -> FFN); layer 0
-optionally "special" (unscaled query sine, positional projections added into
-the content paths); layers >= 1 without a query_pos projection in their
-image attentions; one shared final LayerNorm on every level's output.
-The slotstates attention is not ported yet (the flagship does not use it).
+image attention per remembered frame -> slotstates attention -> egodeep
+attention -> FFN); layer 0 optionally "special" (unscaled query sine,
+positional projections added into the content paths); layers >= 1 without a
+query_pos projection in their image attentions; one shared final LayerNorm
+on every level's output. A layer holds `slotstates_attend`/`norm_ssa` only
+under `use_slotstates` and `egodeep_attend`/`norm_eda` only under
+`use_egodeep`, where the JAX layer creates their parameters.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,24 +31,33 @@ from future_od_tpu_torch.ops.posenc import gen_sineembed_for_position
 
 class TransformerDecoderLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, ff_dim: int = 2048, dropout: float = 0.1,
-                 num_images: int = 1, image_attn_query_pos: bool = True):
+                 num_images: int = 1, query_pos_attends: int = 1,
+                 use_slotstates: bool = False, use_egodeep: bool = True,
+                 store_attention: bool = False):
         super().__init__()
         self.self_attend = SlotToSlotAttention(dim, num_heads, dropout)
         self.norm_sa = layer_norm(dim)
         self.image_attend = nn.ModuleList(
-            SlotToImageAttention(dim, num_heads, dropout, use_query_pos=image_attn_query_pos)
-            for _ in range(num_images)
+            SlotToImageAttention(dim, num_heads, dropout, use_query_pos=j < query_pos_attends,
+                                 store_attention=store_attention)
+            for j in range(num_images)
         )
         self.norm_ia = nn.ModuleList(layer_norm(dim) for _ in range(num_images))
-        self.egodeep_attend = EgodeepAttention(dim, num_heads, dropout, ff_dim=None)
-        self.norm_eda = layer_norm(dim)
+        self.slotstates_attend = None
+        if use_slotstates:
+            self.slotstates_attend = SlotToSlotAttention(dim, num_heads, dropout)
+            self.norm_ssa = layer_norm(dim)
+        self.egodeep_attend = None
+        if use_egodeep:
+            self.egodeep_attend = EgodeepAttention(dim, num_heads, dropout, ff_dim=None)
+            self.norm_eda = layer_norm(dim)
         self.feedforward = FeedForward(dim, ff_dim, dropout)
         self.norm_out = layer_norm(dim)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, query_content, query_pos, query_sine,
                 image_content_lst: List[torch.Tensor], image_pos_lst: List[torch.Tensor],
-                is_first: bool = False, egodeep=None):
+                is_first: bool = False, egodeep=None, slotstates_content=None):
         x = query_content
         new = self.self_attend(x, query_pos, x, query_pos)
         x = self.norm_sa(x + self.drop(new))
@@ -64,7 +75,11 @@ class TransformerDecoderLayer(nn.Module):
                 key_sine=image_pos,
             )
             x = norm(x + self.drop(new))
-        if egodeep is not None:
+        if slotstates_content is not None and self.slotstates_attend is not None:
+            # the state's positions are the queries' own
+            new = self.slotstates_attend(x, query_pos, slotstates_content, query_pos)
+            x = self.norm_ssa(x + self.drop(new))
+        if egodeep is not None and self.egodeep_attend is not None:
             new = self.egodeep_attend(x, query_pos, egodeep)
             x = self.norm_eda(x + self.drop(new))
         new = self.feedforward(x)
@@ -76,26 +91,41 @@ class TransformerDecoder(nn.Module):
     conditional sine scaling; returns every level."""
 
     def __init__(self, num_layers: int, dim: int, num_heads: int, ff_dim: int = 2048,
-                 dropout: float = 0.1, num_images: int = 1):
+                 dropout: float = 0.1, num_images: int = 1, use_slotstates: bool = False,
+                 use_egodeep: bool = True, store_attention: bool = False,
+                 scales_first_layer: bool = False, query_pos_attends: Optional[int] = None):
         super().__init__()
         self.dim = dim
-        # only layers after the special first one scale the query sine: a
-        # one-layer decoder has no query_scale, as in the JAX package
-        self.query_scale = MLP(dim, dim, dim, 2) if num_layers > 1 else None
+        # the JAX decoder creates query_scale where it first calls it: on the
+        # layers after a special first one, on the first layer too when it
+        # is not special on some pass (`scales_first_layer`), and on the
+        # slotstates. A one-layer decoder whose layer is always special has
+        # none. Layer 0's image attentions project query_pos only where a
+        # pass with a special first layer reaches them: the first
+        # `query_pos_attends` (default all).
+        has_scale = num_layers > 1 or use_slotstates or scales_first_layer
+        self.query_scale = MLP(dim, dim, dim, 2) if has_scale else None
+        if query_pos_attends is None:
+            query_pos_attends = num_images
         self.ref_point_head = MLP(dim, dim, 2, 2)
         self.norm = layer_norm(dim)
         self.layers = nn.ModuleList(
             TransformerDecoderLayer(
-                dim, num_heads, ff_dim, dropout, num_images, image_attn_query_pos=(i == 0)
+                dim, num_heads, ff_dim, dropout, num_images,
+                query_pos_attends=query_pos_attends if i == 0 else 0,
+                use_slotstates=use_slotstates, use_egodeep=use_egodeep,
+                store_attention=store_attention,
             )
             for i in range(num_layers)
         )
 
     def forward(self, query_content, query_pos, image_content_lst, image_pos_lst,
-                first_layer_special: bool = True,
-                egodeep=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                first_layer_special: bool = True, egodeep=None,
+                slotstates_content=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (per-layer outputs (num_layers, B, M, D), reference points
-        (B, M, 2))."""
+        (B, M, 2)). The JAX decoder also computes a slotstates sine,
+        query_scale(slotstates_content) * unscaled sine, that no attention
+        reads; the port leaves it out."""
         reference_points = torch.sigmoid(self.ref_point_head(query_pos))
         unscaled_query_sine = cast_like(
             gen_sineembed_for_position(reference_points, self.dim), query_pos)
@@ -111,7 +141,7 @@ class TransformerDecoder(nn.Module):
             x = layer(
                 x, query_pos, query_sine, image_content_lst, image_pos_lst,
                 is_first=(layer_id == 0) and first_layer_special,
-                egodeep=egodeep,
+                egodeep=egodeep, slotstates_content=slotstates_content,
             )
             intermediate.append(self.norm(x))
         return torch.stack(intermediate, dim=0), reference_points

@@ -14,12 +14,19 @@ FUTURE_OD_TRAIN_FLASH=1 (default off) and there are >= TRAIN_FLASH_MIN_KEYS
 
 Flax's LayerNorm epsilon is 1e-6 (torch's default is 1e-5): every LayerNorm
 here passes LN_EPS.
+
+Attention capture (`SlotToImageAttention(store_attention=True)`, the JAX
+`sow("intermediates", "attention_weights", ...)`): each call appends the
+head-averaged softmax weights (B, Nq, Nk) to the module's `captured` list,
+and takes the plain path, as the JAX gate does. FUTURE_OD_PACKED_PROJ=1
+runs the projections that share an input as one matmul over their
+concatenated weights (the JAX `_packed`); the parameters stay the same.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +54,20 @@ def init_linear_(weight: torch.Tensor, bias: Optional[torch.Tensor], generator) 
         if bias is not None:
             bound = 1.0 / math.sqrt(fan_in)
             bias.uniform_(-bound, bound, generator=generator)
+
+
+def packed_proj_enabled() -> bool:
+    """Projections that share an input run as one matmul (the JAX gate,
+    layers.py:73-82)."""
+    return os.environ.get("FUTURE_OD_PACKED_PROJ", "0") == "1"
+
+
+def packed_linear(x: torch.Tensor, linears: Sequence[nn.Linear]) -> List[torch.Tensor]:
+    """Several nn.Linear projections of one input as one F.linear over their
+    concatenated weights and biases; the per-projection outputs, in order."""
+    weight = torch.cat([lin.weight for lin in linears])
+    bias = torch.cat([lin.bias for lin in linears])
+    return list(F.linear(x, weight, bias).split([lin.out_features for lin in linears], dim=-1))
 
 
 def flash_gate(num_queries: int, num_keys: int) -> bool:
@@ -77,34 +98,41 @@ def draw_dropout_seed(rate: float) -> int:
     return int(torch.randint(0, 2**31 - 1, ()))
 
 
-def attention_core(scale: float, logits, v, dropout: nn.Dropout) -> torch.Tensor:
+def attention_core(scale: float, logits, v, dropout: nn.Dropout,
+                   capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """softmax(logits * scale) @ v with attention-weight dropout.
-    logits (B, H, Nq, Nk); v (B, Nk, H, dv) -> (B, Nq, H*dv)."""
-    weights = dropout(torch.softmax(logits * scale, dim=-1))
+    logits (B, H, Nq, Nk); v (B, Nk, H, dv) -> (B, Nq, H*dv). `capture`
+    receives the head-averaged weights (B, Nq, Nk), before the dropout."""
+    weights = torch.softmax(logits * scale, dim=-1)
+    if capture is not None:
+        capture.append(weights.detach().mean(dim=1))
+    weights = dropout(weights)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
     return out.reshape(*out.shape[:2], -1)
 
 
-def attend_heads(qh, kh, vh, scale: float, dropout: nn.Dropout) -> torch.Tensor:
+def attend_heads(qh, kh, vh, scale: float, dropout: nn.Dropout,
+                 capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Multi-head attention core: qh, kh (B, N, H, d); vh (B, Nk, H, dv)
     -> (B, Nq, H*dv). Operands of mixed dtypes (the JAX package's mixed
-    precision, `models/precision.py`) promote as jnp's do."""
+    precision, `models/precision.py`) promote as jnp's do. With `capture`
+    (a list that receives the head-averaged weights) the plain path runs."""
     dtype = torch.promote_types(torch.promote_types(qh.dtype, kh.dtype), vh.dtype)
     qh, kh, vh = qh.to(dtype), kh.to(dtype), vh.to(dtype)
     q, k, v = qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2)  # (B, H, N, d)
     out = None
-    if dropout.training:
+    if capture is None and dropout.training:
         if train_flash_gate(kh.shape[1]):
             rate = float(dropout.p)
             out = flash_attention_train(q, k, v, draw_dropout_seed(rate), scale, rate,
                                         *TRAIN_FLASH_BLOCKS)
-    elif flash_gate(qh.shape[1], kh.shape[1]):
+    elif capture is None and flash_gate(qh.shape[1], kh.shape[1]):
         out = flash_attention(q, k, v, scale)
     if out is not None:  # (B, H, Nq, dv)
         out = out.transpose(1, 2)
         return out.reshape(*out.shape[:2], -1)
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
-    return attention_core(scale, logits, vh, dropout)
+    return attention_core(scale, logits, vh, dropout, capture)
 
 
 class MLP(nn.Module):
@@ -160,9 +188,16 @@ class SlotToSlotAttention(nn.Module):
 
     def forward(self, query_content, query_pos, key_content, key_pos):
         D, H = self.dim, self.num_heads
-        q = self.query_content(query_content) + self.query_pos(query_pos)
-        k = self.key_content(key_content) + self.key_pos(key_pos)
-        v = self.value(key_content)
+        if packed_proj_enabled() and query_content is key_content and query_pos is key_pos:
+            # the self-attention: 5 projections -> 2 matmuls
+            qc, kc, v = packed_linear(query_content,
+                                      (self.query_content, self.key_content, self.value))
+            qp, kp = packed_linear(query_pos, (self.query_pos, self.key_pos))
+            q, k = qc + qp, kc + kp
+        else:
+            q = self.query_content(query_content) + self.query_pos(query_pos)
+            k = self.key_content(key_content) + self.key_pos(key_pos)
+            v = self.value(key_content)
         B, Nq, _ = q.shape
         Nk = k.shape[1]
         logits = torch.einsum(
@@ -197,7 +232,10 @@ class EgodeepAttention(nn.Module):
     def forward(self, query_content, query_pos, key):
         D, H = self.dim, self.num_heads
         q = self.query_content(query_content) + self.query_pos(query_pos)
-        k, v = self.key(key), self.value(key)
+        if packed_proj_enabled():
+            k, v = packed_linear(key, (self.key, self.value))
+        else:
+            k, v = self.key(key), self.value(key)
         B, Nq, _ = q.shape
         Nk = k.shape[1]
         logits = torch.einsum(
@@ -218,13 +256,17 @@ class SlotToImageAttention(nn.Module):
     and keys concat(content (+ sine on the first layer), sine), each D/H
     wide, attending into D/H-wide values with scale 1/sqrt(2D/H).
     `use_query_pos=False` is decoder layers >= 1, which have no query_pos
-    projection."""
+    projection. `store_attention`: each call appends its head-averaged
+    weights (B, Nq, Nk) to `captured` (`captured_attention` in
+    models/st_detr.py reads them, keyed as the JAX intermediates)."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.1,
-                 use_query_pos: bool = True):
+                 use_query_pos: bool = True, store_attention: bool = False):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.use_query_pos = use_query_pos
+        self.store_attention = store_attention
+        self.captured: List[torch.Tensor] = []
         names = ["query_content", "query_sine", "key_content", "key_pos", "value"]
         if use_query_pos:
             names.append("query_pos")
@@ -238,8 +280,11 @@ class SlotToImageAttention(nn.Module):
         """key_pos_flag: add the projected key sine into the key content
         (the first layer's `key_pos is not None` switch)."""
         D, H = self.dim, self.num_heads
-        v = self.value(key_content)
-        k_content = self.key_content(key_content)
+        if packed_proj_enabled():
+            v, k_content = packed_linear(key_content, (self.value, self.key_content))
+        else:
+            v = self.value(key_content)
+            k_content = self.key_content(key_content)
         q_content = self.query_content(query_content)
         if self.use_query_pos and query_pos is not None:
             q_content = q_content + self.query_pos(query_pos)
@@ -257,7 +302,8 @@ class SlotToImageAttention(nn.Module):
             [k_content.reshape(B, Nk, H, hd), k_sine.reshape(B, Nk, H, hd)], dim=-1
         )
         out = attend_heads(
-            qh, kh, v.reshape(B, Nk, H, hd), 1.0 / math.sqrt(2 * D // H), self.attn_drop
+            qh, kh, v.reshape(B, Nk, H, hd), 1.0 / math.sqrt(2 * D // H), self.attn_drop,
+            self.captured if self.store_attention else None,
         )
         return self.fun.out_proj(out)
 
@@ -288,8 +334,12 @@ class SelfAttention(nn.Module):
     def forward(self, query, key, value):
         D, H = self.dim, self.num_heads
         w, b = self.in_proj_weight, self.in_proj_bias
-        q = F.linear(query, w[:D], b[:D])
-        k = F.linear(key, w[D : 2 * D], b[D : 2 * D])
+        if packed_proj_enabled() and query is key:
+            # the encoder's self-attention: q and k share src + pos
+            q, k = F.linear(query, w[: 2 * D], b[: 2 * D]).split(D, dim=-1)
+        else:
+            q = F.linear(query, w[:D], b[:D])
+            k = F.linear(key, w[D : 2 * D], b[D : 2 * D])
         v = F.linear(value, w[2 * D :], b[2 * D :])
         B, Nq, _ = q.shape
         Nk = k.shape[1]

@@ -8,7 +8,7 @@ a model for both packages.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -107,27 +107,81 @@ STAT_IDFS = (
 
 
 class SpatioTemporalDETR(nn.Module):
-    """Assembles the IMU input from the batch and runs the core (`_model`,
-    the reference checkpoint's prefix)."""
+    """Assembles the IMU input (and, under `encode_offset`, the temporal
+    offsets) from the batch and runs the core (`_model`, the reference
+    checkpoint's prefix). Each forward first drops the attention weights an
+    earlier one captured (`captured_attention`), as each JAX apply starts
+    a fresh `intermediates` collection."""
 
     def __init__(self, core: nn.Module, args: SpatioTemporalDETRArgs):
         super().__init__()
         self._model = core
         self.args = args
+        self._capturing = tuple(module for _, module in capturing_modules(core))
 
     def forward(self, data: Dict[str, torch.Tensor], aux_levels: bool = False):
         """aux_levels: the detector's aux levels in eval mode too (the eval
         step's loss; training always returns them with `aux_loss`)."""
+        for module in self._capturing:
+            module.captured.clear()
         imu = None
         if data.get("translation") is not None:
             imu = torch.cat([data[k] for k in self.args.imu_keys()], dim=2)
-        return self._model(data["video"], imu, aux_levels)
+        offsets = data["temporal_offsets"] if self.args.encode_offset else None
+        return self._model(data["video"], imu, offsets, aux_levels)
 
 
-def normalize_outputs(outputs):
+def capturing_modules(model: nn.Module):
+    """(JAX intermediates path, module) of every attention that captures
+    its weights (`store_attention`): the port's module name with `_model`
+    as `core`, `layers.{i}` as `layer{i}` and `image_attend.{j}` as
+    `image_attend{j}`, joined by `/`."""
+    for name, module in model.named_modules():
+        if getattr(module, "store_attention", False):
+            path = []
+            for part in name.split("."):
+                if part.isdigit():
+                    path[-1] = ("layer" if path[-1] == "layers" else path[-1]) + part
+                else:
+                    path.append("core" if part == "_model" else part)
+            yield "/".join(path), module
+
+
+def captured_attention(model: nn.Module) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    """The head-averaged attention weights (B, Nq, Nk) the last forward
+    captured, one per call in call order, keyed by the JAX intermediates
+    path of the capturing module (e.g. `core/detector/decoder/layer0/
+    image_attend1`): what `model.apply(..., mutable=["intermediates"])`
+    gives under `<path>/attention_weights`."""
+    return {path: tuple(module.captured) for path, module in capturing_modules(model)
+            if module.captured}
+
+
+def normalize_outputs(outputs, data: Optional[Dict[str, torch.Tensor]] = None):
     """(annotated-frame output, pred_logits, pred_boxes) from a core's
-    single-frame output dict (its `aux_outputs`, in training, pass through
-    in the first); logits/boxes gain the L_out axis at dim 1."""
+    output; logits/boxes gain the L_out axis at dim 1. A single-frame dict
+    passes through as the annotated output (with its `aux_outputs`, in
+    training); a list of per-frame dicts is stacked, and each batch
+    element's annotated frame (`data["annotated_frame_idx"]`) is gathered,
+    its aux levels too."""
+    if isinstance(outputs, (list, tuple)):
+        pred_logits = torch.stack([o["pred_logits"] for o in outputs], dim=1)
+        pred_boxes = torch.stack([o["pred_boxes"] for o in outputs], dim=1)
+        rows = torch.arange(pred_logits.shape[0], device=pred_logits.device)
+        idx = data["annotated_frame_idx"].to(pred_logits.device).long()
+
+        def take(key, levels: List[Dict[str, torch.Tensor]]):
+            return torch.stack([o[key] for o in levels], dim=1)[rows, idx]
+
+        annotated = {"pred_logits": pred_logits[rows, idx], "pred_boxes": pred_boxes[rows, idx]}
+        num_aux = len(outputs[0].get("aux_outputs", []))
+        if num_aux:
+            annotated["aux_outputs"] = [
+                {key: take(key, [o["aux_outputs"][a] for o in outputs])
+                 for key in ("pred_logits", "pred_boxes")}
+                for a in range(num_aux)
+            ]
+        return annotated, pred_logits, pred_boxes
     if outputs["pred_logits"].ndim != 3:
         raise ValueError(f"cannot interpret output of shape {tuple(outputs['pred_logits'].shape)}")
     return outputs, outputs["pred_logits"][:, None], outputs["pred_boxes"][:, None]
@@ -158,9 +212,10 @@ def compute_loss(annotated_output: Dict[str, Any], data: Dict[str, torch.Tensor]
 
 def post_process(pred_logits, pred_boxes, data):
     """Sigmoid scores + generic-object class + pixel xyxy boxes.
-    pred_logits (B, 1, M, C), pred_boxes (B, 1, M, 4) cxcywh in [0, 1] (one
-    output frame, the predicted one). Returns (output dict, its scores, its
-    boxes)."""
+    pred_logits (B, L_out, M, C), pred_boxes (B, L_out, M, 4) cxcywh in
+    [0, 1]. Returns (output dict, the annotated frame's scores, its boxes):
+    with one output a frame of a multi-frame clip, the annotated frame is
+    each clip's `annotated_frame_idx`, else the first output."""
     H, W = video_hw(data["video"])
     scores = torch.sigmoid(pred_logits)
     scores = torch.cat([scores, scores.amax(dim=3, keepdim=True)], dim=3)
@@ -172,7 +227,11 @@ def post_process(pred_logits, pred_boxes, data):
         dim=-1,
     )
     output = {
-        "class_scores": scores[:, :, None],  # (B, 1, 1, M, C+1)
+        "class_scores": scores[:, :, None],  # (B, L_out, 1, M, C+1)
         "boxes": boxes[:, :, None],
     }
+    if boxes.shape[1] == data["video"].shape[1] > 1:
+        rows = torch.arange(boxes.shape[0], device=boxes.device)
+        idx = data["annotated_frame_idx"].to(boxes.device).long()
+        return output, scores[rows, idx], boxes[rows, idx]
     return output, scores[:, 0], boxes[:, 0]

@@ -1,7 +1,8 @@
 """The eval runs' shared logic (port of runs/eval/_common.py): each eval
-script supplies its dataset, offsets and default checkpoint; the flagship
-is built, the checkpoint's net loaded, and the Trainer's eval epoch run
-over the validation split."""
+script supplies its dataset, offsets and default checkpoint (and, for the
+tracker baseline, its model builder and tracker); the model is built, the
+checkpoint's net loaded, and the Trainer's eval epoch run over the
+validation split."""
 from __future__ import annotations
 
 import argparse
@@ -31,9 +32,13 @@ def build_eval_parser():
 
 
 def run_eval(script_file: str, dataset: str, offsets, default_checkpoint: str,
-             encode_offset: bool = False, filter_offsets=None, img_size=None, argv=None):
+             encode_offset: bool = False, filter_offsets=None, img_size=None, argv=None,
+             model_builder=None, tracker=None):
     """Parse `argv` (default: the command line) and evaluate the checkpoint
-    on `dataset` ("nusc" or "nuim") at `offsets`; returns the Trainer."""
+    on `dataset` ("nusc" or "nuim") at `offsets`; `model_builder(args,
+    detr_args)` builds the model (default: the flagship) and `tracker`, if
+    given, makes the eval step the tracker baseline's. Returns the
+    Trainer."""
     print(f"Started script: {os.path.basename(script_file)}")
     args = build_eval_parser().parse_args(argv)
     add_hardcoded_eval_args(args, default_checkpoint)
@@ -62,11 +67,12 @@ def run_eval(script_file: str, dataset: str, offsets, default_checkpoint: str,
         space_to_depth=args.s2d,
         int8_backbone=args.int8,
     )
-    model = _model.build_model(args, detr_args)
+    model = (model_builder or _model.build_model)(args, detr_args)
     print("built model")
     print("starting dataset loading...")
     train_loader, val_loaders = loaders()
     print("Running eval")
-    trainer = get_trainer(args, config, detr_args, None, model, train_loader, val_loaders)
+    trainer = get_trainer(args, config, detr_args, None, model, train_loader, val_loaders,
+                          tracker=tracker)
     trainer.eval()
     return trainer

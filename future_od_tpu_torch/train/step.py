@@ -1,6 +1,6 @@
 """Train, eval and inference steps (port of future_od_tpu/train/step.py:
-`make_train_step`, `make_eval_step`, `make_grad_report` with
-`dead_param_names`, and `make_inference_fn`).
+`make_train_step`, `make_eval_step`, `make_tracker_eval_step`,
+`make_grad_report` with `dead_param_names`, and `make_inference_fn`).
 
 One train step: forward in training mode -> matching + set loss -> backward
 -> global-norm clip -> AdamW -> post-processing -> mAP intermediaries. The
@@ -65,7 +65,7 @@ def half_forward_and_loss(model: torch.nn.Module, criterion_cfg: CriterionConfig
 
 def loss_of_outputs(out, data, criterion_cfg: CriterionConfig, pred_idx_all=None,
                     num_boxes=None):
-    annotated, pred_logits, pred_boxes = normalize_outputs(out)
+    annotated, pred_logits, pred_boxes = normalize_outputs(out, data)
     loss, stats = compute_loss(annotated, data, criterion_cfg, pred_idx_all, num_boxes)
     return loss, (stats, pred_logits, pred_boxes)
 
@@ -221,6 +221,43 @@ def make_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     return eval_step
 
 
+def make_tracker_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfig, tracker,
+                           host_matched: bool = False, device: DeviceLike = None) -> Callable:
+    """Returns eval_step(data) -> (loss, stats, od_map_stuffs, output) for
+    the tracker baseline (`TrackerBaselineCore` at L >= 2), with
+    `make_eval_step`'s signature: the per-frame detections of the past
+    frames on `device` (default CUDA; raises without a card), the host-side
+    `tracker` (models/tracker.py) on the last two of them as numpy, then the
+    loss, post-processing and mAP intermediaries of its extrapolated future
+    prediction back on the device. `host_matched=True` (the JAX package's
+    split around a host matcher, for backends without host callbacks) is
+    not ported and raises NotImplementedError."""
+    if host_matched:
+        raise NotImplementedError(
+            "make_tracker_eval_step(host_matched=True), the host-matched split of the step, "
+            "is not ported (ROADMAP.md Queue 1 item 6, 1c)")
+    device = resolve_device(device)
+
+    def eval_step(data: Dict[str, Any]):
+        batch = to_device_batch(data, device)
+        model.eval()
+        with torch.no_grad():
+            preds = model(batch)["per_frame_preds"]
+            p0, p1 = ({k: p[k].float().cpu().numpy() for k in ("pred_logits", "pred_boxes")}
+                      for p in preds[:2])
+            offsets = data.get("temporal_offsets")
+            future = tracker(p0, p1, None if offsets is None else np.asarray(
+                offsets.cpu() if torch.is_tensor(offsets) else offsets))
+            future = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                      for k, v in future.items()}
+            loss, (stats, pred_logits, pred_boxes) = loss_of_outputs(future, batch,
+                                                                     criterion_cfg)
+            output, od_map_stuffs = postproc_and_map(pred_logits, pred_boxes, batch)
+        return loss, stats, od_map_stuffs, output
+
+    return eval_step
+
+
 def make_grad_report(model: torch.nn.Module, criterion_cfg: CriterionConfig,
                      device: DeviceLike = None) -> Callable:
     """Returns report(data, seed, step) -> {parameter name: the L2 norm of
@@ -271,7 +308,7 @@ def make_inference_fn(model: torch.nn.Module, device: DeviceLike = None) -> Call
         batch = to_device_batch(data, device)
         with torch.inference_mode():
             out = model(batch)
-            _, pred_logits, pred_boxes = normalize_outputs(out)
+            _, pred_logits, pred_boxes = normalize_outputs(out, batch)
             output, _, _ = post_process(pred_logits, pred_boxes, batch)
         return output
 

@@ -35,6 +35,7 @@ from future_od_tpu_torch.train.step import (
     dead_param_names,
     make_eval_step,
     make_grad_report,
+    make_tracker_eval_step,
     make_train_step,
 )
 from future_od_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -59,7 +60,9 @@ class Trainer:
     package's device placement and `seed` seeding the dropout of every step
     (`train/step.py::step_seed`). `mixed_precision` and `accum_steps` go to
     the train step (`train/step.py::make_train_step`); eval stays f32, as
-    the JAX Trainer's does. Not ported yet, and refused: `mesh`, `tracker`."""
+    the JAX Trainer's does. With a `tracker` (models/tracker.py) the eval
+    step is the tracker baseline's (`train/step.py::make_tracker_eval_step`).
+    Not ported yet, and refused: `mesh`."""
 
     def __init__(
         self,
@@ -90,9 +93,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported yet (ROADMAP.md Queue 1 item 4)")
-        if tracker is not None:
-            raise NotImplementedError(
-                "the tracker baseline is not ported yet (ROADMAP.md Queue 1 item 3)")
         self._device = resolve_device(device)
         install_signal_handlers()
         self._model = model.to(self._device)
@@ -164,7 +164,14 @@ class Trainer:
             self._model, self._criterion_cfg, self._optimizer, device=self._device,
             mixed_precision=mixed_precision, accum_steps=accum_steps,
         )
-        self._eval_step = make_eval_step(self._model, self._criterion_cfg, device=self._device)
+        if tracker is None:
+            self._eval_step = make_eval_step(self._model, self._criterion_cfg,
+                                             device=self._device)
+        else:
+            # the non-learned tracker baseline: the host-side tracker runs
+            # between the detections and the loss
+            self._eval_step = make_tracker_eval_step(self._model, self._criterion_cfg, tracker,
+                                                     device=self._device)
 
     @property
     def step(self) -> int:

@@ -1,18 +1,25 @@
-"""Weight bridge: the JAX package's flagship variables -> this port's state_dict.
+"""Weight bridge: the JAX package's variables -> this port's state_dict, for
+every model the JAX package builds (the flagship, the joint-encoder
+ablations, the single-frame core, the tracker baseline, the detector modes).
 
 Input: `{"params": ..., "frozen": ...}` as nested dicts of numpy arrays (what
-`jax.tree.map(np.asarray, variables)` gives for `build_flagship(args)`).
-Output: a state_dict keyed by the reference PyTorch checkpoint's names, which
-are this port's parameter names — the exact inverse of
-future_od_tpu/utils/checkpoint_convert.py::convert_reference_checkpoint.
+`jax.tree.map(np.asarray, variables)` gives). Output: a state_dict keyed by
+the reference PyTorch checkpoint's names, which are this port's parameter
+names (the inverse of future_od_tpu/utils/checkpoint_convert.py::
+convert_reference_checkpoint, for the modules that converter knows).
 Layout changes:
 - flax kernel (in, out) -> Linear weight (out, in);
 - conv kernel HWIO -> OIHW;
 - LayerNorm `scale` -> `weight`;
 - separate q/k/v projections -> packed `in_proj_weight` / `in_proj_bias`;
-- frozen BN statistics -> the FrozenBatchNorm2d buffers.
-A reference `.pth.tar`'s `net` state_dict loads into the port directly with
-`load_state_dict`.
+- frozen BN statistics -> the FrozenBatchNorm2d buffers;
+- the modules the reference has no names for keep the JAX names, with
+  indices as ModuleList entries: `previmage_attn{i}` -> `previmage_attn.{i}`,
+  the F2F encoder's `conv{i}` -> `convs.{i}`.
+The converter raises on a JAX leaf it cannot place, and `load_jax_variables`
+on a port parameter the variables leave unfilled, so a model whose tree
+differs from the JAX one cannot load quietly. A reference `.pth.tar`'s `net`
+state_dict loads into the port directly with `load_state_dict`.
 
 `load_jax_train_state` carries a JAX training run over: the weights, and
 optax's AdamW moments and step count into the torch optimizer, through the
@@ -20,6 +27,7 @@ same name map, so the run continues in the port.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Mapping
 
 import numpy as np
@@ -31,154 +39,216 @@ Tree = Mapping[str, Any]
 BN_KEYS = ("weight", "bias", "running_mean", "running_var")
 
 
-def _linear(sd: Dict[str, np.ndarray], prefix: str, p: Tree) -> None:
-    sd[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
-    if "bias" in p:
-        sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+class _Leaves:
+    """The variables' leaves by '/'-joined path (`params/core/...`,
+    `frozen/core/...`); each is taken once, and `left()` names the rest."""
 
+    def __init__(self, variables: Tree):
+        self.flat: Dict[str, Any] = {}
+        for collection, tree in variables.items():
+            if collection not in ("params", "frozen"):
+                raise ValueError(f"cannot place the JAX collection {collection!r}")
+            self._flatten(collection, tree)
 
-def _layernorm(sd, prefix, p: Tree) -> None:
-    sd[f"{prefix}.weight"] = np.asarray(p["scale"])
-    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
-
-
-def _mlp(sd, prefix, p: Tree) -> None:
-    for name, layer in p.items():  # layer{i}
-        _linear(sd, f"{prefix}.layers.{int(name[len('layer'):])}", layer)
-
-
-def _feedforward(sd, prefix, p: Tree) -> None:
-    _linear(sd, f"{prefix}.0", p["fc1"])
-    _linear(sd, f"{prefix}.3", p["fc2"])
-
-
-def _conv(sd, prefix, kernel) -> None:
-    sd[f"{prefix}.weight"] = np.asarray(kernel).transpose(3, 2, 0, 1)
-
-
-def _bn(sd, prefix, frozen: Tree) -> None:
-    for key in BN_KEYS:
-        sd[f"{prefix}.{key}"] = np.asarray(frozen[key])
-
-
-def _head_attention(sd, prefix, p: Tree) -> None:
-    """SlotToSlot / SlotToImage / Egodeep attention: the caller-side
-    projections as they are, `out_proj` under the reference's `fun.`."""
-    for name, sub in p.items():
-        if name == "out_proj":
-            _linear(sd, f"{prefix}.fun.out_proj", sub)
-        elif name in ("norm1", "norm2"):
-            _layernorm(sd, f"{prefix}.{name}", sub)
-        elif name == "mlp":
-            _feedforward(sd, f"{prefix}.mlp", sub)
+    def _flatten(self, prefix: str, tree) -> None:
+        if isinstance(tree, Mapping):
+            for key, value in tree.items():
+                self._flatten(f"{prefix}/{key}", value)
         else:
-            _linear(sd, f"{prefix}.{name}", sub)
+            self.flat[prefix] = tree
+
+    def take(self, path: str) -> np.ndarray:
+        return np.asarray(self.flat.pop(path))
+
+    def has(self, path: str) -> bool:
+        return any(k == path or k.startswith(path + "/") for k in self.flat)
+
+    def children(self, path: str, pattern: str) -> List[int]:
+        """The indices i of the children `<path>/<pattern>{i}`, sorted."""
+        regex = re.compile(re.escape(path) + "/" + pattern + r"(\d+)(/|$)")
+        return sorted({int(m.group(1)) for k in self.flat if (m := regex.match(k))})
+
+    def left(self) -> List[str]:
+        return sorted(self.flat)
 
 
-def _encoder_attention(sd, prefix, p: Tree) -> None:
-    attn = p["attn"]
-    qkv = [attn[k] for k in ("q_proj", "k_proj", "v_proj")]
+def _linear(sd, prefix: str, v: _Leaves, src: str) -> None:
+    sd[f"{prefix}.weight"] = v.take(f"{src}/kernel").T
+    if v.has(f"{src}/bias"):
+        sd[f"{prefix}.bias"] = v.take(f"{src}/bias")
+
+
+def _layernorm(sd, prefix, v: _Leaves, src: str) -> None:
+    sd[f"{prefix}.weight"] = v.take(f"{src}/scale")
+    sd[f"{prefix}.bias"] = v.take(f"{src}/bias")
+
+
+def _mlp(sd, prefix, v: _Leaves, src: str) -> None:
+    for i in v.children(src, "layer"):
+        _linear(sd, f"{prefix}.layers.{i}", v, f"{src}/layer{i}")
+
+
+def _feedforward(sd, prefix, v: _Leaves, src: str) -> None:
+    _linear(sd, f"{prefix}.0", v, f"{src}/fc1")
+    _linear(sd, f"{prefix}.3", v, f"{src}/fc2")
+
+
+def _conv(sd, prefix, v: _Leaves, src: str) -> None:
+    sd[f"{prefix}.weight"] = v.take(f"{src}/kernel").transpose(3, 2, 0, 1)
+    if v.has(f"{src}/bias"):
+        sd[f"{prefix}.bias"] = v.take(f"{src}/bias")
+
+
+def _bn(sd, prefix, v: _Leaves, src: str) -> None:
+    for key in BN_KEYS:
+        sd[f"{prefix}.{key}"] = v.take(f"{src}/{key}")
+
+
+HEAD_PROJECTIONS = ("query_content", "query_pos", "query_sine", "key_content", "key_pos",
+                    "key", "value")
+
+
+def _head_attention(sd, prefix, v: _Leaves, src: str) -> None:
+    """SlotToSlot / SlotToImage / Egodeep attention: the caller-side
+    projections as they are, `out_proj` under the reference's `fun.`, the
+    encoder flavour's norms and MLP."""
+    for name in HEAD_PROJECTIONS:
+        if v.has(f"{src}/{name}"):
+            _linear(sd, f"{prefix}.{name}", v, f"{src}/{name}")
+    _linear(sd, f"{prefix}.fun.out_proj", v, f"{src}/out_proj")
+    if v.has(f"{src}/mlp"):
+        _layernorm(sd, f"{prefix}.norm1", v, f"{src}/norm1")
+        _layernorm(sd, f"{prefix}.norm2", v, f"{src}/norm2")
+        _feedforward(sd, f"{prefix}.mlp", v, f"{src}/mlp")
+
+
+def _encoder_attention(sd, prefix, v: _Leaves, src: str) -> None:
+    qkv = [f"{src}/attn/{k}" for k in ("q_proj", "k_proj", "v_proj")]
     sd[f"{prefix}.attn.in_proj_weight"] = np.concatenate(
-        [np.asarray(x["kernel"]).T for x in qkv], axis=0
-    )
-    sd[f"{prefix}.attn.in_proj_bias"] = np.concatenate([np.asarray(x["bias"]) for x in qkv])
-    _linear(sd, f"{prefix}.attn.out_proj", attn["out_proj"])
-    _layernorm(sd, f"{prefix}.norm1", p["norm1"])
-    _layernorm(sd, f"{prefix}.norm2", p["norm2"])
-    _feedforward(sd, f"{prefix}.mlp", p["mlp"])
+        [v.take(f"{x}/kernel").T for x in qkv], axis=0)
+    sd[f"{prefix}.attn.in_proj_bias"] = np.concatenate([v.take(f"{x}/bias") for x in qkv])
+    _linear(sd, f"{prefix}.attn.out_proj", v, f"{src}/attn/out_proj")
+    _layernorm(sd, f"{prefix}.norm1", v, f"{src}/norm1")
+    _layernorm(sd, f"{prefix}.norm2", v, f"{src}/norm2")
+    _feedforward(sd, f"{prefix}.mlp", v, f"{src}/mlp")
 
 
 STEM_KERNEL_SHAPES = ((7, 7, 3, 64), (4, 4, 12, 64))  # the 7x7 stem, the space_to_depth one
 
 
-def _resnet_body(sd, prefix, params: Tree, frozen: Tree) -> None:
-    if np.shape(params["conv1"]["kernel"]) not in STEM_KERNEL_SHAPES:
-        raise ValueError(f"stem kernel {np.shape(params['conv1']['kernel'])}; "
-                         f"want one of {STEM_KERNEL_SHAPES}")
-    _conv(sd, f"{prefix}.conv1", params["conv1"]["kernel"])
-    _bn(sd, f"{prefix}.bn1", frozen["bn1"])
-    for name, block in params.items():
-        if not name.startswith("layer"):
-            continue
+def _resnet_body(sd, prefix, v: _Leaves, src: str) -> None:
+    params, frozen = f"params/{src}", f"frozen/{src}"
+    stem = np.shape(v.flat[f"{params}/conv1/kernel"])
+    if stem not in STEM_KERNEL_SHAPES:
+        raise ValueError(f"stem kernel {stem}; want one of {STEM_KERNEL_SHAPES}")
+    _conv(sd, f"{prefix}.conv1", v, f"{params}/conv1")
+    _bn(sd, f"{prefix}.bn1", v, f"{frozen}/bn1")
+    blocks = sorted({k[len(params) + 1:].split("/")[0] for k in v.flat
+                     if k.startswith(params + "/layer")})
+    for name in blocks:
         stage, idx = name[len("layer"):].split("_block")
         out = f"{prefix}.layer{stage}.{idx}"
         for i in (1, 2, 3):
-            _conv(sd, f"{out}.conv{i}", block[f"conv{i}"]["kernel"])
-            _bn(sd, f"{out}.bn{i}", frozen[name][f"bn{i}"])
-        if "downsample_conv" in block:
-            _conv(sd, f"{out}.downsample.0", block["downsample_conv"]["kernel"])
-            _bn(sd, f"{out}.downsample.1", frozen[name]["downsample_bn"])
+            _conv(sd, f"{out}.conv{i}", v, f"{params}/{name}/conv{i}")
+            _bn(sd, f"{out}.bn{i}", v, f"{frozen}/{name}/bn{i}")
+        if v.has(f"{params}/{name}/downsample_conv"):
+            _conv(sd, f"{out}.downsample.0", v, f"{params}/{name}/downsample_conv")
+            _bn(sd, f"{out}.downsample.1", v, f"{frozen}/{name}/downsample_bn")
 
 
-def _encoder_layer(sd, prefix, p: Tree) -> None:
-    _encoder_attention(sd, f"{prefix}.self_attn", p["self_attn"])
-    if "egodeep_attend" in p:
-        _head_attention(sd, f"{prefix}.egodeep_attend", p["egodeep_attend"])
-        _layernorm(sd, f"{prefix}.norm_eda", p["norm_eda"])
+def _encoder(sd, prefix, v: _Leaves, src: str) -> None:
+    """A TransformerEncoder's layers: self, prevout and frame-memory
+    attentions, egodeep attention."""
+    for i in v.children(src, "layer"):
+        out, layer = f"{prefix}.layers.{i}", f"{src}/layer{i}"
+        _encoder_attention(sd, f"{out}.self_attn", v, f"{layer}/self_attn")
+        if v.has(f"{layer}/prevout_attn"):
+            _encoder_attention(sd, f"{out}.prevout_attn", v, f"{layer}/prevout_attn")
+        for j in v.children(layer, "previmage_attn"):
+            _encoder_attention(sd, f"{out}.previmage_attn.{j}", v, f"{layer}/previmage_attn{j}")
+        if v.has(f"{layer}/egodeep_attend"):
+            _head_attention(sd, f"{out}.egodeep_attend", v, f"{layer}/egodeep_attend")
+            _layernorm(sd, f"{out}.norm_eda", v, f"{layer}/norm_eda")
 
 
-def _decoder_layer(sd, prefix, p: Tree) -> None:
-    _head_attention(sd, f"{prefix}.self_attend", p["self_attend"])
-    _layernorm(sd, f"{prefix}.norm_sa", p["norm_sa"])
-    _feedforward(sd, f"{prefix}.feedforward", p["feedforward"])
-    _layernorm(sd, f"{prefix}.norm_out", p["norm_out"])
-    j = 0
-    while f"image_attend{j}" in p:
-        _head_attention(sd, f"{prefix}.image_attend.{j}", p[f"image_attend{j}"])
-        _layernorm(sd, f"{prefix}.norm_ia.{j}", p[f"norm_ia{j}"])
-        j += 1
-    if "egodeep_attend" in p:
-        _head_attention(sd, f"{prefix}.egodeep_attend", p["egodeep_attend"])
-        _layernorm(sd, f"{prefix}.norm_eda", p["norm_eda"])
+def _decoder_layer(sd, prefix, v: _Leaves, src: str) -> None:
+    _head_attention(sd, f"{prefix}.self_attend", v, f"{src}/self_attend")
+    _layernorm(sd, f"{prefix}.norm_sa", v, f"{src}/norm_sa")
+    _feedforward(sd, f"{prefix}.feedforward", v, f"{src}/feedforward")
+    _layernorm(sd, f"{prefix}.norm_out", v, f"{src}/norm_out")
+    for j in v.children(src, "image_attend"):
+        _head_attention(sd, f"{prefix}.image_attend.{j}", v, f"{src}/image_attend{j}")
+        _layernorm(sd, f"{prefix}.norm_ia.{j}", v, f"{src}/norm_ia{j}")
+    if v.has(f"{src}/slotstates_attend"):
+        _head_attention(sd, f"{prefix}.slotstates_attend", v, f"{src}/slotstates_attend")
+        _layernorm(sd, f"{prefix}.norm_ssa", v, f"{src}/norm_ssa")
+    if v.has(f"{src}/egodeep_attend"):
+        _head_attention(sd, f"{prefix}.egodeep_attend", v, f"{src}/egodeep_attend")
+        _layernorm(sd, f"{prefix}.norm_eda", v, f"{src}/norm_eda")
 
 
-def flagship_state_arrays(variables: Tree) -> Dict[str, np.ndarray]:
-    """The port's state_dict for the JAX flagship's variables, as numpy
-    arrays (the layout work; `jax_to_state_dict` makes tensors of it)."""
-    core_p = variables["params"]["core"]
-    core_f = variables["frozen"]["core"]
+def state_arrays(variables: Tree) -> Dict[str, np.ndarray]:
+    """The port's state_dict for the JAX model's variables, as numpy arrays
+    (the layout work; `jax_to_state_dict` makes tensors of it). Raises
+    ValueError naming every JAX leaf it cannot place."""
+    v = _Leaves(variables)
     sd: Dict[str, np.ndarray] = {}
 
-    sep, sep_p = "_model.separate_encoder", core_p["separate_encoder"]
-    _resnet_body(sd, f"{sep}.backbone.body", sep_p["backbone"]["body"],
-                 core_f["separate_encoder"]["backbone"]["body"])
-    _conv(sd, f"{sep}.backbone.input_proj", sep_p["backbone"]["input_proj"]["kernel"])
-    sd[f"{sep}.backbone.input_proj.bias"] = np.asarray(sep_p["backbone"]["input_proj"]["bias"])
-    _linear(sd, f"{sep}.imu_layers.0", sep_p["imu_layers"]["fc1"])
-    _linear(sd, f"{sep}.imu_layers.2", sep_p["imu_layers"]["fc2"])
-    for name, layer in sep_p.get("transformer", {}).items():
-        _encoder_layer(sd, f"{sep}.transformer.layers.{int(name[len('layer'):])}", layer)
+    sep, src = "_model.separate_encoder", "core/separate_encoder"
+    _resnet_body(sd, f"{sep}.backbone.body", v, f"{src}/backbone/body")
+    _conv(sd, f"{sep}.backbone.input_proj", v, f"params/{src}/backbone/input_proj")
+    if v.has(f"params/{src}/imu_layers"):
+        _linear(sd, f"{sep}.imu_layers.0", v, f"params/{src}/imu_layers/fc1")
+        _linear(sd, f"{sep}.imu_layers.2", v, f"params/{src}/imu_layers/fc2")
+    _encoder(sd, f"{sep}.transformer", v, f"params/{src}/transformer")
 
-    det, det_p = "_model.detector", core_p["detector"]
-    _linear(sd, f"{det}.class_embed", det_p["class_embed"])
-    _mlp(sd, f"{det}.bbox_embed", det_p["bbox_embed"])
-    sd[f"{det}.query_embed.weight"] = np.asarray(det_p["query_embed"]["embedding"])
-    dec, dec_p = f"{det}.decoder", det_p["decoder"]
-    if "query_scale" in dec_p:  # absent from a one-layer decoder
-        _mlp(sd, f"{dec}.query_scale", dec_p["query_scale"])
-    _mlp(sd, f"{dec}.ref_point_head", dec_p["ref_point_head"])
-    _layernorm(sd, f"{dec}.norm", dec_p["norm"])
-    for name, layer in dec_p.items():
-        if name.startswith("layer"):
-            _decoder_layer(sd, f"{dec}.layers.{int(name[len('layer'):])}", layer)
+    joint = "params/core/joint_encoder"
+    _encoder(sd, "_model.joint_encoder.transformer", v, f"{joint}/transformer")
+    for i in v.children(joint, "conv"):
+        _conv(sd, f"_model.joint_encoder.convs.{i}", v, f"{joint}/conv{i}")
+
+    det, src = "_model.detector", "params/core/detector"
+    _linear(sd, f"{det}.class_embed", v, f"{src}/class_embed")
+    _mlp(sd, f"{det}.bbox_embed", v, f"{src}/bbox_embed")
+    sd[f"{det}.query_embed.weight"] = v.take(f"{src}/query_embed/embedding")
+    dec, src = f"{det}.decoder", f"{src}/decoder"
+    _mlp(sd, f"{dec}.query_scale", v, f"{src}/query_scale")  # absent from some decoders
+    _mlp(sd, f"{dec}.ref_point_head", v, f"{src}/ref_point_head")
+    _layernorm(sd, f"{dec}.norm", v, f"{src}/norm")
+    for i in v.children(src, "layer"):
+        _decoder_layer(sd, f"{dec}.layers.{i}", v, f"{src}/layer{i}")
+    if v.left():
+        raise ValueError(f"JAX variables the weight bridge cannot place: {v.left()}")
     return sd
 
 
+# the name under which the flagship's callers know it
+flagship_state_arrays = state_arrays
+
+
 def jax_to_state_dict(variables: Tree, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for the JAX flagship's variables, as tensors on
+    """The port's state_dict for the JAX model's variables, as tensors on
     `device` (default CUDA; raises without a card)."""
     device = resolve_device(device)
     return {
         k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
-        for k, v in flagship_state_arrays(variables).items()
+        for k, v in state_arrays(variables).items()
     }
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Tree) -> torch.nn.Module:
-    """Load the JAX flagship's variables into a port flagship (strict: every
-    parameter and buffer must be matched) on the model's own device."""
+    """Load the JAX model's variables into the port's model of the same
+    build, on the model's own device. Raises ValueError when the trees
+    differ: a JAX leaf the bridge cannot place, a port parameter or buffer
+    the variables leave unfilled, or one they fill that the model lacks."""
     device = next(model.parameters()).device
-    model.load_state_dict(jax_to_state_dict(variables, device=device), strict=True)
+    sd = jax_to_state_dict(variables, device=device)
+    own = model.state_dict()
+    unfilled, extra = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+    if unfilled or extra:
+        raise ValueError(f"the JAX variables leave these port parameters unfilled: {unfilled}; "
+                         f"they fill these the port model lacks: {extra}")
+    model.load_state_dict(sd, strict=True)
     return model
 
 
@@ -213,7 +283,7 @@ def _merge(trees, like):
 
 def load_jax_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                          variables: Tree, opt_state: Any) -> None:
-    """Load the JAX flagship's variables ({"params", "frozen"}) into `model`
+    """Load the JAX model's variables ({"params", "frozen"}) into `model`
     and the state of the JAX package's optimizer (`build_optimizer`'s
     opt_state after some steps) into `optimizer` (the port's
     `build_optimizer` over that model): per parameter, optax's mu / nu
@@ -225,7 +295,7 @@ def load_jax_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimize
         raise ValueError("no AdamW state (count, mu, nu) in opt_state")
     params = variables["params"]
     moments = {
-        key: flagship_state_arrays(
+        key: state_arrays(
             {"params": _merge([getattr(s, key) for s in adam], params),
              "frozen": variables["frozen"]}
         )

@@ -5,8 +5,11 @@ checkpoints, the eval epoch and AP), with the flagship built tiny (hidden 32,
 (64, 96), the Trainer on the CPU, and real data from the fabricated
 nuScenes/nuImages archives of tests/test_dataset_files.py (its file-boundary
 devkit stubs; the archive's one scene is copied to every split's version,
-and its sweeps retimed to reach the 50 and 100 ms offsets).
-The eval scripts load a fabricated checkpoint. About 25 s alone.
+and its sweeps retimed to reach the 50 and 100 ms offsets). The
+single-frame script trains `build_single_frame` at the same tiny widths
+(its debug frames at (64, 96)), and the tracker eval loads that script's
+final checkpoint into `build_tracker_baseline`.
+The eval scripts load a fabricated checkpoint. About 30 s alone.
 """
 import dataclasses
 import json
@@ -17,10 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from future_od_tpu_torch.models.build import build_flagship
+from future_od_tpu_torch.models.build import build_flagship, build_single_frame, build_tracker_baseline
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
 from future_od_tpu_torch.data.synthetic import SyntheticClipDataset
 from future_od_tpu_torch.runs import _helper, _loader, _model
+from future_od_tpu_torch.runs import nuim_single_frame as single_frame
 from future_od_tpu_torch.runs import nuim_spatiotemporal_imu as nuim
 from future_od_tpu_torch.runs import nusc_spatiotemporal_imu_250ms as nusc250
 from future_od_tpu_torch.runs import nusc_spatiotemporal_imu_500ms as nusc500
@@ -34,6 +38,7 @@ from future_od_tpu_torch.runs.eval import nusc_250ms_attendprev_decoder_eval as 
 from future_od_tpu_torch.runs.eval import nusc_500ms_attendprev_decoder_eval as eval500
 from future_od_tpu_torch.runs.eval import nusc_tracker_baseline_eval as tracker_eval
 from future_od_tpu_torch.train import trainer as trainer_module
+from future_od_tpu_torch.train.step import make_tracker_eval_step
 from future_od_tpu_torch.utils.checkpoint import save_checkpoint
 from test_dataset_files import build_nuimages_archive, build_nuscenes_archive, install_file_devkits
 from test_torch_flash_tc_rounding import one_torch_thread  # noqa: F401 (autouse)
@@ -127,6 +132,47 @@ def test_eval_script_on_a_fabricated_checkpoint(tiny_runs, script, encode_offset
     assert "val0" in trainer._ap_by_mode and trainer.step == 0
 
 
-def test_tracker_eval_still_refuses():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 3"):
-        tracker_eval.main([])
+def tiny_builder(build):
+    return lambda detr_args, use_imu=False: build(dataclasses.replace(detr_args, **TINY),
+                                                  use_imu=use_imu, device="cpu")
+
+
+def test_single_frame_script_then_tracker_eval(tiny_runs, monkeypatch, capsys):
+    """The single-frame script trains on the fabricated nuImages files and
+    writes its final checkpoint; the tracker eval loads it (the two trees
+    are one) and runs its eval epoch with the host tracker on the 3-frame
+    nuScenes clips."""
+    monkeypatch.setattr(single_frame, "build_single_frame", tiny_builder(build_single_frame))
+    monkeypatch.setattr(single_frame, "DEBUG_IMAGE_SIZE", (64, 96))
+    trainer = single_frame.main(["--debug", "--disable_wandb", "--epochs", "1"])
+    assert "Finished training!" in capsys.readouterr().out
+    assert trainer.step >= 1 and set(trainer._ap_by_mode) == {"train", "val0"}
+    assert trainer._train_loader.dataset[0]["video"].shape[0] == 1  # offsets [0]
+    final = tiny_runs / "ckpt" / "nuim_single_frame_final"
+    assert final.exists()
+
+    monkeypatch.setattr(tracker_eval, "build_tracker_baseline",
+                        tiny_builder(build_tracker_baseline))
+    monkeypatch.setenv("FUTURE_OD_TRACKER_DIM_EXTRAPOLATION", "linear")
+    seen = []
+    monkeypatch.setattr(trainer_module, "make_tracker_eval_step",
+                        lambda *a, **k: seen.append(a[2]) or make_tracker_eval_step(*a, **k))
+    evaluated = tracker_eval.main(["--checkpoint", str(final), "--disable_wandb"])
+    loaded = evaluated._model.state_dict()
+    assert all(torch.equal(loaded[k], v) for k, v in trainer._model.state_dict().items())
+    assert seen[0]._dim_extrapolation == "linear"
+    assert "val0" in evaluated._ap_by_mode and evaluated.step == 0
+    assert evaluated._val_loaders["val0"].dataset[0]["video"].shape[0] == 3
+
+
+def test_single_frame_debug_config_is_the_jax_scripts():
+    args = single_frame.build_parser().parse_args(["--debug", "--synthetic"])
+    detr = single_frame.detr_args_for(args)
+    assert (detr.hidden_dim, detr.enc_nheads, detr.nheads, detr.enc_layers, detr.dec_layers,
+            detr.dim_feedforward, detr.num_queries, detr.num_classes) == (64, 4, 4, 2, 2, 128,
+                                                                          16, 2)
+    assert single_frame.DEBUG_IMAGE_SIZE == (128, 192) and single_frame.DEBUG_BATCH == 2
+    full = single_frame.detr_args_for(single_frame.build_parser().parse_args([]))
+    assert (full.hidden_dim, full.num_queries, full.num_classes) == (256, 128, 8)
+    assert single_frame.IMAGE_SIZE == (448, 800) and single_frame.BATCH == 32
+    assert single_frame.OFFSETS == [0] and tracker_eval.OFFSETS == [-1.0, -0.5, 0]

@@ -35,8 +35,9 @@ from future_od_tpu.utils.wandb import WandBConfig as JaxWandBConfig
 
 from future_od_tpu_torch.data import loader, nu_scenes
 from future_od_tpu_torch.data.synthetic import CATEGORY_DICT, SyntheticClipDataset
-from future_od_tpu_torch.models.build import build_flagship
+from future_od_tpu_torch.models.build import build_flagship, build_tracker_baseline
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+from future_od_tpu_torch.models.tracker import TrackerFuturePredictor
 from future_od_tpu_torch.runs import _helper, _loader
 from future_od_tpu_torch.runs.nusc_spatiotemporal_imu_500ms import build_parser
 from future_od_tpu_torch.train.trainer import Trainer
@@ -348,10 +349,31 @@ def test_missing_checkpoint_warns(tmp_path, capsys):
     assert "does not exist" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(tracker=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_trainer_refuses_unported_options(tmp_path, kw):
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item \d"):
         port_trainer(tmp_path, **kw)
+
+
+def test_trainer_runs_a_tracker_eval_epoch(tmp_path):
+    """Trainer(tracker=...) evaluates the tracker baseline: each batch's
+    past frames detected, the host tracker called on their detections, AP
+    aggregated over its extrapolated predictions."""
+    calls = []
+    tracker = TrackerFuturePredictor("average")
+
+    def counting(p1, p2, offsets):
+        calls.append((p1["pred_boxes"].shape, None if offsets is None else offsets.shape))
+        return tracker(p1, p2, offsets)
+    model = build_tracker_baseline(SpatioTemporalDETRArgs(**TINY), device="cpu")
+    trainer = port_trainer(tmp_path, model=model, tracker=counting)
+    trainer.eval()
+    batches = len(trainer._val_loaders["val0"])
+    assert len(calls) == batches
+    B = trainer._val_loaders["val0"].batch_size
+    assert calls[0] == ((B, TINY["num_queries"], 4), (B, 3))
+    assert set(trainer._ap_by_mode) == {"val0"} and trainer.step == 0
+    assert np.isfinite(trainer._stats["val0 labels loss"].avg)
 
 
 @pytest.mark.parametrize("kw", [dict(mixed_precision=True), dict(accum_steps=2)])
