@@ -166,8 +166,34 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    Then K1 against its plain version on the inputs of its joint call (2800
    tokens) and of the sequential encoder's prevout and frame-memory
    cross-attentions.
+9. serving at full width (phase 2's flagship, seeds 0 and 1; the kernels
+   K1-K3 are the ops fod::flash_attention, fod::fused_bottleneck and
+   fod::fused_stem, and phase 1 gives K1's host µs a call through the op
+   beside its launch alone):
+   9a. `StreamingSession` over 12 lockstep streams (bench.py's batch) of 5
+   frames at 896x1600, f32 (TF32 off): each output equals
+   `make_inference_fn` on the clip ending at its frame within phase 3's
+   tolerances, with the default gates (K1 6 launches an encode, none a
+   detect) and the fused gates (K1 6, K2 6, K3 1 an encode); clips/s of the
+   session beside the batch path's at 12 clips a request, f32 default and
+   bf16 fused; the host-to-device copy of one frame batch beside a clip's.
+   9b. the serve script, `python -m future_od_tpu_torch.runs.serve` (its
+   `main()` in this process) at the JAX script's defaults (24 streams,
+   batch 12, 8 rounds), f32, --bf16 and --bf16 --device_normalize, default
+   gates: its JSON line (clips/s, p50/p95/p99, pad fraction 0), K1 6
+   launches a dispatch, the rings' MB and the peak memory; then 3 staggered
+   streams through max_batch=4 against per-stream sessions within phase
+   3's tolerances, and a stream served alone (padded) against the same
+   stream sharing its batches (the max difference; 0 when no op mixes
+   batch rows).
+   9c. `export_inference` at phase 2's request under the default and the
+   fused gates and `export_streaming` at one frame batch of 12 (fused),
+   each loaded from its bytes: its outputs against the eager ones within
+   phase 3's tolerances, its launches (K1 6, and K2 6, K3 1 under the fused
+   gates, a forward or encode; none a detect), a wrong shape refused, the
+   loaded artifact's request ms beside the eager request's.
 4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's,
-   6b's and 8's runs), then the device JSON line, last.
+   6b's, 8's and 9's runs), then the device JSON line, last.
 
 Phases 2 and 3 also say where a request's time goes: the device time of the
 backbone, the encoder and the detector (CUDA events recorded by forward
@@ -407,6 +433,17 @@ VARIANT_K1_CALLS = (
     ("sequential", 9, "prevout cross-attention: frame 1's queries, frame 0's encoder output"),
     ("sequential", 10, "frame-memory cross-attention: frame 1's queries, frame 0's raw tokens"),
 )
+
+
+# 9: serving. bench.py's batch of 12 as 12 streams in lockstep, 5 frames
+# each (clips end at frames 1-3 of the stream); the serve script at the JAX
+# script's defaults (24 streams, batch 12, 8 rounds, 896x1600).
+IMU_WIDTHS = {"translation": 3, "acceleration": 3, "rotation": 4, "rotation_rate": 3, "speed": 1}
+SERVE_STREAMS, SERVE_STREAM_FRAMES, SERVE_TIMED_STEPS = 12, 5, 6
+SERVE_SCRIPT = "future_od_tpu_torch.runs.serve"
+SERVE_RUNS = (("f32", []), ("bf16", ["--bf16"]), ("bf16 uint8", ["--bf16", "--device_normalize"]))
+FUSED_GATES = {"FUTURE_OD_FUSED_RESNET": "1", "FUTURE_OD_FUSED_STEM": "1"}
+FUSED_LAUNCHES = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1}
 
 
 def log(phase: str, **fields) -> None:
@@ -714,6 +751,11 @@ def kernel_phase(torch, dev):
             ),
             bound_ms=b_ms, bound_by=b_by, bound_is=b_is, bound_each_ms=b_each,
             ops=ops, bytes=nbytes, exps=exps,
+            # the host's µs a call: through the op fod::flash_attention (the
+            # wrapper, the dispatcher) and the op's CUDA implementation alone
+            # (the launch as it was before the op)
+            host_us=host_us(torch, lambda: fa.flash_attention(q, k, v, scale)),
+            host_us_launch=host_us(torch, lambda: fa.flash_attention_cuda(q, k, v, scale)),
         )
         records["flash_attention"].append(rec)
         log("kernel", kernel="flash_attention", **rec)
@@ -1273,8 +1315,7 @@ def make_batch(seed: int):
     batch = {
         "video": rng.standard_normal((BATCH, FRAMES, HEIGHT, WIDTH, 3), dtype=np.float32)
     }
-    widths = {"translation": 3, "acceleration": 3, "rotation": 4, "rotation_rate": 3, "speed": 1}
-    for key, width in widths.items():
+    for key, width in IMU_WIDTHS.items():
         batch[key] = rng.standard_normal((BATCH, FRAMES, width), dtype=np.float32)
     return batch
 
@@ -2644,6 +2685,383 @@ def variants_phase(torch):
     return records, k1, total
 
 
+def serve_gaps(torch, out, ref) -> dict:
+    """Phase 3's output gaps of a served output from its reference."""
+    return {"score_err": (out["class_scores"].float() - ref["class_scores"].float()).abs().max().item(),
+            "box_err_px": (out["boxes"].float() - ref["boxes"].float()).abs().max().item()}
+
+
+def check_serve_gaps(what: str, gaps: dict) -> None:
+    if gaps["score_err"] > SCORE_TOL or gaps["box_err_px"] > BOX_TOL_PX:
+        raise AssertionError(f"{what}: {gaps} beyond phase 3's tolerances "
+                             f"{SCORE_TOL}, {BOX_TOL_PX} px")
+
+
+def make_stream(seed: int, streams: int, frames: int):
+    """`streams` lockstep streams of `frames` frames at 896x1600, numpy:
+    {"video": (streams, frames, H, W, 3), IMU keys: (streams, frames, d)}."""
+    rng = np.random.default_rng(seed)
+    stream = {"video": rng.standard_normal((streams, frames, HEIGHT, WIDTH, 3),
+                                           dtype=np.float32)}
+    for key, width in IMU_WIDTHS.items():
+        stream[key] = rng.standard_normal((streams, frames, width), dtype=np.float32)
+    return stream
+
+
+def frame_of(stream, t):
+    """Frame t of every stream: {"video": (B, H, W, 3), IMU keys: (B, d)}."""
+    return {k: np.ascontiguousarray(v[:, t]) for k, v in stream.items()}
+
+
+def clip_of(stream, t):
+    """The clip whose past frames end at frame t (3 frames, t + 1 the
+    future one), as a batch of the JAX package's keys."""
+    clip = {k: np.ascontiguousarray(v[:, t - 1:t + 2]) for k, v in stream.items()}
+    return dict(clip, annotated_frame_idx=np.full((clip["video"].shape[0],), FRAMES - 1))
+
+
+class CountedCalls:
+    """Wraps a callable; records the launches each call made."""
+
+    def __init__(self, kernels, fn):
+        self.kernels, self.fn, self.calls = kernels, fn, []
+
+    def __call__(self, *args):
+        before = dict(self.kernels.launch_counts)
+        out = self.fn(*args)
+        self.calls.append({k: n - before[k] for k, n in self.kernels.launch_counts.items()
+                           if n != before[k]})
+        return out
+
+
+def counted_session(torch, model, kernels, hw):
+    """A StreamingSession of SERVE_STREAMS-frame batches whose encode and
+    detect record the launches of each call."""
+    from future_od_tpu_torch.serve import StreamingSession, make_streaming_fns
+
+    session = StreamingSession(model, clip_frames=FRAMES)
+    encode, detect = make_streaming_fns(model, FRAMES, hw)
+    session.encode, session.detect = CountedCalls(kernels, encode), CountedCalls(kernels, detect)
+    return session
+
+
+def session_phase(torch, model, stream, gate_runs):
+    """Phase 9a: StreamingSession over SERVE_STREAMS lockstep streams of
+    SERVE_STREAM_FRAMES frames, each output against make_inference_fn on the
+    clip that ends at its frame, under each (label, gates, launches an
+    encode) of `gate_runs`. Returns {label: record}."""
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.train.step import make_inference_fn
+
+    infer = make_inference_fn(model)
+    records = {}
+    for label, gates, want in gate_runs:
+        set_gates(**gates)
+        _kernels.reset_launch_counts()
+        session = counted_session(torch, model, _kernels, (HEIGHT, WIDTH))
+        gaps = []
+        for t in range(SERVE_STREAM_FRAMES - 1):  # clips end at frames 1..3
+            out = session.step(frame_of(stream, t))
+            if t == 0:
+                if out is not None:
+                    raise AssertionError("the session answered before its window was full")
+                continue
+            gaps.append(serve_gaps(torch, out, infer(clip_of(stream, t))))
+            check_serve_gaps(f"9a session {label}, frame {t}", gaps[-1])
+        if any(c != want for c in session.encode.calls) or any(session.detect.calls):
+            raise AssertionError(f"9a {label}: launches an encode {session.encode.calls}, a "
+                                 f"detect {session.detect.calls}; want {want} and none")
+        records[label] = {"gaps": gaps, "encode_launches": session.encode.calls[0],
+                          "detect_launches": {}, "encodes": len(session.encode.calls)}
+        log("9a-session", run=label, ok=True, **records[label])
+    return records
+
+
+def session_throughput(torch, model, stream, steps: int = SERVE_TIMED_STEPS):
+    """clips/s of the session (steps pipelined, one sync at the end, as
+    tools/bench_streaming.py times them; each step copies its frame batch
+    from the host) beside the batch path at SERVE_STREAMS clips a request
+    (synced each), on the same frames."""
+    from future_od_tpu_torch.train.step import make_inference_fn
+
+    from future_od_tpu_torch.serve import StreamingSession
+
+    session = StreamingSession(model, clip_frames=FRAMES)
+    frames = [frame_of(stream, t) for t in range(SERVE_STREAM_FRAMES)]
+    for f in frames[:FRAMES]:
+        session.step(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        session.step(frames[i % len(frames)])
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t0
+    infer = make_inference_fn(model)
+    clip = clip_of(stream, 1)
+    _, request_s = forward(torch, infer, clip, REQUESTS + 1)
+    batch_s = median_and_least(request_s[1:])[0]
+    return {"session_clips_per_s": SERVE_STREAMS * steps / session_s,
+            "session_step_ms": 1e3 * session_s / steps,
+            "batch_clips_per_s": SERVE_STREAMS / batch_s, "batch_request_ms": 1e3 * batch_s,
+            "batch_request_s": request_s}
+
+
+def export_phase(torch, model, stream):
+    """Phase 9c: export_inference at one request (phase 2's batch) under the
+    default and the fused gates, export_streaming at one frame batch of
+    SERVE_STREAMS under the fused gates; each loaded from its bytes, run,
+    its launches counted and its outputs held against the eager ones."""
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.serve import export_inference, export_streaming, load_serving
+    from future_od_tpu_torch.serve import make_streaming_fns
+    from future_od_tpu_torch.train.step import make_inference_fn, to_device_batch
+
+    device = next(model.parameters()).device
+    batch = dict(make_batch(seed=0), annotated_frame_idx=np.full((BATCH,), FRAMES - 1))
+    dev_batch = to_device_batch(batch, device)
+    records = {}
+    for label, gates, want in (("default", {}, {"flash_attention": 6}),
+                               ("fused", FUSED_GATES, FUSED_LAUNCHES)):
+        set_gates(**gates)
+        infer = make_inference_fn(model)
+        eager, eager_s = forward(torch, infer, dev_batch, REQUESTS)
+        t0 = time.perf_counter()
+        blob = export_inference(model, batch)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = load_serving(blob)
+        load_s = time.perf_counter() - t0
+
+        def served(b, program=program):
+            with torch.inference_mode():
+                return program(b)
+        _kernels.reset_launch_counts()
+        got, served_s = forward(torch, served, dev_batch, REQUESTS)
+        counts = launched(_kernels)
+        if counts != {k: n * REQUESTS for k, n in want.items()}:
+            raise AssertionError(f"9c {label} artifact: launches {counts}, want {want} a forward")
+        check_output(torch, got, model.args.num_queries, model.args.num_classes)
+        gaps = serve_gaps(torch, got, eager)
+        check_serve_gaps(f"9c {label} artifact against eager", gaps)
+        try:
+            served(dict(dev_batch, video=dev_batch["video"][:, :, :HEIGHT // 2]))
+        except Exception as e:  # the artifact's own shape check
+            refused = f"{type(e).__name__}: {str(e)[:120]}"
+        else:
+            raise AssertionError(f"9c {label}: the artifact took a wrong shape")
+        records[label] = {"gaps": gaps, "launches": counts, "blob_mb": len(blob) / 1e6,
+                          "export_s": export_s, "load_s": load_s,
+                          "artifact_request_s": served_s, "eager_request_s": eager_s,
+                          "wrong_shape": refused}
+        log("9c-export-inference", run=label, ok=True, **records[label])
+        del program, blob
+
+    set_gates(**FUSED_GATES)
+    frame = frame_of(stream, 0)
+    t0 = time.perf_counter()
+    encode_blob, detect_blob = export_streaming(model, frame)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encode, detect = load_serving(encode_blob), load_serving(detect_blob)
+    load_s = time.perf_counter() - t0
+    encode, detect = CountedCalls(_kernels, encode), CountedCalls(_kernels, detect)
+    live_encode, live_detect = make_streaming_fns(model, FRAMES, (HEIGHT, WIDTH))
+    feats, egos, feature_rel = [], [], []
+    with torch.inference_mode():
+        for t in range(FRAMES - 1):
+            f = to_device_batch(frame_of(stream, t), device)
+            got_f, got_e = encode(f)
+            want_f, _ = live_encode(f)
+            feature_rel.append(max_rel(got_f, want_f))
+            feats.append(got_f)
+            egos.append(got_e)
+        features, egodeep = torch.stack(feats, 1), torch.stack(egos, 1)
+        offsets = features.new_zeros(features.shape[:2])
+        got = detect(features, egodeep, offsets)
+        want = live_detect(features, egodeep, offsets)
+    encode_counts = {k: sum(c.get(k, 0) for c in encode.calls) for k in FUSED_LAUNCHES}
+    detect_counts = detect.calls[0]
+    if any(c != FUSED_LAUNCHES for c in encode.calls) or detect_counts:
+        raise AssertionError(f"9c streaming artifacts: launches {encode.calls} an encode, "
+                             f"{detect_counts} in a detect; want {FUSED_LAUNCHES} and none")
+    if max(feature_rel) > ENCODER_RTOL:
+        raise AssertionError(f"9c encode artifact: features {feature_rel} of max beyond "
+                             f"{ENCODER_RTOL}")
+    gaps = serve_gaps(torch, got, want)
+    check_serve_gaps("9c detect artifact against eager", gaps)
+    records["streaming fused"] = {
+        "gaps": gaps, "feature_rel": feature_rel, "encode_launches": encode_counts,
+        "detect_launches": detect_counts, "blob_mb": [len(encode_blob) / 1e6,
+                                                      len(detect_blob) / 1e6],
+        "export_s": export_s, "load_s": load_s}
+    log("9c-export-streaming", ok=True, **records["streaming fused"])
+    set_gates()
+    return records
+
+
+def serve_script_phase(torch):
+    """Phase 9b: the serve script's main() in this process at its JAX
+    defaults (24 streams, batch 12, 8 rounds, 896x1600), f32, --bf16 and
+    --bf16 --device_normalize, default gates: K1 6 launches a dispatch,
+    every dispatch full. Returns ({run: record}, K1's launches in all)."""
+    import importlib
+
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.serve import MultiStreamServer
+
+    script = importlib.import_module(SERVE_SCRIPT)
+    servers = []
+
+    class Kept(MultiStreamServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            servers.append(self)
+
+    records, total = {}, 0
+    script.MultiStreamServer = Kept
+    try:
+        for label, argv in SERVE_RUNS:
+            set_gates()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            line = script.main(argv)
+            run_s = time.perf_counter() - t0
+            counts = launched(_kernels)
+            if counts != {"flash_attention": 6 * line["dispatches"]}:
+                raise AssertionError(f"9b {label}: launches {counts} in {line['dispatches']} "
+                                     "dispatches, want flash 6 a dispatch")
+            opts = script.build_parser().parse_args(argv)
+            if line["pad_fraction"] != 0 or line["clips"] != opts.streams * opts.rounds:
+                raise AssertionError(f"9b {label}: {line}")
+            total += counts["flash_attention"]
+            records[label] = {"argv": argv, "line": line, "launches": counts, "run_s": run_s,
+                              "ring_mb": servers[-1].ring_bytes() / 1e6,
+                              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            log("9b-serve-script", run=label, ok=True, card=gpu_name_and_power(),
+                **records[label])
+            servers.clear()
+    finally:
+        script.MultiStreamServer = MultiStreamServer
+    return records, total
+
+
+def server_checks(torch, model):
+    """Phase 9b, after the script: 3 staggered streams through max_batch=4
+    against per-stream sessions, and a stream served alone (3 pad rows a
+    dispatch) against the same stream sharing its batches (the max
+    difference; 0 when no op mixes batch rows)."""
+    from future_od_tpu_torch.serve import MultiStreamServer, StreamingSession
+    from future_od_tpu_torch.serve.server import split_results
+
+    set_gates()
+    stream = make_stream(11, 3, 4)
+    frames = {sid: [{k: v[i, t] for k, v in stream.items()} for t in range(4)]
+              for i, sid in enumerate("abc")}
+    server = MultiStreamServer(model, max_batch=4, clip_frames=FRAMES)
+    got = {sid: [] for sid in frames}
+    for t in range(4):
+        for sid in "abc":
+            for rsid, out in split_results(server.submit(sid, frames[sid][t])):
+                got[rsid].append(out)
+    for rsid, out in split_results(server.flush()):
+        got[rsid].append(out)
+    gaps = []
+    for sid, fs in frames.items():
+        session = StreamingSession(model, clip_frames=FRAMES)
+        want = [o for o in (session.step({k: v[None] for k, v in f.items()}) for f in fs)
+                if o is not None]
+        if not len(got[sid]) == len(want) == 3:
+            raise AssertionError(f"9b server: stream {sid} gave {len(got[sid])} clips")
+        for g, w in zip(got[sid], want):
+            gaps.append(serve_gaps(torch, g, {k: v[0] for k, v in w.items()}))
+            check_serve_gaps(f"9b server stream {sid} against its session", gaps[-1])
+    solo = MultiStreamServer(model, max_batch=4, clip_frames=FRAMES)
+    mixed = MultiStreamServer(model, max_batch=4, clip_frames=FRAMES)
+    solo_outs, mixed_outs = [], []
+    for t in range(FRAMES):
+        solo_outs += [o for _, o in split_results(solo.submit("x", frames["a"][t]) + solo.flush())]
+        res = mixed.submit("x", frames["a"][t]) + mixed.submit("y", frames["b"][t]) + mixed.flush()
+        mixed_outs += [o for sid, o in split_results(res) if sid == "x"]
+    padding_diff = max(max((s[k].float() - m[k].float()).abs().max().item()
+                           for k in ("boxes", "class_scores"))
+                       for s, m in zip(solo_outs, mixed_outs))
+    record = {"gaps": gaps, "pad_fraction_solo": solo.stats()["pad_fraction"],
+              "padding_max_diff": padding_diff}
+    log("9b-server-checks", ok=True, **record)
+    return record
+
+
+def serving_phase(torch):
+    """Phase 9: serving at full width. Returns (records, launches by kernel
+    and sub-phase)."""
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128)
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    stream = make_stream(10, SERVE_STREAMS, SERVE_STREAM_FRAMES)
+    stream_s = time.perf_counter() - t0
+    records = {"stream_s": stream_s}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runs = (("f32 default", {}, {"flash_attention": 6}),
+            ("f32 fused", FUSED_GATES, FUSED_LAUNCHES))
+    records["9a"] = session_phase(torch, model, stream, runs)
+    set_gates()
+    records["9a"]["throughput f32 default"] = session_throughput(torch, model, stream)
+    records["9a"]["h2d_ms"] = {"one frame batch": h2d_ms(torch, frame_of(stream, 0)["video"]),
+                               "a clip batch (3 frames)": h2d_ms(torch, clip_of(stream, 1)["video"])}
+    records["9a"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    records["9a"]["seconds"] = time.perf_counter() - t0
+    log("9a-session-f32", ok=True, card=gpu_name_and_power(),
+        **{k: v for k, v in records["9a"].items() if k not in ("f32 default", "f32 fused")})
+
+    t0 = time.perf_counter()
+    records["9c"] = export_phase(torch, model, stream)
+    records["9c"]["seconds"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model.to(torch.bfloat16)
+    set_gates(**FUSED_GATES)
+    _kernels.reset_launch_counts()
+    records["9a"]["throughput bf16 fused"] = session_throughput(torch, model, stream)
+    records["9a"]["bf16_seconds"] = time.perf_counter() - t0
+    log("9a-session-bf16-fused", ok=True, card=gpu_name_and_power(),
+        **records["9a"]["throughput bf16 fused"])
+    set_gates()
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    records["9b"], script_k1 = serve_script_phase(torch)
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    records["9b"]["server checks"] = server_checks(torch, model)
+    records["9b"]["seconds"] = time.perf_counter() - t0
+    del model, stream
+    torch.cuda.empty_cache()
+
+    session_launches = {k: 0 for k in MAIN_KERNELS}
+    for rec in (records["9a"]["f32 default"], records["9a"]["f32 fused"]):
+        for k, n in rec["encode_launches"].items():
+            session_launches[k] += n * rec["encodes"]
+    artifact_launches = {k: 0 for k in MAIN_KERNELS}
+    for label in ("default", "fused"):
+        for k, n in records["9c"][label]["launches"].items():
+            artifact_launches[k] += n
+    for k, n in records["9c"]["streaming fused"]["encode_launches"].items():
+        artifact_launches[k] += n
+    launches = {name: {"9a session": session_launches[name],
+                       "9b serve script": script_k1 if name == "flash_attention" else 0,
+                       "9c artifacts": artifact_launches[name]} for name in MAIN_KERNELS[:3]}
+    return records, launches
+
+
 def max_rel(a, b) -> float:
     """max |a - b| over max |b|."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -2800,6 +3218,10 @@ def main() -> int:
     variant_records, variant_k1, variant_k1_total = variants_phase(torch)
     log("8c-variants", ok=True, card=gpu_name_and_power(), variants=variant_records,
         k1_vs_plain=variant_k1, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    serving_records, phase9_launches = serving_phase(torch)
+    log("9-serving", ok=True, card=gpu_name_and_power(), seconds=time.perf_counter() - t0,
+        **{k: serving_records[k]["seconds"] for k in ("9a", "9b", "9c")})
     phase8_launches = {
         name: {"8a single-frame script": single_totals.get(name, 0),
                "8b tracker eval": tracker_totals.get(name, 0),
@@ -2907,9 +3329,14 @@ def main() -> int:
                                    "library_is", "per")},
             "calls": rec["calls"],
         })
-    for row in kernels:  # the launches on phase 6's, 6b's and 8's runs, by stage
+    for row in kernels:  # the launches on phase 6's, 6b's, 8's and 9's runs, by stage
         if row["name"] in phase8_launches:
             row["phase8_launches"] = phase8_launches[row["name"]]
+        if row["name"] in phase9_launches:
+            row["phase9_launches"] = phase9_launches[row["name"]]
+        if row["name"] == "flash_attention":
+            row["host_us"] = {r["dtype"]: {"op": r["host_us"], "launch": r["host_us_launch"]}
+                              for r in row["calls"]}
         if row["name"] == "flash_attention":
             row["phase8_calls"] = variant_k1
         if row["name"] in single_kernels:

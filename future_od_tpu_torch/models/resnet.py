@@ -82,7 +82,12 @@ def kept_pack(module: nn.Module, attr: str, tensors, dtype, build):
     on `module` as `attr` until one of them is replaced, moved, cast or
     written in place. The pack holds plain tensors without autograd history,
     also when it is built in inference mode. Tensors made in inference mode
-    keep no version count, so their pack is built anew at every call."""
+    keep no version count, so their pack is built anew at every call. Under
+    `torch.export` the pack is traced as the graph's own ops, so an exported
+    program repacks at every call and follows a `load_state_dict` of its
+    weights."""
+    if torch.compiler.is_compiling():
+        return build()
     key = None if any(t.is_inference() for t in tensors) else (
         dtype, *((id(t), t.data_ptr(), t.dtype, t._version) for t in tensors))
     kept = getattr(module, attr, None)

@@ -258,11 +258,17 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+def check_cuda_device(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device."""
     device = tensors[0].device
     for t in tensors:
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name}: operands must share one CUDA device, got {t.device}")
+
+
+def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device."""
+    check_cuda_device(name, *tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")

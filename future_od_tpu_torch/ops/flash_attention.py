@@ -7,7 +7,10 @@ dtype. Its products run on the tensor cores (`mma.sync`): bf16 operands as
 stored with P as a hi + lo pair of bf16, f32 operands as three TF32 products
 (3xTF32, f32 accuracy). The (Nq, Nk) logits never reach device memory. On a
 CPU tensor it runs `reference_attention`, the plain version of the same
-function.
+function. The call is the `torch.library` op `fod::flash_attention` (CPU:
+the plain version; CUDA: the launch; a fake implementation for tracing), so
+`torch.export` keeps the kernel in an exported graph as one node
+(serve/export.py).
 
 Training: `flash_attention_train` is the differentiable counterpart with
 attention-weight dropout inside the kernels (`FlashAttentionTrain`). Its
@@ -62,10 +65,19 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
 
     q, k: (B, H, Nq|Nk, d); v: (B, H, Nk, dv); f32 or bf16. Returns
     (B, H, Nq, dv) in q's dtype. CPU tensors take `reference_attention`;
-    CUDA tensors launch the kernel or raise.
+    CUDA tensors launch the kernel or raise, other devices raise. The call
+    is the op `fod::flash_attention`, which `torch.export` keeps as one
+    node; off the CPU its operands are checked before it, so an export on
+    the card refuses what the kernel would.
     """
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, scale)
+    if q.device.type != "cpu":
+        _check_attention(q, k, v)
+    return _FLASH_ATTENTION(q, k, v, float(scale))
+
+
+def _check_attention(q, k, v) -> None:
+    """Raise unless K1 takes these operands: matching shapes, a built
+    head-dim pair, f32 or bf16, one CUDA device."""
     B, H, Nq, d = q.shape
     Nk, dv = k.shape[2], v.shape[3]
     if k.shape != (B, H, Nk, d) or v.shape[:3] != (B, H, Nk):
@@ -74,8 +86,16 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
         raise ValueError(f"{NAME}: head dims (d={d}, dv={dv}) not in {SUPPORTED_HEAD_DIMS}")
     if q.dtype not in _kernels.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{NAME}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; want one of f32, bf16")
+    _kernels.check_cuda_device(NAME, q, k, v)
+
+
+def flash_attention_cuda(q, k, v, scale: float) -> torch.Tensor:
+    """The op's CUDA implementation: check, launch K1, count the launch
+    (chip_smoke.py times it beside the op to give the dispatcher's cost)."""
+    _check_attention(q, k, v)
+    B, H, Nq, d = q.shape
+    Nk, dv = k.shape[2], v.shape[3]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _kernels.check_cuda_operands(NAME, q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{NAME}: operands must be 16-byte aligned (16-byte async copies)")
     out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
@@ -87,6 +107,21 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
     )
     _kernels.launch_counts[NAME] += 1
     return out
+
+
+def _attention_fake(q, k, v, scale):
+    return q.new_empty(q.shape[:3] + v.shape[3:])
+
+
+# fod::flash_attention: CPU the plain version, CUDA the launch, a fake for
+# tracing. Defined through torch.library.Library, whose dispatch costs the
+# host a few µs a call (a custom_op's Python autograd wrapper costs more).
+_LIB = torch.library.Library("fod", "FRAGMENT")  # the ops live as long as it
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, float scale) -> Tensor")
+_LIB.impl("flash_attention", reference_attention, "CPU")
+_LIB.impl("flash_attention", flash_attention_cuda, "CUDA")
+torch.library.register_fake("fod::flash_attention", _attention_fake, lib=_LIB)
+_FLASH_ATTENTION = torch.ops.fod.flash_attention.default
 
 
 def attention_cost(B: int, H: int, Nq: int, Nk: int, d: int, dv: int, itemsize: int):

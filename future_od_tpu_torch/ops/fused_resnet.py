@@ -21,7 +21,10 @@
 All take NHWC tensors and HWIO / (in, out) weights as the JAX functions do.
 On CPU tensors they run `bottleneck_plain` / `stem_plain` / `layer1_plain`,
 the plain versions of the same functions; on CUDA tensors they launch the
-kernel or raise.
+kernel or raise. `fused_bottleneck_packed` and `fused_stem_packed`, the
+model's calls, are the `torch.library` ops `fod::fused_bottleneck` and
+`fod::fused_stem` (the packed weights as tensor arguments, None for an
+absent downsample), which `torch.export` keeps as nodes.
 """
 from __future__ import annotations
 
@@ -163,17 +166,41 @@ def fused_bottleneck(
 
 def fused_bottleneck_packed(x: torch.Tensor, p: BottleneckWeights) -> torch.Tensor:
     """`fused_bottleneck` of x (B, H, W, cin) and weights packed for x's
-    dtype by `pack_bottleneck`."""
-    cmid, cout = p.w1.shape[1], p.w3.shape[1]
-    w2 = p.w2.reshape(3, 3, cmid, cmid)
-    if x.device.type == "cpu":
-        return bottleneck_plain(x, p.w1, p.b1, w2, p.b2, p.w3, p.b3, p.wd, p.bd)
-    _check_bottleneck(BOTTLENECK, x.shape[3], x.dtype, p.w1, w2, p.w3, p.wd, p.bd,
-                      BOTTLENECK_CMIDS, BOTTLENECK_CIN_STEP)
-    if p.w1.dtype != x.dtype or (p.w1t is None) != (x.dtype == torch.float32):
-        raise ValueError(f"{BOTTLENECK}: weights packed for {p.w1.dtype}, x is {x.dtype}")
+    dtype by `pack_bottleneck`: the op `fod::fused_bottleneck`, which
+    `torch.export` keeps as one node (off the CPU its operands are checked
+    before it)."""
+    if x.device.type != "cpu":
+        _check_packed_bottleneck(x, *p)
+    return _FUSED_BOTTLENECK(x, *p)
+
+
+def _check_packed_bottleneck(x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t) -> None:
+    """Raise unless K2 takes x and these packed weights: the built widths,
+    weights packed for x's dtype, one CUDA device."""
+    cmid = w1.shape[1]
+    _check_bottleneck(BOTTLENECK, x.shape[3], x.dtype, w1, w2.reshape(3, 3, cmid, cmid), w3,
+                      wd, bd, BOTTLENECK_CMIDS, BOTTLENECK_CIN_STEP)
+    if w1.dtype != x.dtype or (w1t is None) != (x.dtype == torch.float32):
+        raise ValueError(f"{BOTTLENECK}: weights packed for {w1.dtype}, x is {x.dtype}")
+    ops = (x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t)
+    _kernels.check_cuda_device(BOTTLENECK, *(t for t in ops if t is not None))
+
+
+def _fused_bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t):
+    cmid = w1.shape[1]
+    return bottleneck_plain(x, w1, b1, w2.reshape(3, 3, cmid, cmid), b2, w3, b3, wd,
+                            bd).contiguous()
+
+
+def _fused_bottleneck_fake(x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t):
+    return x.new_empty(x.shape[:3] + w3.shape[1:])
+
+
+def _fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t):
+    _check_packed_bottleneck(x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t)
     B, H, W, cin = x.shape
-    ops = [x.contiguous(), *p]
+    cmid, cout = w1.shape[1], w3.shape[1]
+    ops = [x.contiguous(), w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t]
     _kernels.check_cuda_operands(BOTTLENECK, *(t for t in ops if t is not None))
     if any(t.data_ptr() % 16 for t in ops if t is not None):
         raise ValueError(f"{BOTTLENECK}: operands must be 16-byte aligned (16-byte async copies)")
@@ -331,7 +358,6 @@ class StemWeights(NamedTuple):
     frag: torch.Tensor  # w4's (192, 64) matrix in the kernel's fragment order
 
 
-@functools.lru_cache(maxsize=None)
 def stem_fragment_order(bf16: bool) -> torch.Tensor:
     """Flat indices into the stem's (192, 64) weight matrix (rows (dy, dx, c))
     in the order csrc/fused_stem.cu's lanes load their mma B fragments: for
@@ -339,7 +365,14 @@ def stem_fragment_order(bf16: bool) -> torch.Tensor:
     (b0, b1) of n-tile 2jp, then of 2jp + 1, n = 8 n-tile + g. bf16
     (m16n8k16): b0 is rows 2t, 2t + 1 of the k-step's 16, b1 rows 2t + 8, +
     9, two values a 32-bit word, the lower row in the low half. f32 (tf32
-    m16n8k8): b0 is row t of the k-step's 8, b1 row t + 4."""
+    m16n8k8): b0 is row t of the k-step's 8, b1 row t + 4. A tensor made at
+    each call over indices computed once (a tensor made under `torch.export`
+    is the trace's own, and must not be kept)."""
+    return torch.from_numpy(_stem_fragment_indices(bf16))
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_fragment_indices(bf16: bool) -> np.ndarray:
     step = 16 if bf16 else 8
     ks, jp, lane, word = np.meshgrid(np.arange(STEM_K // step), np.arange(4), np.arange(32),
                                      np.arange(4), indexing="ij")
@@ -349,7 +382,7 @@ def stem_fragment_order(bf16: bool) -> torch.Tensor:
         n = np.broadcast_to((8 * j + g)[..., None], k.shape)
     else:
         k, n = step * ks + t + 4 * which, 8 * j + g
-    return torch.from_numpy((k * STEM_COUT + n).reshape(-1))
+    return (k * STEM_COUT + n).reshape(-1)
 
 
 def pack_stem(dtype, w4, bias) -> StemWeights:
@@ -379,28 +412,66 @@ def fused_stem(
 
 def fused_stem_packed(x_s2d: torch.Tensor, p: StemWeights) -> torch.Tensor:
     """`fused_stem` of x_s2d (B, Hc, Wc, 12) and weights packed for its
-    dtype by `pack_stem`."""
-    if x_s2d.device.type == "cpu":
-        return stem_plain(x_s2d, p.w4, p.bias)
+    dtype by `pack_stem`: the op `fod::fused_stem`, which `torch.export`
+    keeps as one node (off the CPU its operands are checked before it)."""
+    if x_s2d.device.type != "cpu":
+        _check_packed_stem(x_s2d, p.frag, p.bias)
+    return _FUSED_STEM(x_s2d, p.w4, p.bias, p.frag)
+
+
+def _check_packed_stem(x_s2d, frag, bias) -> None:
+    """Raise unless K3 takes x_s2d and these packed weights: 12 channels,
+    even dims, weights packed for x's dtype, one CUDA device."""
     B, Hc, Wc, C = x_s2d.shape
-    if C != STEM_CIN or Hc % 2 or Wc % 2 or p.frag.shape != (STEM_K * STEM_COUT,):
+    if C != STEM_CIN or Hc % 2 or Wc % 2 or frag.shape != (STEM_K * STEM_COUT,):
         raise ValueError(f"{STEM}: unsupported shapes x {tuple(x_s2d.shape)} "
-                         f"weights {tuple(p.frag.shape)}")
+                         f"weights {tuple(frag.shape)}")
     dt = x_s2d.dtype
-    if dt not in _kernels.DTYPE_CODES or p.frag.dtype != dt:
-        raise ValueError(f"{STEM}: dtypes x {dt}, weights {p.frag.dtype}; want one of f32, bf16")
+    if dt not in _kernels.DTYPE_CODES or frag.dtype != dt:
+        raise ValueError(f"{STEM}: dtypes x {dt}, weights {frag.dtype}; want one of f32, bf16")
+    _kernels.check_cuda_device(STEM, x_s2d, frag, bias)
+
+
+def _fused_stem_plain(x_s2d, w4, bias, frag):
+    return stem_plain(x_s2d, w4, bias).contiguous()
+
+
+def _fused_stem_fake(x_s2d, w4, bias, frag):
+    B, Hc, Wc, _ = x_s2d.shape
+    return x_s2d.new_empty((B, Hc // 2, Wc // 2, STEM_COUT))
+
+
+def _fused_stem_cuda(x_s2d, w4, bias, frag):
+    _check_packed_stem(x_s2d, frag, bias)
+    B, Hc, Wc, _ = x_s2d.shape
     x_s2d = x_s2d.contiguous()
-    _kernels.check_cuda_operands(STEM, x_s2d, p.frag, p.bias)
-    if x_s2d.data_ptr() % 16 or p.frag.data_ptr() % 16:
+    _kernels.check_cuda_operands(STEM, x_s2d, frag, bias)
+    if x_s2d.data_ptr() % 16 or frag.data_ptr() % 16:
         raise ValueError(f"{STEM}: x and the packed weights must be 16-byte aligned")
-    out = torch.empty((B, Hc // 2, Wc // 2, STEM_COUT), dtype=dt, device=x_s2d.device)
+    out = torch.empty((B, Hc // 2, Wc // 2, STEM_COUT), dtype=x_s2d.dtype, device=x_s2d.device)
     _kernels.call(
         STEM, "fod_fused_stem",
-        x_s2d.data_ptr(), p.frag.data_ptr(), p.bias.data_ptr(), out.data_ptr(), B, Hc, Wc,
-        _kernels.DTYPE_CODES[dt], _kernels.stream_of(x_s2d),
+        x_s2d.data_ptr(), frag.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Hc, Wc,
+        _kernels.DTYPE_CODES[x_s2d.dtype], _kernels.stream_of(x_s2d),
     )
     _kernels.launch_counts[STEM] += 1
     return out
+
+
+# fod::fused_bottleneck and fod::fused_stem: CPU the plain versions, CUDA
+# the launches, fakes for tracing (torch.library.Library, as K1's op).
+_LIB = torch.library.Library("fod", "FRAGMENT")  # the ops live as long as it
+_LIB.define("fused_bottleneck(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, "
+            "Tensor b3, Tensor? wd, Tensor? bd, Tensor? w1t, Tensor? w2t) -> Tensor")
+_LIB.impl("fused_bottleneck", _fused_bottleneck_plain, "CPU")
+_LIB.impl("fused_bottleneck", _fused_bottleneck_cuda, "CUDA")
+torch.library.register_fake("fod::fused_bottleneck", _fused_bottleneck_fake, lib=_LIB)
+_LIB.define("fused_stem(Tensor x_s2d, Tensor w4, Tensor bias, Tensor frag) -> Tensor")
+_LIB.impl("fused_stem", _fused_stem_plain, "CPU")
+_LIB.impl("fused_stem", _fused_stem_cuda, "CUDA")
+torch.library.register_fake("fod::fused_stem", _fused_stem_fake, lib=_LIB)
+_FUSED_BOTTLENECK = torch.ops.fod.fused_bottleneck.default
+_FUSED_STEM = torch.ops.fod.fused_stem.default
 
 
 def fused_stem_info(dtype: torch.dtype) -> Dict[str, int]:

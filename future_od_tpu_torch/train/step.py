@@ -22,7 +22,12 @@ import torch
 from future_od_tpu_torch.metrics.od_map import prepare_od_map_stuffs
 from future_od_tpu_torch.models.precision import half_state, jax_promotion
 from future_od_tpu_torch.models.set_criterion import CriterionConfig
-from future_od_tpu_torch.models.st_detr import compute_loss, normalize_outputs, post_process
+from future_od_tpu_torch.models.st_detr import (
+    SpatioTemporalDETR,
+    compute_loss,
+    normalize_outputs,
+    post_process,
+)
 from future_od_tpu_torch.ops.misc import video_hw
 from future_od_tpu_torch.train.optimizer import AdamWClipped, clip_by_global_norm_, global_norm
 from future_od_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -296,20 +301,31 @@ def dead_param_names(grad_norms: Dict[str, Any], labels: Dict[str, str]) -> List
             if labels[name] != "frozen" and float(norm) == 0.0]
 
 
+class InferenceProgram(SpatioTemporalDETR):
+    """The deployment path as one module: the model's forward on a batch
+    dict, then `normalize_outputs` and `post_process`. It shares the
+    model's core, so its state is the model's, under the model's keys
+    (`serve/export.py::export_inference` exports it)."""
+
+    def __init__(self, model: SpatioTemporalDETR):
+        super().__init__(model._model, model.args)
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        _, pred_logits, pred_boxes = normalize_outputs(super().forward(data), data)
+        return post_process(pred_logits, pred_boxes, data)[0]
+
+
 def make_inference_fn(model: torch.nn.Module, device: DeviceLike = None) -> Callable:
     """Returns infer(data) -> post-processed output dict (the deployment /
     serving path; no targets needed). `data` is the JAX package's batch
     dict, as numpy arrays or tensors; it is moved to `device` (default
     CUDA; raises without a card), where the model must live."""
     device = resolve_device(device)
-    model.eval()
+    program = InferenceProgram(model.eval()).eval()
 
     def infer(data: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         batch = to_device_batch(data, device)
         with torch.inference_mode():
-            out = model(batch)
-            _, pred_logits, pred_boxes = normalize_outputs(out, batch)
-            output, _, _ = post_process(pred_logits, pred_boxes, batch)
-        return output
+            return program(batch)
 
     return infer

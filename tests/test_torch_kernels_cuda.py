@@ -554,3 +554,74 @@ def test_narrow_flagship_heads_of_16(cuda, np_rng, monkeypatch):
     plain = infer(batch)
     for key, tol in (("class_scores", 1e-4), ("boxes", 1e-2)):  # boxes in pixels
         assert (out[key] - plain[key]).abs().max().item() <= tol
+
+
+def op_cases(device, dtype, gen):
+    """(op name, its arguments, its plain version's output) for K1-K3 at
+    small shapes, the packed weights as the model's wrappers pass them."""
+    from future_od_tpu_torch.ops import fused_resnet as fr
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    q, k, v = randn(2, 2, 300, 32), randn(2, 2, 1100, 32), randn(2, 2, 1100, 32)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    x = randn(1, 16, 24, 64).abs().to(dtype)
+    w = dict(w1=randn(64, 64, scale=0.125), b1=randn(64, scale=0.1),
+             w2=randn(3, 3, 64, 64, scale=0.04), b2=randn(64, scale=0.1),
+             w3=randn(64, 256, scale=0.125), b3=randn(256, scale=0.1),
+             wd=randn(64, 256, scale=0.125), bd=randn(256, scale=0.1))
+    xs = randn(2, 32, 48, 12).to(dtype)
+    stem = fr.pack_stem(dtype, randn(4, 4, 12, 64, scale=0.1), randn(64, scale=0.1))
+    return [
+        ("flash_attention", (q, k, v, 0.2), reference_attention(q, k, v, 0.2)),
+        ("fused_bottleneck", (x, *fr.pack_bottleneck(dtype, **w)), bottleneck_plain(x, **w)),
+        ("fused_stem", (xs, stem.w4, stem.bias, stem.frag), stem_plain(xs, stem.w4, stem.bias)),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_launch_their_kernels(cuda, dtype):
+    """Each op's CUDA implementation, called as the exported graph calls it,
+    launches its kernel once and equals the plain version."""
+    for name, args, plain in op_cases(cuda, dtype, torch.Generator().manual_seed(3)):
+        before = _kernels.launch_counts[name]
+        out = getattr(torch.ops.fod, name)(*args)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts[name] == before + 1
+        assert out.shape == plain.shape and out.dtype == plain.dtype
+        assert_close(out, plain, dtype)
+
+
+def test_loaded_artifact_launches_the_kernels(cuda, np_rng, monkeypatch, tmp_path):
+    """A batch program exported on the CPU with every kernel gate open,
+    loaded onto the card (`load_serving` moves it): K1, K2 and K3 launch as
+    the eager forward on the card launches them, and the outputs agree."""
+    from future_od_tpu_torch.serve import export_inference, load_serving
+
+    args = SpatioTemporalDETRArgs(
+        num_classes=4, hidden_dim=64, enc_nheads=2, nheads=2, enc_layers=2, dec_layers=2,
+        dim_feedforward=96, num_queries=8, dropout=0.0,
+    )
+    model = build_flagship(args, device="cpu")
+    batch = {"video": np_rng.normal(size=(2, 3, 64, 96, 3)).astype(np.float32),
+             "annotated_frame_idx": np.full((2,), 2)}
+    for key, width in {"translation": 3, "acceleration": 3, "rotation": 4,
+                       "rotation_rate": 3, "speed": 1}.items():
+        batch[key] = np_rng.normal(size=(2, 3, width)).astype(np.float32)
+    for name, value in {"FUTURE_OD_FLASH_MIN_KEYS": "1", "FUTURE_OD_FLASH_MIN_QUERIES": "1",
+                        "FUTURE_OD_FUSED_RESNET": "1", "FUTURE_OD_FUSED_STEM": "1"}.items():
+        monkeypatch.setenv(name, value)
+    program = load_serving(export_inference(model, batch, path=str(tmp_path / "p.pt2")),
+                           device=cuda)
+    want = {"flash_attention": 2 + 2 * 2, "fused_bottleneck": 6, "fused_stem": 1}
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = program({k: torch.as_tensor(v, device=cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert {k: _kernels.launch_counts[k] for k in want} == want
+    _kernels.reset_launch_counts()
+    eager = make_inference_fn(model.to(cuda), device=cuda)(batch)
+    assert {k: _kernels.launch_counts[k] for k in want} == want
+    for key, tol in (("class_scores", 1e-4), ("boxes", 1e-2)):  # boxes in pixels
+        assert (got[key] - eager[key]).abs().max().item() <= tol

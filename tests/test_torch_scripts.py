@@ -9,7 +9,9 @@ and its sweeps retimed to reach the 50 and 100 ms offsets). The
 single-frame script trains `build_single_frame` at the same tiny widths
 (its debug frames at (64, 96)), and the tracker eval loads that script's
 final checkpoint into `build_tracker_baseline`.
-The eval scripts load a fabricated checkpoint. About 30 s alone.
+The eval scripts load a fabricated checkpoint. The serving script
+(`runs/serve.py`) serves the tiny flagship on the CPU at 64x96, from random
+weights and from a fabricated checkpoint. About 35 s alone.
 """
 import dataclasses
 import json
@@ -29,6 +31,7 @@ from future_od_tpu_torch.runs import nuim_spatiotemporal_imu as nuim
 from future_od_tpu_torch.runs import nusc_spatiotemporal_imu_250ms as nusc250
 from future_od_tpu_torch.runs import nusc_spatiotemporal_imu_500ms as nusc500
 from future_od_tpu_torch.runs import nusc_spatiotemporal_imu_prevframe as prevframe
+from future_od_tpu_torch.runs import serve
 from future_od_tpu_torch.runs.config import config
 from future_od_tpu_torch.runs.eval import _common
 from future_od_tpu_torch.runs.eval import nuim_spatiotemporal_imu_eval as nuim_eval
@@ -176,3 +179,60 @@ def test_single_frame_debug_config_is_the_jax_scripts():
     assert (full.hidden_dim, full.num_queries, full.num_classes) == (256, 128, 8)
     assert single_frame.IMAGE_SIZE == (448, 800) and single_frame.BATCH == 32
     assert single_frame.OFFSETS == [0] and tracker_eval.OFFSETS == [-1.0, -0.5, 0]
+
+
+SERVE_ARGV = ["--img_size", "64", "96", "--streams", "4", "--max_batch", "2", "--rounds", "2"]
+SERVE_KEYS = {"clips_per_sec", "clips", "latency_ms_p50", "latency_ms_p95", "latency_ms_p99",
+              "dispatches", "frames", "pad_fraction", "active_streams"}
+
+
+@pytest.mark.parametrize("flags", [[], ["--bf16", "--device_normalize"]])
+def test_serve_script_prints_the_jax_line(monkeypatch, capsys, flags):
+    """runs/serve.py's main() with the flagship built tiny on the CPU (f32;
+    bf16 on uint8 frames): the JAX script's JSON keys; every stream past
+    its warm-up yields a clip a round, in full batches."""
+    monkeypatch.setattr(serve, "build_flagship", lambda detr_args: tiny_model(None, detr_args))
+    line = serve.main(SERVE_ARGV + flags)
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == line and set(line) == SERVE_KEYS
+    assert line["clips"] == 4 * 2 and line["pad_fraction"] == 0
+    assert line["active_streams"] == 4 and line["frames"] == 4 * (2 + 2)
+
+
+def test_serve_script_builds_from_the_checkpoint(tmp_path, monkeypatch, capsys):
+    """--checkpoint serves the architecture the checkpoint was trained with
+    (its detr_args: hidden 32 here, which the CLI's default model could not
+    load), with its weights; a checkpoint of another net is refused."""
+    built = []
+    monkeypatch.setattr(serve, "build_flagship", lambda detr_args: built.append(detr_args) or
+                        build_flagship(detr_args, device="cpu"))
+    detr_args = dataclasses.replace(SpatioTemporalDETRArgs(num_classes=3), **TINY)
+    net = tiny_model(None, detr_args).state_dict()
+    blob = {"net": net, "net_type": "SpatioTemporalDETR", "detr_args": dataclasses.asdict(
+        detr_args)}
+    save_checkpoint(str(tmp_path), "served_final", blob)
+    line = serve.main(["--checkpoint", "served_final", "--checkpoint_dir", str(tmp_path),
+                       "--bf16", *SERVE_ARGV])
+    out = capsys.readouterr().out
+    assert "model architecture from checkpoint meta" in out
+    assert "loaded checkpoint served_final" in out
+    assert built == [detr_args] and line["clips"] == 8
+    save_checkpoint(str(tmp_path), "other_final", dict(blob, net_type="TrackerBaseline"))
+    with pytest.raises(ValueError, match="TrackerBaseline"):
+        serve.main(["--checkpoint", "other_final", "--checkpoint_dir", str(tmp_path),
+                    *SERVE_ARGV])
+    with pytest.raises(SystemExit, match="not found"):
+        serve.main(["--checkpoint", "missing", "--checkpoint_dir", str(tmp_path)])
+
+
+def test_serve_script_mesh_waits_for_parallel():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        serve.main(["--mesh_data", "2"])
+
+
+def test_serve_script_help_lists_the_jax_flags():
+    text = serve.build_parser().format_help()
+    for flag in ("--checkpoint", "--checkpoint_dir", "--streams", "--max_batch", "--max_streams",
+                 "--img_size", "--num_classes", "--clip_frames", "--rounds", "--bf16",
+                 "--device_normalize", "--mesh_data"):
+        assert flag in text, flag
