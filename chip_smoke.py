@@ -192,8 +192,27 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    phase 3's tolerances, its launches (K1 6, and K2 6, K3 1 under the fused
    gates, a forward or encode; none a detect), a wrong shape refused, the
    loaded artifact's request ms beside the eager request's.
+10. data parallelism (`future_od_tpu_torch/parallel/`):
+   10a. `python -m torch.distributed.run --standalone --nproc_per_node 2`
+   runs this file's `--phase10a-rank` role: in each rank the flagship's
+   script (`main()`, --synthetic --debug --epochs 1, its epoch at stage 1:
+   448x800, global batch 32, 16 a rank, f32, TF32 off, K1-K6 gated on);
+   NCCL with a card a rank, gloo with both ranks on one card (printed). Its
+   launches (K4-K6 18 a step and in the audit; K2 6, K3 1 an eval batch),
+   the checkpoint written once and resumed bit for bit on both ranks, the
+   checkpoint's eval at stage 2's size (1400 tokens: K1 6 a forward) on
+   both ranks against one process's eval (rank 0) within DIST_AP_ATOL, one
+   step at dropout 0 (the reduced gradients and loss against one process's
+   on the same 32 clips and weights, within DIST_LOSS_RTOL and
+   DIST_GRAD_RTOL); each rank's step ms, the all-reduce's ms (timed, and
+   its events under torch.profiler), peak GB a rank.
+   10b. torchrun with one rank: the NCCL init, an all-reduce, and a step
+   through the one-rank mesh against the same step without a mesh.
+   10c. the session and the server over a mesh of two devices (both cards,
+   or the one card listed twice) at phase 9's sizes, fused gates, against
+   the unsharded ones within phase 3's tolerances; clips/s of each.
 4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's,
-   6b's, 8's and 9's runs), then the device JSON line, last.
+   6b's, 8's, 9's and 10's runs), then the device JSON line, last.
 
 Phases 2 and 3 also say where a request's time goes: the device time of the
 backbone, the encoder and the detector (CUDA events recorded by forward
@@ -444,6 +463,32 @@ SERVE_SCRIPT = "future_od_tpu_torch.runs.serve"
 SERVE_RUNS = (("f32", []), ("bf16", ["--bf16"]), ("bf16 uint8", ["--bf16", "--device_normalize"]))
 FUSED_GATES = {"FUTURE_OD_FUSED_RESNET": "1", "FUTURE_OD_FUSED_STEM": "1"}
 FUSED_LAUNCHES = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1}
+
+
+# Phase 10: data parallelism. 10a: the flagship's script under `torchrun
+# --nproc_per_node 2` at stage 1 (448x800, global batch 32, 16 a rank, f32,
+# TF32 off; --epochs 1, its one epoch at stage 1's size), NCCL with a card a
+# rank, gloo with both ranks on one card; then the checkpoint's eval at
+# stage 2's size (K1's 1400 tokens), and one step at dropout 0 beside one
+# process's. 10b: torchrun with one rank (NCCL). 10c: serving over a mesh of
+# two devices.
+DIST_RANKS = 2
+DIST_ARGV = ["--synthetic", "--debug", "--disable_wandb", "--epochs", "1"]
+DIST_BATCH = 32
+DIST_TIMEOUT_S = 480
+# The 2-rank step (16 rows a rank, the gradients summed over the ranks)
+# against one process's on the same 32 clips and weights, dropout 0: the
+# loss, and each group's largest gradient difference over its largest
+# gradient (phase 6b's form); the half batch changes cuDNN's algorithms and
+# K4-K6's split as --accum 2 does. 10x the gaps measured on an H100 (two
+# ranks sharing the card over gloo: loss 1.33e-7; encoder 9.4e-6, detector
+# 2.8e-5); 10b's one-rank mesh step against no mesh is held to the same.
+DIST_LOSS_RTOL = 1.4e-6
+DIST_GRAD_RTOL = {"separate_encoder": 9.4e-5, "detector": 2.8e-4}
+# the 2-rank eval's AP dict against one process's on the same checkpoint
+# (measured equal on the H100; the CPU tests' AP tolerance)
+DIST_AP_ATOL = 1e-6
+RANK_ROLES = ("--phase10a-rank", "--phase10b-rank")
 
 
 def log(phase: str, **fields) -> None:
@@ -1320,11 +1365,11 @@ def make_batch(seed: int):
     return batch
 
 
-def make_train_batch(seed: int):
-    """bench_train.py's fabricated stage-1 batch at TRAIN_BATCH clips:
-    centers scattered over the image, log-normal sizes, 10% of the 256
-    slots active, 8 classes."""
-    B, L, H, W, N = TRAIN_BATCH, FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS
+def make_train_batch(seed: int, batch: int = TRAIN_BATCH):
+    """bench_train.py's fabricated stage-1 batch of `batch` clips: centers
+    scattered over the image, log-normal sizes, 10% of the 256 slots
+    active, 8 classes."""
+    B, L, H, W, N = batch, FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS
     rng = np.random.default_rng(seed)
     cxy = rng.uniform(0.05, 0.95, size=(B, N, 2)).astype(np.float32) * [W, H]
     wh = np.exp(rng.normal(4.0, 0.6, size=(B, N, 2))).astype(np.float32)
@@ -1386,6 +1431,18 @@ def worst_per_group(gaps):
         group = name.split(".")[1]
         worst[group] = max(worst.get(group, (0.0, "")), (gap, name))
     return worst
+
+
+def grad_gap_by_group(grads, ref):
+    """Each group's largest |difference| over its largest |gradient| (phase
+    6b's form)."""
+    by_group = {}
+    for name, g in ref.items():
+        group = name.split(".")[1]
+        diff, top = (grads[name] - g).abs().max().item(), g.abs().max().item()
+        d0, t0 = by_group.get(group, (0.0, 0.0))
+        by_group[group] = (max(d0, diff), max(t0, top))
+    return {k: d / t for k, (d, t) in by_group.items()}
 
 
 def loss_and_grads(torch, model, cfg, batch, pred_idx_all):
@@ -2244,13 +2301,7 @@ def accum_exactness(torch):
     loss_gap = abs(loss2 - loss1) / abs(loss1)
     # each group's largest |difference| over its largest |gradient|; beside
     # it, phase 5a's per-parameter form (over each tensor's own largest)
-    by_group = {}
-    for name, g in grads1.items():
-        group = name.split(".")[1]
-        diff, top = (grads2[name] - g).abs().max().item(), g.abs().max().item()
-        d0, t0 = by_group.get(group, (0.0, 0.0))
-        by_group[group] = (max(d0, diff), max(t0, top))
-    group_gap = {k: d / t for k, (d, t) in by_group.items()}
+    group_gap = grad_gap_by_group(grads2, grads1)
     if loss_gap > ACCUM_LOSS_RTOL or any(v > ACCUM_GRAD_RTOL[k] for k, v in group_gap.items()):
         raise AssertionError(f"--accum 2 against 1: loss gap {loss_gap}, gradients {group_gap}")
     return {"loss": [loss1, loss2], "loss_gap": loss_gap, "loss_rtol": ACCUM_LOSS_RTOL,
@@ -3062,6 +3113,511 @@ def serving_phase(torch):
     return records, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: data parallelism over torch.distributed ranks and device meshes.
+
+
+def torchrun(torch, nproc: int, role: str, out: str, timeout_s: float) -> list:
+    """Run this file's `role` in `nproc` ranks under `python -m
+    torch.distributed.run --standalone` (a rendezvous on this host), each
+    writing <out>/rank<r>.json; the ranks' output goes to <out>/<role>.log.
+    Returns the ranks' records; raises with the log's tail if a rank failed
+    or the run outlived `timeout_s` (every process of the run is killed)."""
+    import shutil
+    import signal
+
+    shutil.rmtree(out, ignore_errors=True)  # no checkpoint of an earlier run to resume
+    os.makedirs(out)
+    log_path = os.path.join(out, f"{role.strip('-')}.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__), role, out]
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=log_file, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    with open(log_path) as f:
+        tail = f.read()[-6000:]
+    if rc != 0:
+        raise AssertionError(f"torchrun {role} x{nproc}: "
+                             f"{'timed out' if rc is None else f'exit {rc}'}:\n{tail}")
+    records = []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def write_rank_record(out: str, rank: int, record: dict) -> None:
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def dist_model(torch, args):
+    """Phase 5's full-width flagship (seed 0, heads randomized by seed 1) on
+    this rank's card, at dropout 0."""
+    from future_od_tpu_torch.models.build import build_flagship
+
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    set_dropout(torch, model, 0.0)
+    return model
+
+
+def dist_step_grads(torch, args, data, mesh=None):
+    """One f32 train step at dropout 0 of `dist_model` on `data` (this
+    rank's rows under `mesh`), without the clip: (loss, {name: gradient on
+    the host}, the launches, the step, the model)."""
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.train.optimizer import build_optimizer
+    from future_od_tpu_torch.train.step import make_train_step
+
+    model = dist_model(torch, args)
+    optimizer = build_optimizer(model, args.lr, args.lr_backbone, max_norm=0.0)
+    step = make_train_step(model, args.criterion_config(), optimizer, mesh=mesh)
+    _kernels.reset_launch_counts()
+    loss, _, _, _ = step(data, 0)
+    torch.cuda.synchronize()
+    launches = launched(_kernels)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return loss.item(), grads, launches, step, model
+
+
+def check_dist_grads(what: str, loss, grads, ref_loss, ref_grads) -> dict:
+    """The loss and the gradients of a data-parallel step against one
+    process's on the same global batch and weights, within DIST_LOSS_RTOL
+    and DIST_GRAD_RTOL."""
+    if set(grads) != set(ref_grads):
+        raise AssertionError(f"{what}: gradients of {sorted(set(grads) ^ set(ref_grads))[:5]} "
+                             "on one side only")
+    loss_gap = abs(loss - ref_loss) / abs(ref_loss)
+    group_gap = grad_gap_by_group(grads, ref_grads)
+    record = {"loss": [loss, ref_loss], "loss_gap": loss_gap, "loss_rtol": DIST_LOSS_RTOL,
+              "grad_gap_by_group": group_gap, "grad_rtol": DIST_GRAD_RTOL,
+              "grad_gap_per_parameter": worst_per_group(gradient_gaps(grads, ref_grads))}
+    if loss_gap > DIST_LOSS_RTOL or any(v > DIST_GRAD_RTOL[k] for k, v in group_gap.items()):
+        raise AssertionError(f"{what}: {record}")
+    return record
+
+
+def allreduce_profile(torch, step, data) -> dict:
+    """One more data-parallel train step under torch.profiler: the events
+    of the all-reduce (the op, gloo's or NCCL's work, NCCL's kernel) with
+    their host and device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(data, 0)
+        torch.cuda.synchronize()
+    events = {}
+    for e in prof.key_averages():
+        if "allreduce" in e.key.lower().replace("_", ""):
+            device_us = getattr(e, "device_time_total", None)
+            if device_us is None:
+                device_us = getattr(e, "cuda_time_total", 0.0)
+            events[e.key] = {"calls": e.count, "host_ms": e.cpu_time_total / 1e3,
+                             "device_ms": device_us / 1e3}
+    return events
+
+
+def eval_forwards(loader, rank: int) -> int:
+    """The eval batches of a sharded loader in which `rank` has rows: a
+    batch of n rows gives ranks 0..n-1 a row at least (`split_rows`)."""
+    n, size = len(loader.dataset), loader.batch_size
+    rows = [size] * (n // size) + ([n % size] if n % size else [])
+    return sum(1 for r in rows if r > rank)
+
+
+def dist_train_rank(torch, out: str) -> dict:
+    """Phase 10a in one rank: the flagship's script at stage 1 (one epoch:
+    the audit, 2 train steps of the global batch of 32, 8 eval batches),
+    its checkpoint resumed, the eval of the checkpoint at stage 2's size
+    beside one process's (rank 0), and one step's reduced gradients at
+    dropout 0 beside one process's (rank 0)."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from future_od_tpu_torch.data.loader import ARRAY_KEYS
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.parallel import distributed
+    from future_od_tpu_torch.parallel.mesh import make_mesh
+    from future_od_tpu_torch.runs import _helper
+    from future_od_tpu_torch.runs._loader import get_nusc_loaders
+    from future_od_tpu_torch.runs._model import build_model
+    from future_od_tpu_torch.runs.config import config
+    from future_od_tpu_torch.train import trainer as trainer_module
+
+    t_start = time.perf_counter()
+    if not distributed.maybe_initialize_distributed():
+        raise AssertionError("10a: no process group (not started by torchrun?)")
+    rank, world = distributed.rank(), distributed.world_size()
+    record = {"rank": rank, "world": world, "backend": dist.get_backend(),
+              "device": str(distributed.local_device()), "cards": torch.cuda.device_count()}
+    _kernels.build_all()
+
+    # the script, one epoch at stage 1: its --epochs 1 gives stage 1 no
+    # epoch, so stage 2 runs at stage 1's size
+    script = importlib.import_module(TRAINER_SCRIPT)
+    set_gates(**TRAINER_GATES)
+    stages, saved_config = _helper.STAGES, dict(config)
+    config.update(checkpoint_path=os.path.join(out, "checkpoints"),
+                  visualization_path=os.path.join(out, "visualization"))
+    _helper.STAGES = (stages[0], stages[0])
+    step_ms, factory = [], trainer_module.make_train_step
+
+    def timed_factory(*a, **k):
+        step = factory(*a, **k)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = step(*args)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            return result
+        timed.steps = step.steps
+        return timed
+    trainer_module.make_train_step = timed_factory
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        trainer = script.main(DIST_ARGV)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        trainer_module.make_train_step = factory
+        _helper.STAGES = stages
+    script_launches = launched(_kernels)
+    want = {k: 2 * v + v for k, v in TRAINER_LAUNCHES[("train", 448)].items()}  # 2 steps + audit
+    forwards = eval_forwards(trainer._val_loaders["val0"], rank)
+    want.update({k: forwards * v for k, v in TRAINER_LAUNCHES[("eval", 448)].items() if forwards})
+    if script_launches != want or len(step_ms) != 2:
+        raise AssertionError(f"10a rank {rank}: the script launched {script_launches} in "
+                             f"{len(step_ms)} train steps, want {want} in 2")
+    check_ap(trainer._ap_by_mode["val0"], trainer._args.num_classes)
+    idf = TRAINER_SCRIPT.rsplit(".", 1)[1]
+    names = sorted(os.listdir(config["checkpoint_path"]))
+    if names != [idf, idf + "_final"]:
+        raise AssertionError(f"10a rank {rank}: checkpoints written: {names}")
+    record["script"] = {"argv": DIST_ARGV, "run_s": run_s, "train_step_ms": step_ms,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": script_launches,
+                        "train_rows": trainer._train_loader.batch_size // world,
+                        "losses": trainer._stats["train labels loss"].history}
+
+    # a fresh Trainer through the script's get_trainer resumes the checkpoint
+    args = script.build_parser().parse_args(DIST_ARGV)
+    args.experiment_idf = idf
+    fresh = _helper.get_trainer(args, config, trainer._args, _helper.get_lr_func(1),
+                                build_model(args, trainer._args), trainer._train_loader,
+                                trainer._val_loaders)
+    differ = equal_trees(torch, *({"net": t._model.state_dict(),
+                                   "optimizer": t._optimizer.state_dict(),
+                                   "epoch": t._epoch, "step": t.step,
+                                   "stats": {k: m.state_dict() for k, m in t._stats.items()}}
+                                  for t in (fresh, trainer)))
+    if differ:
+        raise AssertionError(f"10a rank {rank}: the resumed Trainer differs at {differ[:5]}")
+    del fresh
+    record["resumed"] = "bit-equal"
+
+    # the checkpoint's eval at stage 2's size (1400 tokens: K1 launches),
+    # over the ranks, then in one process on rank 0
+    (size2, batch2) = stages[1]
+    _, val = get_nusc_loaders(size2, offsets=script.OFFSETS, config=config, args=args,
+                              train_batch_size=batch2)
+    trainer._val_loaders = val
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.eval()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = launched(_kernels)
+    forwards = eval_forwards(val["val0"], rank)
+    want = {k: forwards * v for k, v in TRAINER_LAUNCHES[("eval", 896)].items() if forwards}
+    if eval_launches != want:
+        raise AssertionError(f"10a rank {rank}: the stage-2 eval launched {eval_launches}, "
+                             f"want {want}")
+    ap = trainer._ap_by_mode["val0"]
+    record["eval"] = {"size": list(size2), "seconds": eval_s, "launches": eval_launches,
+                      "forwards": forwards}
+    del trainer
+    torch.cuda.empty_cache()
+    if rank == 0:
+        _, single_val = get_nusc_loaders(size2, offsets=script.OFFSETS, config=config,
+                                         args=args, train_batch_size=batch2)
+        single_val["val0"].shard = None  # every row, in this process
+        single_args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4)
+        single = trainer_module.Trainer(
+            model=build_model(args, single_args), detr_args=single_args, train_loader=None,
+            val_loaders=single_val,
+            checkpoint_path=config["checkpoint_path"],
+            visualization_path=os.path.join(out, "single"), save_name=idf,
+            category_dict=_helper.category_dict_for(single_val["val0"]))
+        single.load_checkpoint()
+        single.eval()
+        ref = single._ap_by_mode["val0"]
+        gaps = {k: float(np.nanmax(np.abs(ap[k] - ref[k]), initial=0.0)) for k in ap}
+        if any(not np.array_equal(np.isnan(ap[k]), np.isnan(ref[k])) for k in ap) or max(
+                gaps.values()) > DIST_AP_ATOL:
+            raise AssertionError(f"10a: the 2-rank eval's AP differs from one process's: {gaps}")
+        record["eval"]["ap_gap_vs_one_process"] = gaps
+        record["eval"]["ap_atol"] = DIST_AP_ATOL
+        del single
+        torch.cuda.empty_cache()
+    distributed.barrier()
+    config.clear()
+    config.update(saved_config)
+
+    # one step at dropout 0: the reduced gradients beside one process's on
+    # the same global batch and weights
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4,
+                                  freeze_stem=True, matcher="auction", cost_slots=128)
+    data = make_train_batch(seed=0, batch=DIST_BATCH)
+    rows = slice(rank * DIST_BATCH // world, (rank + 1) * DIST_BATCH // world)
+    local = {k: v[rows] for k, v in data.items() if k in ARRAY_KEYS}
+    set_gates(FUTURE_OD_TRAIN_FLASH="1")
+    mesh = make_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads, launches, step, model = dist_step_grads(torch, args, local, mesh)
+    if launches != {name: 18 for name in TRAIN_KERNELS}:
+        raise AssertionError(f"10a rank {rank}: a dropout-0 step launched {launches}")
+    timed = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(local, 0)
+        torch.cuda.synchronize()
+        timed.append(1e3 * (time.perf_counter() - t0))
+    flat = [p.grad for p in model.parameters() if p.grad is not None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    distributed.all_reduce_sum_(flat)
+    torch.cuda.synchronize()
+    allreduce_ms = 1e3 * (time.perf_counter() - t0)
+    record["step"] = {
+        "rows": DIST_BATCH // world, "step_ms": timed, "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "allreduce_ms": allreduce_ms, "allreduce_elements": sum(g.numel() for g in flat),
+        "allreduce_profile": allreduce_profile(torch, step, local)}
+    del step, model, flat
+    torch.cuda.empty_cache()
+    distributed.barrier()
+    if rank == 0:
+        ref_loss, ref_grads, _, _, _ = dist_step_grads(torch, args, data)
+        record["step"]["vs_one_process"] = check_dist_grads(
+            "10a: the 2-rank step against one process", loss, grads, ref_loss, ref_grads)
+        torch.cuda.empty_cache()
+    distributed.barrier()
+    record["seconds"] = time.perf_counter() - t_start
+    return record
+
+
+def dist_nccl_rank(torch, out: str) -> dict:
+    """Phase 10b in one rank of one: the NCCL init, an all-reduce of a CUDA
+    tensor, and a train step through the mesh of this one rank beside the
+    same step without a mesh (phase 5's batch of 4 at dropout 0)."""
+    import torch.distributed as dist
+
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.parallel import distributed
+    from future_od_tpu_torch.parallel.mesh import make_mesh
+
+    t_start = time.perf_counter()
+    if not distributed.maybe_initialize_distributed():
+        raise AssertionError("10b: no process group (not started by torchrun?)")
+    backend = dist.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"10b: one rank on one card chose {backend}, want nccl")
+    _kernels.build_all()
+    t = torch.full((4,), 2.0, device=distributed.local_device())
+    dist.all_reduce(t)
+    if t.tolist() != [2.0] * 4:
+        raise AssertionError(f"10b: an all-reduce over one rank gave {t.tolist()}")
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4,
+                                  freeze_stem=True, matcher="auction", cost_slots=128)
+    data = make_train_batch(seed=0)
+    set_gates(FUTURE_OD_TRAIN_FLASH="1")
+    mesh = make_mesh()
+    loss, grads, launches, _, _ = dist_step_grads(torch, args, data, mesh)
+    torch.cuda.empty_cache()
+    ref_loss, ref_grads, _, _, _ = dist_step_grads(torch, args, data)
+    record = {"backend": backend, "mesh": mesh.shape, "launches": launches,
+              "vs_no_mesh": check_dist_grads("10b: the 1-rank mesh step against no mesh", loss,
+                                             grads, ref_loss, ref_grads)}
+    distributed.barrier()
+    record["seconds"] = time.perf_counter() - t_start
+    return record
+
+
+def serving_mesh_phase(torch, phase9_records) -> tuple:
+    """Phase 10c: the session and the server over a mesh of two devices
+    (both cards, or the one card listed twice) at phase 9's sizes, fused
+    gates, against the unsharded session and server within phase 3's
+    tolerances; clips/s beside the unsharded ones. Returns (record,
+    launches by kernel)."""
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from future_od_tpu_torch.serve import MultiStreamServer, StreamingSession
+    from future_od_tpu_torch.serve.server import split_results
+
+    cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % cards) for i in range(2)]
+    mesh = make_mesh(2, 1, devices=devices)
+    model = dist_model(torch, SpatioTemporalDETRArgs(num_classes=8, num_queries=128)).eval()
+    stream = make_stream(10, SERVE_STREAMS, SERVE_STREAM_FRAMES)
+    frames = [frame_of(stream, t) for t in range(SERVE_STREAM_FRAMES)]
+    set_gates(**FUSED_GATES)
+    record = {"mesh": [str(d) for d in devices]}
+    launches = {k: 0 for k in MAIN_KERNELS}
+
+    def count():
+        for k, n in _kernels.launch_counts.items():
+            if k in launches:
+                launches[k] += n
+        _kernels.reset_launch_counts()
+
+    # the session: 12 lockstep streams, 6 a device
+    _kernels.reset_launch_counts()
+    outs = {}
+    for label, kw in (("sharded", {"input_sharding": batch_sharding(mesh)}), ("unsharded", {})):
+        session = StreamingSession(model, clip_frames=FRAMES, **kw)
+        outs[label] = [session.step(f) for f in frames]
+        torch.cuda.synchronize()
+        if label == "sharded":
+            count()
+        _kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames:
+            session.step(f)
+        torch.cuda.synchronize()
+        record[f"session_{label}_clips_per_s"] = (
+            SERVE_STREAMS * len(frames) / (time.perf_counter() - t0))
+        if label == "sharded":
+            count()
+        _kernels.reset_launch_counts()
+        del session
+    gaps = [serve_gaps(torch, s, u) for s, u in zip(outs["sharded"], outs["unsharded"])
+            if u is not None]
+    for i, g in enumerate(gaps):
+        check_serve_gaps(f"10c sharded session, clip {i}", g)
+    record["session_gaps"] = gaps
+
+    # the server: 12 streams, max_batch 12 (6 rows a device), the same schedule
+    def serve(server):
+        got = {}
+        t0 = time.perf_counter()
+        for t in range(SERVE_STREAM_FRAMES):
+            for sid in range(SERVE_STREAMS):
+                res = server.submit(sid, {k: v[sid] for k, v in frames[t].items()})
+                for rsid, out in split_results(res):
+                    got.setdefault(rsid, []).append(out)
+        for rsid, out in split_results(server.flush()):
+            got.setdefault(rsid, []).append(out)
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    _kernels.reset_launch_counts()
+    sharded, sharded_s = serve(MultiStreamServer(model, max_batch=SERVE_STREAMS,
+                                                 clip_frames=FRAMES, max_streams=24, mesh=mesh))
+    count()
+    unsharded, unsharded_s = serve(MultiStreamServer(model, max_batch=SERVE_STREAMS,
+                                                     clip_frames=FRAMES, max_streams=24))
+    _kernels.reset_launch_counts()
+    server_gaps = []
+    for sid in range(SERVE_STREAMS):
+        if not len(sharded[sid]) == len(unsharded[sid]) == SERVE_STREAM_FRAMES - 1:
+            raise AssertionError(f"10c server: stream {sid} gave {len(sharded[sid])} clips")
+        for s, u in zip(sharded[sid], unsharded[sid]):
+            server_gaps.append(serve_gaps(torch, s, u))
+            check_serve_gaps(f"10c sharded server, stream {sid}", server_gaps[-1])
+    clips = SERVE_STREAMS * (SERVE_STREAM_FRAMES - 1)
+    record.update(server_worst_gap={k: max(g[k] for g in server_gaps) for k in server_gaps[0]},
+                  server_sharded_clips_per_s=clips / sharded_s,
+                  server_unsharded_clips_per_s=clips / unsharded_s,
+                  server_clips_per_s_includes="the first dispatch's warm-up",
+                  phase9_session_f32_default_clips_per_s=phase9_records["9a"][
+                      "throughput f32 default"]["session_clips_per_s"],
+                  tolerances={"score_err": SCORE_TOL, "box_err_px": BOX_TOL_PX})
+    set_gates()
+    del model
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def distributed_phase(torch, phase9_records) -> tuple:
+    """Phase 10: 10a two ranks train under torchrun, 10b one rank over NCCL,
+    10c serving over a mesh. Returns (records, launches by kernel and
+    sub-phase)."""
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase10")
+    torch.cuda.empty_cache()
+    records = {}
+    t0 = time.perf_counter()
+    ranks = torchrun(torch, DIST_RANKS, "--phase10a-rank", os.path.join(out, "10a"),
+                     DIST_TIMEOUT_S)
+    backend = {r["backend"] for r in ranks}
+    shared = torch.cuda.device_count() < DIST_RANKS
+    want = "gloo" if shared else "nccl"
+    if backend != {want}:
+        raise AssertionError(f"10a: backends {backend}, want {want}")
+    records["10a"] = {"backend": want, "cards": torch.cuda.device_count(),
+                      "how": ("both ranks share the one card over gloo" if shared
+                              else "NCCL, one card a rank"),
+                      "seconds": time.perf_counter() - t0, "ranks": ranks}
+    log("10a-two-ranks-train", ok=True, card=gpu_name_and_power(), **records["10a"])
+    t0 = time.perf_counter()
+    (rank,) = torchrun(torch, 1, "--phase10b-rank", os.path.join(out, "10b"), DIST_TIMEOUT_S)
+    records["10b"] = dict(rank, seconds=time.perf_counter() - t0)
+    log("10b-one-rank-nccl", ok=True, card=gpu_name_and_power(), **records["10b"])
+    t0 = time.perf_counter()
+    records["10c"], serve_launches = serving_mesh_phase(torch, phase9_records)
+    records["10c"]["seconds"] = time.perf_counter() - t0
+    log("10c-serving-mesh", ok=True, card=gpu_name_and_power(), **records["10c"])
+    launches = {}
+    for name in MAIN_KERNELS:
+        launches[name] = {
+            **{f"10a rank {r['rank']}": r["script"]["launches"].get(name, 0)
+               + r["eval"]["launches"].get(name, 0) + r["step"]["launches"].get(name, 0)
+               for r in ranks},
+            "10b": records["10b"]["launches"].get(name, 0), "10c": serve_launches[name]}
+    for r in ranks:  # K1 on every rank with rows in the stage-2 eval (2 ranks: both)
+        for name in TRAIN_KERNELS + (("flash_attention",) if r["eval"]["forwards"] else ()):
+            if not launches[name][f"10a rank {r['rank']}"]:
+                raise AssertionError(f"10a: {name} never launched on rank {r['rank']}")
+    return records, launches
+
+
+def rank_main(role: str, out: str) -> int:
+    """A rank of phase 10 (started by `torchrun`): runs its role, writes
+    its record."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn = {"--phase10a-rank": dist_train_rank, "--phase10b-rank": dist_nccl_rank}[role]
+    record = fn(torch, out)
+    write_rank_record(out, record.get("rank", 0), record)
+    from future_od_tpu_torch.parallel import distributed
+
+    distributed.destroy()
+    return 0
+
+
 def max_rel(a, b) -> float:
     """max |a - b| over max |b|."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -3222,6 +3778,11 @@ def main() -> int:
     serving_records, phase9_launches = serving_phase(torch)
     log("9-serving", ok=True, card=gpu_name_and_power(), seconds=time.perf_counter() - t0,
         **{k: serving_records[k]["seconds"] for k in ("9a", "9b", "9c")})
+    t0 = time.perf_counter()
+    dist_records, phase10_launches = distributed_phase(torch, serving_records)
+    log("10-data-parallel", ok=True, card=gpu_name_and_power(),
+        seconds=time.perf_counter() - t0,
+        **{k: dist_records[k]["seconds"] for k in ("10a", "10b", "10c")})
     phase8_launches = {
         name: {"8a single-frame script": single_totals.get(name, 0),
                "8b tracker eval": tracker_totals.get(name, 0),
@@ -3334,6 +3895,8 @@ def main() -> int:
             row["phase8_launches"] = phase8_launches[row["name"]]
         if row["name"] in phase9_launches:
             row["phase9_launches"] = phase9_launches[row["name"]]
+        if row["name"] in phase10_launches:
+            row["phase10_launches"] = phase10_launches[row["name"]]
         if row["name"] == "flash_attention":
             row["host_us"] = {r["dtype"]: {"op": r["host_us"], "launch": r["host_us_launch"]}
                               for r in row["calls"]}
@@ -3355,4 +3918,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] in RANK_ROLES:  # a rank of phase 10
+        sys.exit(rank_main(*sys.argv[1:]))
     sys.exit(main())

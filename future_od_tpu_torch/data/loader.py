@@ -12,9 +12,11 @@ import queue
 import threading
 import weakref
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, Sequence
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+from future_od_tpu_torch.parallel.mesh import split_rows
 
 # Keys stacked into arrays; the rest (strings) stay lists.
 ARRAY_KEYS = (
@@ -64,6 +66,13 @@ class Loader:
         prefetch: batches loaded ahead of the consumer.
         space_to_depth: pack each sample's video 2x2 into 12 channels on the
             host (`host_space_to_depth`), for a `space_to_depth` model.
+        shard: (rank, world) of a data-parallel run: every rank walks the
+            same global batch order (same seed and epoch) and loads only its
+            contiguous block of each batch's rows, so no rank loads another
+            rank's samples. `len` and `batch_size` stay global. A ragged
+            batch (rows % world != 0, kept by drop_last=False) splits
+            unevenly, the first ranks one row more; a rank whose block is
+            empty gets None in that batch's place.
     """
 
     def __init__(
@@ -76,6 +85,7 @@ class Loader:
         num_workers: int = 8,
         prefetch: int = 2,
         space_to_depth: bool = False,
+        shard: Optional[Tuple[int, int]] = None,
     ):
         if len(dataset) == 0:
             raise ValueError("All loaders must be non-empty")
@@ -87,6 +97,7 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.space_to_depth = space_to_depth
+        self.shard = shard
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -105,6 +116,16 @@ class Loader:
         for b in range(len(self)):
             yield order[b * self.batch_size : (b + 1) * self.batch_size]
 
+    def _rank_batches(self):
+        """The sample indices this process loads, batch by batch: the
+        global batches, or under `shard` this rank's block of each."""
+        if self.shard is None:
+            yield from self._batch_indices()
+            return
+        rank, world = self.shard
+        for idxs in self._batch_indices():
+            yield idxs[split_rows(len(idxs), world)[rank]]
+
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -118,10 +139,10 @@ class Loader:
                     pending = []
 
                     def drain(futs):
-                        out_q.put(("ok", collate([f.result() for f in futs])))
+                        out_q.put(("ok", collate([f.result() for f in futs]) if futs else None))
 
                     try:
-                        for idxs in self._batch_indices():
+                        for idxs in self._rank_batches():
                             if stop.is_set():
                                 return
                             pending.append([pool.submit(self._get_sample, i) for i in idxs])
@@ -194,10 +215,10 @@ class _Order:
         self.loader = weakref.proxy(loader)
 
     def __iter__(self):
-        return (int(i) for b in self.loader._batch_indices() for i in b)
+        return (int(i) for b in self.loader._rank_batches() for i in b)
 
     def __len__(self):
-        return sum(len(b) for b in self.loader._batch_indices())
+        return sum(len(b) for b in self.loader._rank_batches())
 
 
 def _as_is(sample):
@@ -231,5 +252,5 @@ class WorkerLoader(Loader):
                 persistent_workers=workers > 0,
                 multiprocessing_context="spawn" if workers else None)
         samples = iter(self._loader)
-        for idxs in self._batch_indices():
-            yield collate([next(samples) for _ in idxs])
+        for idxs in self._rank_batches():
+            yield collate([next(samples) for _ in idxs]) if len(idxs) else None

@@ -175,3 +175,14 @@ def weighted_total(losses: Dict[str, torch.Tensor], cfg: CriterionConfig, num_au
         weights.update({f"{k}_{i}": v for k, v in base.items()})
     total = sum(losses[k] * w for k, w in weights.items() if k in losses)
     return total, weights
+
+
+def matched_targets(stats: Dict[str, torch.Tensor], active: torch.Tensor) -> torch.Tensor:
+    """The number of matched targets `class_error` averaged over in the
+    step whose stats (`st_detr.compute_loss`'s) and (B, N) active mask
+    these are: the active targets, less those dropped by the compaction,
+    less those left unmatched (`matcher_unmatched` is their count over B).
+    A data-parallel step weights each rank's class error by it."""
+    B = active.shape[0]
+    return torch.round(active.sum().float() - stats["matcher_dropped"].float()
+                       - stats["matcher_unmatched"].float() * B)

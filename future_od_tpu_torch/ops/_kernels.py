@@ -32,7 +32,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -240,13 +240,21 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def call(name: str, fn: str, *args) -> None:
+def call(name: str, fn: str, *args, device: Optional[torch.device] = None) -> None:
     """Launch through entry point `fn` of library `name` (ctypes keeps an
     entry point as an attribute after its first lookup); raise on a
     non-zero launch status (a refused launch never runs, and a later
-    synchronize would not report it)."""
+    synchronize would not report it). The entry points launch on the
+    current device (and keep their per-device attributes there), so a
+    launch on operands of `device` makes it current for the call: an
+    operand on cuda:1 while cuda:0 is current would otherwise get a launch
+    on cuda:0 with cuda:1's stream."""
     lib = library(name)
-    code = getattr(lib, fn)(*args)
+    if device is None or device.index is None or device.index == torch.cuda.current_device():
+        code = getattr(lib, fn)(*args)
+    else:
+        with torch.cuda.device(device):
+            code = getattr(lib, fn)(*args)
     if code != 0:
         msg = lib.fod_error_string(code).decode()
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {code}: {msg}")

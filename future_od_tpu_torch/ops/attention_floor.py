@@ -108,6 +108,7 @@ def attention_floor(q, k, v, scale: float, mode: str, block_k: int) -> torch.Ten
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B * H, Nq, Nk, padded_keys(Nk, block_k), block_k, float(scale) * LOG2E,
         MODES[mode], _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
+        device=q.device,
     )
     _kernels.launch_counts[NAME] += 1
     return out

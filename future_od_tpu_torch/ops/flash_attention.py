@@ -104,6 +104,7 @@ def flash_attention_cuda(q, k, v, scale: float) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B * H, Nq, Nk, d, dv, float(scale) * LOG2E,
         _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
+        device=q.device,
     )
     _kernels.launch_counts[NAME] += 1
     return out
@@ -319,7 +320,7 @@ def _train_call(fn: str, q, k, v, do, o0, o1, lse, delta, scale: float, dropout)
     B, H, Nq, d = _dims(q)
     args = _TRAIN_ARGS.pack(*fields, _kernels.stream_of(q), B, H, Nq, k.shape[-2], d,
                             v.shape[-1], _kernels.DTYPE_CODES[q.dtype], scale, *dropout)
-    _kernels.call(TRAIN_NAME, fn, args)
+    _kernels.call(TRAIN_NAME, fn, args, device=q.device)
 
 
 def _train_kernel_args(q, k, v, name):
@@ -444,6 +445,7 @@ def dropout_keep_mask_kernel(seed: int, BH: int, Nq: int, Nk: int, rate: float, 
     _kernels.call(
         TRAIN_NAME, "fod_dropout_keep_mask", out.data_ptr(), BH, Nq, Nk,
         *_dropout_args(seed, rate, nq_pad, nk_pad), _kernels.stream_of(out),
+        device=out.device,
     )
     _kernels.launch_counts["dropout_keep_mask"] += 1
     return out

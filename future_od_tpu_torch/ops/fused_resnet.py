@@ -209,6 +209,7 @@ def _fused_bottleneck_cuda(x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t):
         BOTTLENECK, "fod_fused_bottleneck",
         *(_ptr(t) for t in ops), out.data_ptr(), B, H, W, cin, cmid, cout,
         _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x),
+        device=x.device,
     )
     _kernels.launch_counts[BOTTLENECK] += 1
     return out
@@ -262,6 +263,7 @@ def fused_bottleneck_v2(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, tile_h: int
         VARIANTS, "fod_bottleneck_v2",
         x.data_ptr(), *(_ptr(t) for t in ops), out.data_ptr(), B, H, W, cin, cmid, cout,
         tile_h, int(im2col), _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x),
+        device=x.device,
     )
     _kernels.launch_counts[name] += 1
     return out
@@ -316,6 +318,7 @@ def fused_layer1(x, blocks, tile_h: int = 8) -> torch.Tensor:
         VARIANTS, "fod_fused_layer1",
         x.data_ptr(), ctypes.addressof(weights), out.data_ptr(), scratch.data_ptr(), grid,
         B, H, W, cin, tile_h, _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x),
+        device=x.device,
     )
     _kernels.launch_counts[name] += 1
     return out
@@ -453,6 +456,7 @@ def _fused_stem_cuda(x_s2d, w4, bias, frag):
         STEM, "fod_fused_stem",
         x_s2d.data_ptr(), frag.data_ptr(), bias.data_ptr(), out.data_ptr(), B, Hc, Wc,
         _kernels.DTYPE_CODES[x_s2d.dtype], _kernels.stream_of(x_s2d),
+        device=x_s2d.device,
     )
     _kernels.launch_counts[STEM] += 1
     return out

@@ -92,6 +92,7 @@ def matmul_pool(patches: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, wp: 
     _kernels.call(
         LIB, "fod_stem_a", patches.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
         B, hp, wp, js, _kernels.DTYPE_CODES[patches.dtype], _kernels.stream_of(patches),
+        device=patches.device,
     )
     _kernels.launch_counts[name] += 1
     return out
@@ -125,6 +126,7 @@ def _im2col_pool(name: str, channels: int, sp, w, bias, wp: int, tile_p: int) ->
     _kernels.call(
         LIB, f"fod_{name}", sp.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
         B, hp, wp, js, _kernels.DTYPE_CODES[sp.dtype], _kernels.stream_of(sp),
+        device=sp.device,
     )
     _kernels.launch_counts[name] += 1
     return out
@@ -178,6 +180,7 @@ def tap_conv(xp: torch.Tensor, w9: torch.Tensor, tile_p: int = 8) -> torch.Tenso
     _kernels.call(
         LIB, "fod_stem_d", xp.data_ptr(), w9.data_ptr(), out.data_ptr(), B, hp, wp,
         _kernels.DTYPE_CODES[xp.dtype], _kernels.stream_of(xp),
+        device=xp.device,
     )
     _kernels.launch_counts[name] += 1
     return out

@@ -2,10 +2,15 @@
 from loaders, model and arguments, the argument parser with the JAX scripts'
 option strings, and the LR schedule.
 
-The port runs in one process on one card. Options it cannot honour yet
-raise NotImplementedError naming their ROADMAP.md item when a run uses them,
-never silently: `--mesh_model` > 1 and the `--dist_*` options (item 4) and
-`--int8` (item 6). `--bf16` and `--accum` reach the Trainer's train step.
+A run is one process on one card, or one process a card joined into a
+torch.distributed process group: by torchrun (`python -m torch.distributed.run
+--nproc_per_node N -m future_od_tpu_torch.runs.<script>`), by the `--dist_*`
+options, or by COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID or SLURM
+(`parallel/distributed.py`). Its ranks then train as one data-parallel
+global-batch step (`_build_mesh`). Options the port cannot honour yet raise
+NotImplementedError naming their ROADMAP.md item when a run uses them, never
+silently: `--mesh_model` > 1 (item 4b) and `--int8` (item 6). `--bf16` and
+`--accum` reach the Trainer's train step.
 `--prng` picks the JAX package's dropout generator, which torch's has no
 counterpart for; it changes nothing here.
 """
@@ -17,6 +22,8 @@ import os
 import numpy as np
 
 from future_od_tpu_torch.data import nu_images, nu_scenes, synthetic
+from future_od_tpu_torch.parallel import distributed
+from future_od_tpu_torch.parallel.mesh import TENSOR_PARALLEL_ITEM, make_mesh
 from future_od_tpu_torch.train.optimizer import get_lr_func  # noqa: F401  (re-export)
 from future_od_tpu_torch.train.trainer import Trainer
 from future_od_tpu_torch.utils.wandb import WandBConfig
@@ -35,26 +42,41 @@ def refuse_unported(args) -> None:
     """Raise NotImplementedError for a run option the port does not honour
     yet."""
     if int(getattr(args, "mesh_model", 1)) > 1:
-        raise NotImplementedError(
-            "--mesh_model > 1 (tensor parallelism) is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
-    dist = [f"--{k}" for k in ("dist_coordinator", "dist_num_processes", "dist_process_id")
-            if getattr(args, k, None) is not None]
-    if dist:
-        raise NotImplementedError(
-            f"{', '.join(dist)}: multi-process runs are not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
+        raise NotImplementedError(f"--mesh_model > 1: {TENSOR_PARALLEL_ITEM}")
     if getattr(args, "int8", False):
         raise NotImplementedError(
             "--int8 (the int8 PTQ backbone) is not ported yet (ROADMAP.md Queue 1 item 6)")
 
 
+def start_run(args) -> None:
+    """Refuse what the port does not honour, then join the run's process
+    group when there is one (before the model is built: each rank then
+    builds it on its own card)."""
+    refuse_unported(args)
+    distributed.maybe_initialize_distributed(args)
+
+
+def _build_mesh(args):
+    """The data-parallel mesh of this run's ranks (the data axis every rank,
+    the model axis 1), or None for one process. The JAX function clips the
+    data axis to a divisor of the global batch; here the ranks are fixed by
+    the launch, and the Trainer raises when the batch does not split."""
+    if not distributed.is_initialized():
+        return None
+    mesh = make_mesh(num_model=int(getattr(args, "mesh_model", 1)))
+    if distributed.is_main_process():
+        print(f"device mesh: data={mesh.shape['data']} model={mesh.shape['model']} "
+              f"({distributed.world_size()} ranks)")
+    return mesh
+
+
 def get_trainer(args, config, detr_args, lr_func, model, train_loader, val_loaders,
                 tracker=None):
-    refuse_unported(args)
+    start_run(args)
     trainer = Trainer(
         model=model,
         detr_args=detr_args,
+        mesh=_build_mesh(args),
         train_loader=train_loader,
         val_loaders=val_loaders,
         checkpoint_path=config["checkpoint_path"],
@@ -129,6 +151,7 @@ def run_script(script_file: str, argv, epochs: int, config, get_loaders, offsets
 
     print(f"Started script: {os.path.basename(script_file)}")
     args = script_parser(epochs).parse_args(argv)
+    start_run(args)
     args.experiment_idf = os.path.splitext(os.path.basename(script_file))[0]
     detr_args = SpatioTemporalDETRArgs(
         num_classes=len(category_dict),
@@ -171,7 +194,7 @@ def add_tpu_args(parser):
     the port does not honour yet say so in their help and raise when used."""
     parser.add_argument(
         "--mesh_model", default=1, type=int,
-        help="tensor-parallel axis size; > 1 is not ported yet (raises)",
+        help="tensor-parallel axis size; > 1 is not ported yet (raises, ROADMAP.md item 4b)",
     )
     parser.add_argument(
         "--matcher", default="auction", choices=["auction", "hungarian"],
@@ -223,8 +246,9 @@ def add_tpu_args(parser):
         "counterpart, so it changes nothing here",
     )
     parser.add_argument("--dist_coordinator", default=None,
-                        help="multi-host coordinator; not ported yet (raises)")
+                        help="host:port of rank 0 for a multi-process run (one process "
+                        "a card), or 'auto' for torchrun's variables")
     parser.add_argument("--dist_num_processes", default=None, type=int,
-                        help="not ported yet (raises)")
+                        help="the run's processes (with --dist_coordinator)")
     parser.add_argument("--dist_process_id", default=None, type=int,
-                        help="not ported yet (raises)")
+                        help="this process's rank (with --dist_coordinator)")

@@ -7,7 +7,8 @@ requested resolution (64 train clips under `--debug`/`--short_train`, 16
 validation clips under `--debug`), so the whole pipeline runs with no data
 mounted. `--device_normalize` has the datasets emit uint8 video, which the
 backbone normalizes on the device; `--loader grain` loads in worker
-processes (`data/loader.py::WorkerLoader`).
+processes (`data/loader.py::WorkerLoader`). In a multi-process run each rank
+loads only its block of every batch's rows (`Loader(shard=...)`).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import future_od_tpu_torch.data.transforms as T
 from future_od_tpu_torch.data import nu_images, nu_scenes
 from future_od_tpu_torch.data.loader import VAL_SEED, Loader, WorkerLoader
 from future_od_tpu_torch.data.synthetic import SyntheticClipDataset
+from future_od_tpu_torch.parallel import distributed
 
 
 def _split_offsets(offsets):
@@ -118,6 +120,8 @@ def _make_loader(args, dataset, **kw):
     sample's video 2x2 into 12 channels on the host."""
     if getattr(args, "s2d", False):
         kw["space_to_depth"] = True
+    if distributed.is_initialized():  # each rank loads its rows of every batch
+        kw["shard"] = (distributed.rank(), distributed.world_size())
     if getattr(args, "loader", "thread") == "grain":
         return WorkerLoader(dataset, **kw)
     return Loader(dataset, **kw)

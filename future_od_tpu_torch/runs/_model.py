@@ -12,5 +12,5 @@ from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
 
 
 def build_model(args, detr_args: SpatioTemporalDETRArgs, store_attention: bool = False):
-    del args  # one process, one card: no DDP wrapping
+    del args  # no DDP wrapper: the data-parallel train step reduces (train/step.py)
     return build_flagship(detr_args, store_attention=store_attention)

@@ -11,7 +11,7 @@ import os
 from future_od_tpu_torch.data import nu_images, nu_scenes
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
 from future_od_tpu_torch.runs import _model
-from future_od_tpu_torch.runs._helper import add_tpu_args, get_trainer
+from future_od_tpu_torch.runs._helper import add_tpu_args, get_trainer, start_run
 from future_od_tpu_torch.runs._loader import get_nuim_loaders, get_nusc_loaders
 from future_od_tpu_torch.runs.config import config
 from future_od_tpu_torch.runs.eval.helpers import add_hardcoded_eval_args
@@ -41,6 +41,7 @@ def run_eval(script_file: str, dataset: str, offsets, default_checkpoint: str,
     Trainer."""
     print(f"Started script: {os.path.basename(script_file)}")
     args = build_eval_parser().parse_args(argv)
+    start_run(args)
     add_hardcoded_eval_args(args, default_checkpoint)
     args.experiment_idf = os.path.splitext(os.path.basename(script_file))[0]
     img_size = img_size or EVAL_IMAGE_SIZE

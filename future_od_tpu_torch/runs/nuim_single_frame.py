@@ -11,7 +11,12 @@ import os
 from future_od_tpu_torch.data import nu_images
 from future_od_tpu_torch.models.build import build_single_frame
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
-from future_od_tpu_torch.runs._helper import build_base_parser, get_lr_func, get_trainer
+from future_od_tpu_torch.runs._helper import (
+    build_base_parser,
+    get_lr_func,
+    get_trainer,
+    start_run,
+)
 from future_od_tpu_torch.runs._loader import get_nuim_loaders
 from future_od_tpu_torch.runs.config import config
 
@@ -43,6 +48,7 @@ def main(argv=None):
     model and train it; returns the Trainer."""
     print(f"Started script: {os.path.basename(__file__)}")
     args = build_parser().parse_args(argv)
+    start_run(args)
     args.experiment_idf = os.path.splitext(os.path.basename(__file__))[0]
     detr_args = detr_args_for(args)
     model = build_single_frame(detr_args, use_imu=False)

@@ -17,7 +17,9 @@ latency and the server's stats.
 Run it as a module from the repo root:
   python -m future_od_tpu_torch.runs.serve --streams 24 --max_batch 12
   python -m future_od_tpu_torch.runs.serve --checkpoint nusc_spatiotemporal_imu_500ms_final --bf16
---mesh_data (serving over several cards) is not ported yet and raises.
+  python -m future_od_tpu_torch.runs.serve --mesh_data 2
+--mesh_data N serves over N cards of this machine (`parallel/mesh.py::
+make_mesh(N, 1)`): the streams spread over them, one model replica a card.
 """
 from __future__ import annotations
 
@@ -32,9 +34,9 @@ import torch
 
 from future_od_tpu_torch.models.build import build_flagship
 from future_od_tpu_torch.models.st_detr import IMU_WIDTHS, SpatioTemporalDETRArgs
+from future_od_tpu_torch.parallel.mesh import make_mesh
 from future_od_tpu_torch.runs.config import config
 from future_od_tpu_torch.serve import MultiStreamServer
-from future_od_tpu_torch.serve.streaming import MESH_ITEM
 from future_od_tpu_torch.utils.checkpoint import load_checkpoint
 
 
@@ -58,7 +60,7 @@ def build_parser():
     parser.add_argument("--device_normalize", action="store_true", default=False,
                         help="ship uint8 frames, normalize on device")
     parser.add_argument("--mesh_data", default=0, type=int,
-                        help="serve over an N-card data mesh (not ported yet)")
+                        help="serve over an N-card data mesh")
     return parser
 
 
@@ -95,14 +97,16 @@ def main(argv=None):
     """Parse `argv` (default: the command line), serve, print the JSON
     line; returns it as a dict."""
     args = build_parser().parse_args(argv)
-    if args.mesh_data:
-        raise NotImplementedError(f"--mesh_data: {MESH_ITEM}")
     H, W = args.img_size
     model = load_model(args)
     if args.bf16:
         model.to(torch.bfloat16)
+    mesh = None
+    if args.mesh_data:
+        mesh = make_mesh(num_data=args.mesh_data, num_model=1)
+        print(f"serving over a {args.mesh_data}-chip data mesh")
     server = MultiStreamServer(model, max_batch=args.max_batch, clip_frames=args.clip_frames,
-                               max_streams=args.max_streams,
+                               max_streams=args.max_streams, mesh=mesh,
                                device=next(model.parameters()).device)
 
     rng = np.random.default_rng(0)

@@ -17,14 +17,18 @@ and streams that join and leave. The design keeps the JAX package's:
   into real rows (tests/test_torch_server.py holds a stream served alone
   bit for bit against the same stream sharing its batch). Pad rows write to
   a scratch ring slot.
-- streams are pinned to the least-loaded chip's ring shard; the port serves
-  one card, so there is one chip. Serving over several cards (`mesh=`)
-  comes with ROADMAP.md Queue 1 item 4 and raises until then.
+- over a mesh (`mesh=`, `parallel/mesh.py`), streams are pinned to the
+  least-loaded device of its data axis, and each device owns a contiguous
+  shard of the ring (its own tensor, on the device) and max_batch/K rows of
+  every dispatch, with a replica of the model; every ring write and read
+  stays on the stream's device. A dispatch launches every device's share
+  before it reads any, so the cards work at once. A grid may list one
+  device twice (both shares then run on it, with one replica).
 
 Results come back BATCHED: each dispatch yields `(placements, outputs)`,
 `placements` mapping stream ids to rows of `outputs` (a post-processed dict
-with a leading batch dim, left on the card), so one sync reads every clip
-of a dispatch. `split_results` unpacks them into per-stream dicts.
+with a leading batch dim, left on the card; over a mesh, the devices' rows
+gathered on its first device), so one sync reads every clip of a dispatch. `split_results` unpacks them into per-stream dicts.
 `stats()` reports how much of the dispatched rows was padding.
 """
 from __future__ import annotations
@@ -36,7 +40,8 @@ import numpy as np
 import torch
 
 from future_od_tpu_torch.models.st_detr import IMU_WIDTHS
-from future_od_tpu_torch.serve.streaming import MESH_ITEM, make_streaming_fns, streamable_core
+from future_od_tpu_torch.parallel.mesh import TENSOR_PARALLEL_ITEM, gather_rows, module_replicas
+from future_od_tpu_torch.serve.streaming import make_streaming_fns, streamable_core
 from future_od_tpu_torch.utils.device import DeviceLike, resolve_device
 
 IMU_KEYS = tuple(IMU_WIDTHS)  # every IMU key a frame carries
@@ -63,8 +68,8 @@ class _StreamState:
     __slots__ = ("chip", "base", "seen", "offsets", "queue")
 
     def __init__(self, chip: int, base: int, window: int):
-        self.chip = chip  # owning chip; 0 on one card
-        self.base = base  # first ring slot of this stream's region
+        self.chip = chip  # owning chip (place on the mesh's data axis); 0 without one
+        self.base = base  # first slot of this stream's region in its chip's ring
         self.seen = 0  # frames encoded so far
         self.offsets: deque = deque(maxlen=window)  # temporal offsets
         self.queue: deque = deque()  # frames waiting for a dispatch slot
@@ -84,28 +89,42 @@ class MultiStreamServer:
     Args:
         model: a SpatioTemporalDETR whose core is a FuturePredCore without
             a joint encoder (cast it to bf16 first to serve in bf16); it
-            must live on `device`.
+            must live on `device` (over a mesh: anywhere; each device of
+            the mesh gets a replica).
         max_batch: the fixed batch of every dispatch.
         clip_frames: L of the batch clip being emulated (the decoder reads
             L-1 past frames).
         max_streams: ring capacity in streams; `close_stream` frees a slot.
-        mesh: serving over several cards; not ported yet, raises
-            NotImplementedError unless None.
-        device: default CUDA (raises without a card).
+        mesh: a `parallel/mesh.py` mesh of this process's devices, whose
+            data axis the streams spread over (module docstring); its model
+            axis must be 1, and max_batch and max_streams must divide by its
+            data axis.
+        device: without a mesh, default CUDA (raises without a card).
     """
 
     def __init__(self, model, max_batch: int, clip_frames: int = 3, max_streams: int = 64,
                  mesh=None, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: {MESH_ITEM}")
         streamable_core(model)
-        self.device = resolve_device(device)
         self.max_batch = int(max_batch)
         self.window = clip_frames - 1
         self.max_streams = int(max_streams)
-        self._model = model.eval()
         self._clip_frames = clip_frames
-        self._num_chips = 1
+        if mesh is None:
+            devices = [resolve_device(device)]
+        else:
+            if mesh.shape["model"] != 1:
+                raise NotImplementedError(TENSOR_PARALLEL_ITEM)
+            devices = [resolve_device(d) for d in mesh.data_devices()]
+            if self.max_batch % len(devices) or self.max_streams % len(devices):
+                raise ValueError(f"max_batch {self.max_batch} and max_streams "
+                                 f"{self.max_streams} must divide by the data axis "
+                                 f"{len(devices)}")
+        self.mesh = mesh
+        self.device = devices[0]  # where a dispatch's outputs are gathered
+        self._devices = devices  # each chip's device
+        replicas = module_replicas(model.eval(), devices)
+        self._models = [replicas[d] for d in devices]
+        self._num_chips = len(devices)
         self._batch_local = self.max_batch // self._num_chips
         self._streams_local = self.max_streams // self._num_chips
         self._slots_per_stream = self.window + 1  # +1: the in-flight write
@@ -114,9 +133,9 @@ class MultiStreamServer:
         self._scratch = self._ring_local - 1
         self._chips = [_Chip(self._streams_local) for _ in range(self._num_chips)]
         self._streams: Dict[Hashable, _StreamState] = {}
-        self._encode = self._detect = None
-        self._ring = None  # (num_chips * ring_local, h, w, D), the features' dtype
-        self._ego_ring = None  # (same leading, D), or None without egodeep
+        self._fns = None  # each chip's (encode_frame, detect_window)
+        self._ring = None  # each chip's (ring_local, h, w, D), the features' dtype
+        self._ego_ring = None  # each chip's (ring_local, D), or None without egodeep
         self._has_imu: Optional[bool] = None
         self._dispatches = 0
         self._padded_rows = 0
@@ -146,7 +165,7 @@ class MultiStreamServer:
     def ring_bytes(self) -> int:
         """Device bytes the feature and egodeep rings hold (0 before the
         first dispatch)."""
-        rings = [r for r in (self._ring, self._ego_ring) if r is not None]
+        rings = [r for chips in (self._ring, self._ego_ring) if chips is not None for r in chips]
         return sum(r.numel() * r.element_size() for r in rings)
 
     # -- ingestion ---------------------------------------------------------
@@ -204,28 +223,29 @@ class MultiStreamServer:
 
     # -- dispatch ----------------------------------------------------------
 
-    def _encode_store(self, video, imu, slots) -> None:
-        """Encode the frame batch and write its features into `slots` of
-        the rings, in place; the rings are made at the first call, in the
-        features' dtype."""
+    def _encode_store(self, c: int, video, imu, slots) -> None:
+        """Encode chip c's frame batch and write its features into `slots`
+        of the chip's rings, in place; the rings are made at the first
+        call, in the features' dtype."""
         batch = {"video": video}
         if imu is not None:
             batch.update(imu)
-        feats, ego = self._encode(batch)
+        feats, ego = self._fns[c][0](batch)
         if self._ring is None:
-            rows = self._num_chips * self._ring_local
-            self._ring = feats.new_zeros((rows,) + feats.shape[1:])
+            self._ring = [feats.new_zeros((self._ring_local,) + feats.shape[1:], device=d)
+                          for d in self._devices]
             if ego is not None:
-                self._ego_ring = ego.new_zeros((rows,) + ego.shape[1:])
-        self._ring.index_copy_(0, slots, feats)
+                self._ego_ring = [ego.new_zeros((self._ring_local,) + ego.shape[1:], device=d)
+                                  for d in self._devices]
+        self._ring[c].index_copy_(0, slots, feats)
         if ego is not None:
-            self._ego_ring.index_copy_(0, slots, ego)
+            self._ego_ring[c].index_copy_(0, slots, ego)
 
-    def _detect_gather(self, idx, offsets):
-        """The decoder and post-processing over the (B, window) ring slots
-        `idx`."""
-        ego = self._ego_ring[idx] if self._ego_ring is not None else None
-        return self._detect(self._ring[idx], ego, offsets)
+    def _detect_gather(self, c: int, idx, offsets):
+        """The decoder and post-processing over chip c's (B_local, window)
+        ring slots `idx`."""
+        ego = self._ego_ring[c][idx] if self._ego_ring is not None else None
+        return self._fns[c][1](self._ring[c][idx], ego, offsets)
 
     def _dispatch_round(self) -> Results:
         """Encode one frame from up to batch_local streams PER CHIP, then
@@ -253,17 +273,14 @@ class MultiStreamServer:
             work.extend([None] * (self._batch_local - len(taken)))
         if not any_work:
             return []
-        if self._encode is None:
+        if self._fns is None:
             hw = tuple(next(w for w in work if w)[1]["video"].shape[:2])
-            self._encode, self._detect = make_streaming_fns(self._model, self._clip_frames, hw)
+            self._fns = [make_streaming_fns(m, self._clip_frames, hw) for m in self._models]
 
-        # -- assemble the fixed-shape frame batch; pad rows reuse any real
-        # frame (rows never mix; pad features land in the chip's scratch slot)
+        # -- assemble each chip's fixed-shape frame batch; pad rows reuse any
+        # real frame (rows never mix; pad features land in the chip's
+        # scratch slot)
         fallback = next(w for w in work if w)[1]
-        rows = [w[1] if w else fallback for w in work]
-        video = _stack([r["video"] for r in rows], self.device)
-        imu = ({k: _stack([r[k] for r in rows], self.device) for k in IMU_KEYS}
-               if self._has_imu else None)
         slots, ready = [], []
         for c in range(self._num_chips):
             for j in range(self._batch_local):
@@ -282,7 +299,13 @@ class MultiStreamServer:
                            for k in range(state.seen - self.window, state.seen)]
                     ready.append((sid, idx, list(state.offsets)))
         with torch.inference_mode():
-            self._encode_store(video, imu, torch.as_tensor(slots, device=self.device))
+            for c, device in enumerate(self._devices):  # every chip's share, no sync between
+                block = slice(c * self._batch_local, (c + 1) * self._batch_local)
+                rows = [w[1] if w else fallback for w in work[block]]
+                video = _stack([r["video"] for r in rows], device)
+                imu = ({k: _stack([r[k] for r in rows], device) for k in IMU_KEYS}
+                       if self._has_imu else None)
+                self._encode_store(c, video, imu, torch.as_tensor(slots[block], device=device))
         self._dispatches += 1
         n_real = sum(1 for w in work if w)
         self._real_rows += n_real
@@ -294,10 +317,11 @@ class MultiStreamServer:
         for clip in ready:
             per_chip[self._streams[clip[0]].chip].append(clip)
         while any(per_chip):
-            placements, idx, offs = [], [], []
-            for c in range(self._num_chips):
+            placements, outs = [], []
+            for c, device in enumerate(self._devices):
                 batch_c = per_chip[c][: self._batch_local]
                 per_chip[c] = per_chip[c][self._batch_local:]
+                idx, offs = [], []
                 for j, (sid, slot_idx, offsets) in enumerate(batch_c):
                     placements.append((sid, c * self._batch_local + j))
                     idx.append(slot_idx)
@@ -305,10 +329,10 @@ class MultiStreamServer:
                 pad = self._batch_local - len(batch_c)
                 idx.extend([[self._scratch] * self.window] * pad)
                 offs.extend([[0.0] * self.window] * pad)
-            with torch.inference_mode():
-                out = self._detect_gather(
-                    torch.as_tensor(idx, device=self.device),
-                    torch.as_tensor(np.asarray(offs, np.float32), device=self.device).to(
-                        self._ring.dtype))
-            results.append((tuple(placements), out))
+                with torch.inference_mode():
+                    outs.append(self._detect_gather(
+                        c, torch.as_tensor(idx, device=device),
+                        torch.as_tensor(np.asarray(offs, np.float32), device=device).to(
+                            self._ring[c].dtype)))
+            results.append((tuple(placements), gather_rows(outs, self.device)))
         return results

@@ -31,10 +31,14 @@ from torch import nn
 
 from future_od_tpu_torch.models.cores import FuturePredCore, _positions
 from future_od_tpu_torch.models.st_detr import normalize_outputs, post_process
+from future_od_tpu_torch.parallel.mesh import (
+    TENSOR_PARALLEL_ITEM,
+    BatchSharding,
+    gather_rows,
+    module_replicas,
+)
 from future_od_tpu_torch.train.step import to_device_batch
 from future_od_tpu_torch.utils.device import DeviceLike, resolve_device
-
-MESH_ITEM = "multi-chip serving is not ported yet (ROADMAP.md Queue 1 item 4, parallel/)"
 
 
 def streamable_core(model) -> FuturePredCore:
@@ -117,19 +121,39 @@ class StreamingSession:
     decodes: equal to batch inference on the clip ending at this frame.
     Runs on `device` (default CUDA; raises without a card), where the model
     must live, in inference mode.
+
+    input_sharding: `parallel/mesh.py::batch_sharding(mesh)` spreads each
+    frame batch's streams over the data axis of a mesh of this process's
+    devices in contiguous blocks (B must divide by it), each block encoded
+    and decoded on its device by a replica of the model, each device's
+    window kept there; the outputs are the blocks' rows gathered, in order,
+    on the mesh's first device. Every block is launched before any is read.
     """
 
     def __init__(self, model, clip_frames: int = 3, device: DeviceLike = None,
-                 input_sharding=None):
-        if input_sharding is not None:
-            raise NotImplementedError(f"input_sharding: {MESH_ITEM}")
+                 input_sharding: Optional[BatchSharding] = None):
         streamable_core(model)
-        self.device = resolve_device(device)
+        if input_sharding is None:
+            devices = [resolve_device(device)]
+        else:
+            if not isinstance(input_sharding, BatchSharding):
+                raise TypeError(f"input_sharding: want parallel.mesh.batch_sharding(mesh), got "
+                                f"{input_sharding!r}")
+            if input_sharding.mesh.shape["model"] != 1:
+                raise NotImplementedError(TENSOR_PARALLEL_ITEM)
+            devices = [resolve_device(d) for d in input_sharding.mesh.data_devices()]
+        self.device = devices[0]
+        self._devices = devices
+        self._sharding = input_sharding
         self.window = clip_frames - 1
-        self._model = model.eval()
+        replicas = module_replicas(model.eval(), devices)
+        self._models = [replicas[d] for d in devices]
         self._clip_frames = clip_frames
-        self.encode = self.detect = None  # built on the first frame (needs H, W)
-        self._frames = []  # [(features, egodeep, offset)]
+        # the first device's (encode_frame, detect_window) and the other
+        # devices', built on the first frame (they need H, W)
+        self.encode = self.detect = None
+        self._other_fns = []
+        self._frames = []  # [(each device's (features, egodeep), offset)]
 
     def reset(self) -> None:
         self._frames = []
@@ -138,19 +162,30 @@ class StreamingSession:
              temporal_offset: float = 0.0) -> Optional[Dict[str, torch.Tensor]]:
         """frame: {"video": (B, H, W, 3), IMU keys: (B, d)}, numpy or
         tensors. None until the window is full, then the output dict."""
-        frame = to_device_batch(frame, self.device)
+        B = frame["video"].shape[0]
+        blocks = [slice(0, B)] if self._sharding is None else self._sharding.blocks(B)
         if self.encode is None:
-            self.encode, self.detect = make_streaming_fns(
-                self._model, self._clip_frames, tuple(frame["video"].shape[1:3]))
+            hw = tuple(frame["video"].shape[1:3])
+            fns = [make_streaming_fns(m, self._clip_frames, hw) for m in self._models]
+            (self.encode, self.detect), self._other_fns = fns[0], fns[1:]
+        pairs = [(self.encode, self.detect)] + self._other_fns
         with torch.inference_mode():
-            feats, ego = self.encode(frame)
-            self._frames = (self._frames + [(feats, ego, float(temporal_offset))])[-self.window:]
+            encoded = [encode(to_device_batch({k: v[block] if hasattr(v, "shape") else v
+                                               for k, v in frame.items()}, device))
+                       for (encode, _), block, device in zip(pairs, blocks, self._devices)]
+            self._frames = (self._frames + [(encoded, float(temporal_offset))])[-self.window:]
             if len(self._frames) < self.window:
                 return None
-            features = torch.stack([f for f, _, _ in self._frames], dim=1)
-            egos = [e for _, e, _ in self._frames]
-            egodeep = None if egos[0] is None else torch.stack(egos, dim=1)
-            offsets = torch.tensor([o for _, _, o in self._frames], dtype=features.dtype,
-                                   device=features.device)[None].expand(features.shape[0],
-                                                                        self.window)
-            return self.detect(features, egodeep, offsets)
+            outs = [self._detect(c, detect) for c, (_, detect) in enumerate(pairs)]
+        return gather_rows(outs, self.device)
+
+    def _detect(self, c: int, detect) -> Dict[str, torch.Tensor]:
+        """Device c's `detect` over its window."""
+        window = [(enc[c], offset) for enc, offset in self._frames]
+        features = torch.stack([f for (f, _), _ in window], dim=1)
+        egos = [e for (_, e), _ in window]
+        egodeep = None if egos[0] is None else torch.stack(egos, dim=1)
+        offsets = torch.tensor([o for _, o in window], dtype=features.dtype,
+                               device=features.device)[None].expand(features.shape[0],
+                                                                    self.window)
+        return detect(features, egodeep, offsets)

@@ -10,25 +10,40 @@ the loss over every decoder level (the JAX model returns the aux levels in
 eval too) and the same post-processing. The train step takes the JAX
 package's mixed precision and exact gradient accumulation; the host-matched
 steps are not ported yet.
+
+Data parallelism (`mesh=`, a `parallel/mesh.py` mesh whose data axis is the
+ranks of a process group): the JAX package runs one program over the global
+batch; here each rank computes its contiguous block of rows and the step
+reduces so that the numbers are the global program's. The active-target
+count is summed over the ranks before the loss, so each rank's loss is its
+rows' sum over the global `num_boxes` and the sum of the ranks' gradients
+is the global gradient; the gradients are summed once a step (one bucketed
+all-reduce, after the last micro-batch and before the clip), so the clip
+and AdamW see the whole batch's; the stats are reduced over the rows
+(`reduce_stats`). The mAP intermediaries and the output stay the rank's
+rows. Each rank draws its own dropout (the rank is folded into the seed).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from future_od_tpu_torch.metrics.od_map import prepare_od_map_stuffs
 from future_od_tpu_torch.models.precision import half_state, jax_promotion
-from future_od_tpu_torch.models.set_criterion import CriterionConfig
+from future_od_tpu_torch.models.set_criterion import CriterionConfig, matched_targets
 from future_od_tpu_torch.models.st_detr import (
+    STAT_IDFS,
     SpatioTemporalDETR,
     compute_loss,
     normalize_outputs,
     post_process,
 )
 from future_od_tpu_torch.ops.misc import video_hw
+from future_od_tpu_torch.parallel import distributed
+from future_od_tpu_torch.parallel.mesh import TENSOR_PARALLEL_ITEM, Mesh
 from future_od_tpu_torch.train.optimizer import AdamWClipped, clip_by_global_norm_, global_norm
 from future_od_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -93,17 +108,100 @@ def step_seed(seed: int, step: int) -> int:
 
 
 @contextlib.contextmanager
-def seeded(seed: int, step: int, device: torch.device, micro: Optional[int] = None):
+def seeded(seed: int, step: int, device: torch.device, micro: Optional[int] = None,
+           rank: Optional[int] = None):
     """torch's generators seeded from (seed, step) inside, restored after:
     the dropout of step `step` of a run seeded `seed`; with `micro`, that of
-    its micro-batch `micro` (the JAX package's fold_in of k)."""
+    its micro-batch `micro` (the JAX package's fold_in of k); with `rank`,
+    that of a data-parallel rank's rows (the JAX program draws a mask for
+    every row of the global batch, so no two ranks may draw the same)."""
     devices = []
     if device.type == "cuda":
         devices = [torch.cuda.current_device() if device.index is None else device.index]
     with torch.random.fork_rng(devices=devices):
-        torch.manual_seed(step_seed(seed, step) if micro is None
-                          else step_seed(step_seed(seed, step), micro))
+        value = step_seed(seed, step)
+        if micro is not None:
+            value = step_seed(value, micro)
+        if rank is not None:
+            value = step_seed(value, rank)
+        torch.manual_seed(value)
         yield
+
+
+def data_parallel(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh a step reduces over (its data axis the ranks of a process
+    group), or None for a step of one process. A model axis above 1 raises
+    NotImplementedError (item 4b); a mesh of several devices in one process
+    raises ValueError: a train or eval step runs one process a device."""
+    if mesh is None:
+        return None
+    if mesh.shape["model"] != 1:
+        raise NotImplementedError(TENSOR_PARALLEL_ITEM)
+    if not mesh.distributed:
+        if mesh.shape["data"] == 1:
+            return None
+        raise ValueError(
+            f"{mesh}: a train or eval step runs one process a device; start one rank a "
+            "device (torchrun, or --dist_* / COORDINATOR_ADDRESS) and pass make_mesh()")
+    return mesh
+
+
+def _dropout_rank(mesh: Optional[Mesh]) -> Optional[int]:
+    return mesh.rank if mesh is not None and mesh.shape["data"] > 1 else None
+
+
+def global_num_boxes(active: Optional[torch.Tensor], mesh: Optional[Mesh],
+                     device: torch.device) -> torch.Tensor:
+    """The batch's active-target count floored at 1, summed over the ranks
+    under a data-parallel mesh (`active` None: a rank without rows)."""
+    count = (torch.zeros((), device=device) if active is None
+             else active.sum().float())
+    if mesh is not None:
+        distributed.all_reduce_sum_([count])
+    return count.clamp(min=1.0)
+
+
+# a rank's numbers for `reduce_stats`: the loss, the stats, then the matched
+# targets of the class error and the rows
+def _stat_row(loss, stats: Dict[str, torch.Tensor], active: torch.Tensor) -> torch.Tensor:
+    return torch.stack([loss.detach().float(), *(v.detach().float() for v in stats.values()),
+                        matched_targets(stats, active), torch.tensor(
+                            float(active.shape[0]), device=active.device)])
+
+
+_SUMMED_STATS = ("labels", "box_l1", "box_giou", "matcher_dropped")
+
+
+def reduce_stats(rows: torch.Tensor, keys) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, stats) of one micro-batch over every rank's rows, from the
+    (W, 3 + len(keys)) `_stat_row`s of the ranks: the loss and the
+    loss-derived stats (over the global num_boxes) and the drop count add,
+    the rounds take the max, the class error is recomputed over all matched
+    targets, and the other stats (means over rows) are weighted by rows."""
+    n, count = rows[:, -2], rows[:, -1]
+    total_rows = count.sum().clamp(min=1.0)
+    stats = {}
+    for i, key in enumerate(keys, start=1):
+        v = rows[:, i]
+        if key in _SUMMED_STATS:
+            stats[key] = v.sum()
+        elif key == "matcher_rounds":
+            stats[key] = v.max()
+        elif key == "class_error":
+            correct = torch.round((100.0 - v) / 100.0 * n).sum().long()
+            stats[key] = 100.0 - 100.0 * correct / n.sum().long().clamp(min=1)
+        else:
+            stats[key] = (v * count).sum() / total_rows
+    return rows[:, 0].sum(), stats
+
+
+def _gather_rows(row: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """(W, ...) of every rank's `row`, in rank order: an all-reduce of a
+    zero block holding this rank's row (gloo gathers no CUDA tensors)."""
+    out = row.new_zeros((mesh.shape["data"],) + tuple(row.shape))
+    out[mesh.rank] = row
+    distributed.all_reduce_sum_([out])
+    return out
 
 
 # each stat's combination over micro-batches (train_step_accum): the
@@ -126,7 +224,7 @@ def _combine_stats(total: Optional[Dict[str, torch.Tensor]], stats: Dict[str, to
 def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
                     optimizer: AdamWClipped, skip_nonfinite: bool = True,
                     device: DeviceLike = None, mixed_precision: bool = False,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1, mesh: Optional[Mesh] = None) -> Callable:
     """Returns train_step(data, seed) -> (loss, stats, od_map_stuffs,
     output), which updates `model` and `optimizer` in place and counts
     steps. `data` is the JAX package's batch dict (numpy arrays or tensors),
@@ -156,8 +254,18 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
 
     skip_nonfinite: when the global gradient norm is not finite, the step
     keeps the old parameters and optimizer state; stats["nonfinite_skipped"]
-    is 1.0 then (else 0.0). The step counter advances either way."""
+    is 1.0 then (else 0.0). The step counter advances either way.
+
+    mesh: data parallelism over the ranks (module docstring). `data` is then
+    this rank's contiguous block of the global batch, and the loss and
+    stats returned are the global batch's; the output and the mAP
+    intermediaries are the rank's rows. With accumulation, micro-batch k of
+    the global batch (rows k::K) is every rank's local rows k::K, which
+    needs the block's rows divisible by K (raises ValueError with the
+    sizes)."""
     device = resolve_device(device)
+    mesh = data_parallel(mesh)
+    rank = _dropout_rank(mesh)
     params = list(optimizer.parameters())
     steps = [0]
     K = int(accum_steps)
@@ -170,25 +278,39 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
         batch = to_device_batch(data, device)
         B = batch["active"].shape[0]
         if B % K:
+            if mesh is not None:
+                raise ValueError(
+                    f"a rank's {B} rows of the global batch of {B * mesh.shape['data']} "
+                    f"({mesh.shape['data']} ranks) are not divisible by accum_steps {K}")
             raise ValueError(f"batch {B} not divisible by accum_steps {K}")
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        num_boxes = batch["active"].sum().float().clamp(min=1.0)
+        num_boxes = global_num_boxes(batch["active"], mesh, device)
         split = {k: v for k, v in batch.items()
                  if torch.is_tensor(v) and v.ndim and v.shape[0] == B}
-        loss, stats, outputs = 0.0, None, []
+        loss, stats, outputs, rows = 0.0, None, [], []
         for k in range(K):
             micro = {**batch, **{key: v[k::K] for key, v in split.items()}}
-            with seeded(seed, steps[0], device, micro=k if K > 1 else None):
+            with seeded(seed, steps[0], device, micro=k if K > 1 else None, rank=rank):
                 loss_k, (stats_k, logits_k, boxes_k) = loss_of(micro, num_boxes)
                 loss_k.backward()
-            loss = loss + loss_k.detach()
-            stats = _combine_stats(stats, stats_k, K)
+            if mesh is not None:  # reduced over the ranks after the last micro-batch
+                rows.append(_stat_row(loss_k, stats_k, micro["active"]))
+            else:
+                loss = loss + loss_k.detach()
+                stats = _combine_stats(stats, stats_k, K)
             outputs.append((logits_k.detach(), boxes_k.detach()))
         # micro-batch k's row j is row j*K + k of the batch
         pred_logits, pred_boxes = (torch.stack(list(out), 1).flatten(0, 1)
                                    for out in zip(*outputs))
         grads = [p.grad for p in params if p.grad is not None]
+        if mesh is not None:
+            distributed.all_reduce_sum_(grads)
+            gathered = _gather_rows(torch.stack(rows), mesh)  # (W, K, S)
+            for k in range(K):
+                loss_k, stats_k = reduce_stats(gathered[:, k], stats_k.keys())
+                loss = loss + loss_k
+                stats = _combine_stats(stats, stats_k, K)
         norm = global_norm(grads)
         ok = bool(torch.isfinite(norm))  # the step's one decision on the host
         if ok or not skip_nonfinite:
@@ -205,29 +327,60 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     return train_step
 
 
+def _eval_result(batch: Optional[Dict[str, torch.Tensor]], mesh: Optional[Mesh],
+                 device: torch.device, loss_fn: Callable):
+    """An eval step's (loss, stats, od_map_stuffs, output) from
+    loss_fn(batch, num_boxes) -> (loss, (stats, pred_logits, pred_boxes)).
+    Under a data-parallel mesh the count and the stats are the whole
+    batch's, and a rank without rows (`batch` None) computes nothing and
+    returns None for the mAP intermediaries and the output."""
+    if batch is None and mesh is None:
+        raise ValueError("an eval step without a mesh needs a batch")
+    num_boxes = None if mesh is None else global_num_boxes(
+        None if batch is None else batch["active"], mesh, device)
+    output = od_map_stuffs = None
+    if batch is not None:
+        loss, (stats, pred_logits, pred_boxes) = loss_fn(batch, num_boxes)
+        output, od_map_stuffs = postproc_and_map(pred_logits, pred_boxes, batch)
+    if mesh is not None:
+        row = (torch.zeros(3 + len(STAT_IDFS), device=device) if batch is None
+               else _stat_row(loss, stats, batch["active"]))
+        loss, stats = reduce_stats(_gather_rows(row, mesh), STAT_IDFS)
+    return loss, stats, od_map_stuffs, output
+
+
 def make_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
-                   device: DeviceLike = None) -> Callable:
+                   device: DeviceLike = None, mesh: Optional[Mesh] = None) -> Callable:
     """Returns eval_step(data) -> (loss, stats, od_map_stuffs, output): the
     forward in eval mode without autograd, the loss with every decoder
     level, post-processing and the mAP intermediaries. `data` is the JAX
     package's batch dict, moved to `device` (default CUDA; raises without a
-    card), where the model must live."""
-    device = resolve_device(device)
+    card), where the model must live.
 
-    def eval_step(data: Dict[str, Any]):
-        batch = to_device_batch(data, device)
+    mesh: data parallelism over the ranks, as `make_train_step`'s. `data` is
+    this rank's block of the batch, of any size (a ragged batch splits
+    unevenly), or None for a rank without rows, which then returns None for
+    the mAP intermediaries and the output; the loss and stats are the whole
+    batch's on every rank."""
+    device = resolve_device(device)
+    mesh = data_parallel(mesh)
+
+    def loss_fn(batch, num_boxes):
+        return forward_and_loss(model, criterion_cfg, batch, num_boxes=num_boxes,
+                                aux_levels=True)
+
+    def eval_step(data: Optional[Dict[str, Any]]):
         model.eval()
         with torch.no_grad():
-            loss, (stats, pred_logits, pred_boxes) = forward_and_loss(
-                model, criterion_cfg, batch, aux_levels=True)
-            output, od_map_stuffs = postproc_and_map(pred_logits, pred_boxes, batch)
-        return loss, stats, od_map_stuffs, output
+            return _eval_result(None if data is None else to_device_batch(data, device), mesh,
+                                device, loss_fn)
 
     return eval_step
 
 
 def make_tracker_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfig, tracker,
-                           host_matched: bool = False, device: DeviceLike = None) -> Callable:
+                           host_matched: bool = False, device: DeviceLike = None,
+                           mesh: Optional[Mesh] = None) -> Callable:
     """Returns eval_step(data) -> (loss, stats, od_map_stuffs, output) for
     the tracker baseline (`TrackerBaselineCore` at L >= 2), with
     `make_eval_step`'s signature: the per-frame detections of the past
@@ -236,35 +389,35 @@ def make_tracker_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfi
     loss, post-processing and mAP intermediaries of its extrapolated future
     prediction back on the device. `host_matched=True` (the JAX package's
     split around a host matcher, for backends without host callbacks) is
-    not ported and raises NotImplementedError."""
+    not ported and raises NotImplementedError. `mesh`: as `make_eval_step`'s."""
     if host_matched:
         raise NotImplementedError(
             "make_tracker_eval_step(host_matched=True), the host-matched split of the step, "
             "is not ported (ROADMAP.md Queue 1 item 6, 1c)")
     device = resolve_device(device)
+    mesh = data_parallel(mesh)
 
-    def eval_step(data: Dict[str, Any]):
-        batch = to_device_batch(data, device)
+    def loss_fn(batch, num_boxes):
+        preds = model(batch)["per_frame_preds"]
+        p0, p1 = ({k: p[k].float().cpu().numpy() for k in ("pred_logits", "pred_boxes")}
+                  for p in preds[:2])
+        offsets = batch.get("temporal_offsets")
+        future = tracker(p0, p1, None if offsets is None else offsets.cpu().numpy())
+        future = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                  for k, v in future.items()}
+        return loss_of_outputs(future, batch, criterion_cfg, num_boxes=num_boxes)
+
+    def eval_step(data: Optional[Dict[str, Any]]):
         model.eval()
         with torch.no_grad():
-            preds = model(batch)["per_frame_preds"]
-            p0, p1 = ({k: p[k].float().cpu().numpy() for k in ("pred_logits", "pred_boxes")}
-                      for p in preds[:2])
-            offsets = data.get("temporal_offsets")
-            future = tracker(p0, p1, None if offsets is None else np.asarray(
-                offsets.cpu() if torch.is_tensor(offsets) else offsets))
-            future = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
-                      for k, v in future.items()}
-            loss, (stats, pred_logits, pred_boxes) = loss_of_outputs(future, batch,
-                                                                     criterion_cfg)
-            output, od_map_stuffs = postproc_and_map(pred_logits, pred_boxes, batch)
-        return loss, stats, od_map_stuffs, output
+            return _eval_result(None if data is None else to_device_batch(data, device), mesh,
+                                device, loss_fn)
 
     return eval_step
 
 
 def make_grad_report(model: torch.nn.Module, criterion_cfg: CriterionConfig,
-                     device: DeviceLike = None) -> Callable:
+                     device: DeviceLike = None, mesh: Optional[Mesh] = None) -> Callable:
     """Returns report(data, seed, step) -> {parameter name: the L2 norm of
     its gradient on `data`} (f32 scalars on `device`), from one forward in
     training mode with the dropout of train step `step` and one backward
@@ -273,17 +426,25 @@ def make_grad_report(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     0. The port of the JAX epoch-1 audit: under autograd a gradient that is
     identically zero on a real batch marks a dead branch or a mis-masked
     parameter, as the reference's `grad is None` check (trainer.py:181-185)
-    does."""
+    does. With `mesh` (data parallelism, as `make_train_step`'s), `data` is
+    the rank's block of the batch and the norms are those of the whole
+    batch's gradient, summed over the ranks."""
     device = resolve_device(device)
+    mesh = data_parallel(mesh)
+    rank = _dropout_rank(mesh)
 
     def report(data: Dict[str, Any], seed: int, step: int) -> Dict[str, torch.Tensor]:
         batch = to_device_batch(data, device)
         model.train()
         named = list(model.named_parameters())
         trainable = [p for _, p in named if p.requires_grad]
-        with seeded(seed, step, device):
-            loss, _ = forward_and_loss(model, criterion_cfg, batch)
-            grads = iter(torch.autograd.grad(loss, trainable, allow_unused=True))
+        with seeded(seed, step, device, rank=rank):
+            num_boxes = global_num_boxes(batch["active"], mesh, device)
+            loss, _ = forward_and_loss(model, criterion_cfg, batch, num_boxes=num_boxes)
+            grads = list(torch.autograd.grad(loss, trainable, allow_unused=True))
+        if mesh is not None:
+            distributed.all_reduce_sum_([g for g in grads if g is not None])
+        grads = iter(grads)
         norms = {}
         for name, p in named:
             g = next(grads) if p.requires_grad else None

@@ -11,6 +11,17 @@ exit on a signal. The model and the AdamW optimizer live on one device
 The epoch loop runs one step ahead of its host bookkeeping: step i+1 is
 queued on the device before step i's loss, stats and AP tensors are read
 (each read a sync), so those reads overlap step i+1's device work.
+
+Data parallelism (`mesh=`, `parallel/mesh.py::make_mesh()` under an
+initialized process group): every rank runs this loop on its own card, its
+loaders sharded to its rows (`data/loader.py`, `shard=(rank, world)`), and
+the steps reduce over the ranks (`train/step.py`), so the meters are the
+global batch's on every rank. The AP accumulators are gathered to the host
+of every rank, step by step in rank order, so each row counts once and the
+AP is the one-process run's. Rank 0 alone prints, logs to W&B, writes the
+checkpoints (a barrier after each write) and draws the PNGs, from the
+visualized batch and outputs gathered from every rank. A signal on any rank
+stops every rank at the same step (the exit flag is reduced each step).
 """
 from __future__ import annotations
 
@@ -26,12 +37,14 @@ import torch
 from future_od_tpu_torch.data.loader import ARRAY_KEYS
 from future_od_tpu_torch.metrics.od_map import aggregate_mean_average_precision
 from future_od_tpu_torch.models.st_detr import STAT_IDFS, SpatioTemporalDETRArgs
+from future_od_tpu_torch.parallel import distributed
 from future_od_tpu_torch.train.optimizer import (
     build_optimizer,
     param_labels,
     set_learning_rates,
 )
 from future_od_tpu_torch.train.step import (
+    data_parallel,
     dead_param_names,
     make_eval_step,
     make_grad_report,
@@ -62,7 +75,8 @@ class Trainer:
     the train step (`train/step.py::make_train_step`); eval stays f32, as
     the JAX Trainer's does. With a `tracker` (models/tracker.py) the eval
     step is the tracker baseline's (`train/step.py::make_tracker_eval_step`).
-    Not ported yet, and refused: `mesh`."""
+    `mesh`: data parallelism over the ranks (module docstring); `device`
+    then defaults to the rank's card."""
 
     def __init__(
         self,
@@ -90,9 +104,10 @@ class Trainer:
         accum_steps: int = 1,
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP.md Queue 1 item 4)")
+        self._mesh = data_parallel(mesh)
+        if self._mesh is not None and device is None:
+            device = self._mesh.local_device
+        self._main = self._mesh is None or self._mesh.rank == 0
         self._device = resolve_device(device)
         install_signal_handlers()
         self._model = model.to(self._device)
@@ -154,6 +169,7 @@ class Trainer:
         self._epoch = 0
         self._training_iterations = 0
         self._wandb = None
+        self._wandb_on = False  # W&B on for this run (every rank; rank 0 logs)
 
         self._optimizer = build_optimizer(
             self._model, lr=detr_args.lr, lr_backbone=detr_args.lr_backbone,
@@ -162,16 +178,16 @@ class Trainer:
         )
         self._train_step = make_train_step(
             self._model, self._criterion_cfg, self._optimizer, device=self._device,
-            mixed_precision=mixed_precision, accum_steps=accum_steps,
+            mixed_precision=mixed_precision, accum_steps=accum_steps, mesh=self._mesh,
         )
         if tracker is None:
             self._eval_step = make_eval_step(self._model, self._criterion_cfg,
-                                             device=self._device)
+                                             device=self._device, mesh=self._mesh)
         else:
             # the non-learned tracker baseline: the host-side tracker runs
             # between the detections and the loss
             self._eval_step = make_tracker_eval_step(self._model, self._criterion_cfg, tracker,
-                                                     device=self._device)
+                                                     device=self._device, mesh=self._mesh)
 
     @property
     def step(self) -> int:
@@ -180,30 +196,59 @@ class Trainer:
         return self._train_step.steps[0]
 
     # ------------------------------------------------------------------
+    def _print(self, *args, **kwargs):
+        if self._main:
+            print(*args, **kwargs)
+
+    def _exit_requested(self) -> bool:
+        """The exit flag, on every rank alike: a rank that stopped alone
+        would leave the others waiting in the next collective."""
+        return EXIT.is_set() if self._mesh is None else distributed.any_rank(EXIT.is_set())
+
+    def _barrier(self):
+        if self._mesh is not None:
+            distributed.barrier()
+
+    def _check_sharded(self, data_loader, training: bool):
+        """Under a mesh, a loader must give this rank its rows, and a train
+        batch must split evenly over the ranks."""
+        if self._mesh is None:
+            return
+        ranks = self._mesh.shape["data"]
+        want = (self._mesh.rank, ranks)
+        if getattr(data_loader, "shard", None) != want:
+            raise ValueError(f"a data-parallel Trainer's loaders must load this rank's rows: "
+                             f"shard={want} (Loader(shard=...)), got "
+                             f"{getattr(data_loader, 'shard', None)}")
+        if training and data_loader.batch_size % ranks:
+            raise ValueError(f"the train batch of {data_loader.batch_size} does not split "
+                             f"evenly over {ranks} ranks")
+
+    # ------------------------------------------------------------------
     def train(self, max_epochs: int):
         self._setup_wandb(tags=["training"])
-        print(f"Training epochs {self._epoch + 1} to {max_epochs}.")
+        self._print(f"Training epochs {self._epoch + 1} to {max_epochs}.")
         for epoch in range(self._epoch + 1, max_epochs + 1):
             self._epoch = epoch
             self._train_loader.set_epoch(epoch)
             factor = self._lr_func(epoch - 1)
             set_learning_rates(self._optimizer, self._args.lr * factor,
                                self._args.lr_backbone * factor)
-            print(f"Starting epoch {epoch} with lr factor {factor}")
+            self._print(f"Starting epoch {epoch} with lr factor {factor}")
             self._run_epoch("train", self._train_loader, training=True)
             self._run_eval()
             for meter in self._stats.values():
                 meter.new_epoch()
-            if EXIT.is_set():
+            if self._exit_requested():
                 return
             if self._save_checkpoints:
-                print("Saving Checkpoint")
+                self._print("Saving Checkpoint")
                 self.save_checkpoint(is_final=(epoch == max_epochs))
-        print("Finished training!")
+        self._print("Finished training!")
 
     def eval(self):
         self._setup_wandb(tags=["eval"])
-        print("Running eval.")
+        self._print("Running eval.")
         self._run_eval()
 
     def _run_eval(self):
@@ -217,8 +262,11 @@ class Trainer:
             return
         wandb = maybe_import_wandb()
         if wandb is None:
-            print("wandb not installed; disabling W&B logging")
+            self._print("wandb not installed; disabling W&B logging")
             self._wandb_config.enabled = False
+            return
+        self._wandb_on = True
+        if not self._main:
             return
         wandb.init(
             project=conf.project,
@@ -247,12 +295,13 @@ class Trainer:
             # the auction, as the JAX Trainer's audit takes it: the audit is
             # about the gradient's reach, not the assignment
             cfg = dataclasses.replace(self._criterion_cfg, matcher="auction")
-            self._grad_report = make_grad_report(self._model, cfg, device=self._device)
+            self._grad_report = make_grad_report(self._model, cfg, device=self._device,
+                                                 mesh=self._mesh)
         norms = self._grad_report(data, self._seed, self.step)
         if self._epoch == 1:
             labels = param_labels(self._model, self._freeze_stem)
             for name in dead_param_names(norms, labels):
-                print(f"Parameter {name} has an identically-zero gradient")
+                self._print(f"Parameter {name} has an identically-zero gradient")
         if (
             self._wandb_config.watch_model
             and self._wandb_config.enabled
@@ -263,8 +312,9 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _run_epoch(self, mode: str, data_loader, training: bool):
+        self._check_sharded(data_loader, training)
         num_iterations = len(data_loader)
-        od_map_stuff_lst = [[], [], [], []]
+        od_map_steps = []  # (step, its mAP intermediaries) of this rank's rows
         hardest = {"loss": -1e10, "data": None, "output": None}
         batch_size = data_loader.batch_size
         stats_keys = list(self._stat_idfs)
@@ -281,7 +331,7 @@ class Trainer:
                 self._stats[f"{mode} {key} loss"].update(value, 1)
             if stats.get("nonfinite_skipped", 0.0) > 0 and not self._nonfinite_warned:
                 self._nonfinite_warned = True
-                print(
+                self._print(
                     "WARNING: a training step produced non-finite gradients; "
                     "its update was SKIPPED (divergence guard, train/step.py "
                     "skip_nonfinite). Telemetry: 'nonfinite_skipped' stat. "
@@ -290,7 +340,7 @@ class Trainer:
                 )
             if stats.get("matcher_dropped", 0.0) > 0 and not self._dropped_warned:
                 self._dropped_warned = True
-                print(
+                self._print(
                     f"WARNING: {stats['matcher_dropped']:.0f} active "
                     "targets exceeded cost_slots "
                     f"({self._criterion_cfg.cost_slots}) this step and were "
@@ -298,16 +348,14 @@ class Trainer:
                     "SpatioTemporalDETRArgs.cost_slots (--cost_slots) if this "
                     "recurs (telemetry: 'matcher_dropped' stat)."
                 )
-            if ap_collect:
-                for idx, elem in enumerate(od_map_stuffs):
-                    od_map_stuff_lst[idx].append(elem.cpu().numpy())
+            if ap_collect and od_map_stuffs is not None:
+                od_map_steps.append((i, [elem.cpu().numpy() for elem in od_map_stuffs]))
 
             # only the W&B visualization reads the hardest batch: without it,
             # copy no prediction and keep no batch for the epoch
             if (
                 loss > hardest["loss"]
-                and self._wandb_config.enabled
-                and self._wandb is not None
+                and self._wandb_on
                 and self._epoch in self._visualization_epochs
             ):
                 hardest.update(loss=loss, data=batch, output=_to_host(output))
@@ -322,15 +370,18 @@ class Trainer:
                     f"{self._stats[f'{mode} {k} loss'].avg:.5f} ({k})"
                     for k in stats_keys
                 )
-                print(f"[{mode}: {self._epoch}, {i + 1:4d}/{num_iterations}] Loss: {loss_str}.")
+                self._print(
+                    f"[{mode}: {self._epoch}, {i + 1:4d}/{num_iterations}] Loss: {loss_str}.")
 
         pending = None
         for i, batch in enumerate(data_loader):
-            if EXIT.is_set():
+            if self._exit_requested():
                 if pending is not None:
                     consume(*pending)
                 return
-            data = {k: v for k, v in batch.items() if k in ARRAY_KEYS}
+            # None: this rank's block of a ragged eval batch is empty
+            data = None if batch is None else {k: v for k, v in batch.items()
+                                               if k in ARRAY_KEYS}
 
             if training:
                 if i == 0 and (self._epoch == 1 or self._wandb_config.watch_model):
@@ -359,21 +410,30 @@ class Trainer:
         loss_items = [(self._stats[f"{mode} {k} loss"].avg, k) for k in stats_keys]
         loss_str = "  ".join(f"{v:.5f} ({k})" for v, k in loss_items)
         dt = time.time() - t_start
-        print(f"[{mode}: {self._epoch}] Loss: {loss_str}  ({dt:.1f}s)")
+        self._print(f"[{mode}: {self._epoch}] Loss: {loss_str}  ({dt:.1f}s)")
 
-        if not od_map_stuff_lst[0]:
+        if self._mesh is not None:
+            # every rank's steps, each step's blocks in rank order: the rows
+            # in the order of the one-process run
+            od_map_steps = [entry for _, entry in sorted(
+                ((i, r), entry) for r, steps in enumerate(
+                    distributed.all_gather_objects(od_map_steps)) for i, entry in steps)]
+        else:
+            od_map_steps = [entry for _, entry in od_map_steps]
+        if not od_map_steps:
             return
+        confs, is_positive, size_cats, num_annos = zip(*od_map_steps)
         ap = aggregate_mean_average_precision(
-            np.concatenate(od_map_stuff_lst[0], axis=2),
-            np.concatenate(od_map_stuff_lst[1], axis=2),
-            np.concatenate(od_map_stuff_lst[2], axis=2),
-            np.stack(od_map_stuff_lst[3], axis=2),
+            np.concatenate(confs, axis=2),
+            np.concatenate(is_positive, axis=2),
+            np.concatenate(size_cats, axis=2),
+            np.stack(num_annos, axis=2),
         )
         self._ap_by_mode[mode] = ap
-        print("AP50 for epoch is:", " ".join(f"{v:.3f}" for v in ap["all"][0, :, 0]))
-        print("MAP for epoch is:", " ".join(f"{v:.3f}" for v in ap["threshavg"][:, 0]))
+        self._print("AP50 for epoch is:", " ".join(f"{v:.3f}" for v in ap["all"][0, :, 0]))
+        self._print("MAP for epoch is:", " ".join(f"{v:.3f}" for v in ap["threshavg"][:, 0]))
         for size_idx, size in [(1, "small"), (2, "medium"), (3, "large")]:
-            print(
+            self._print(
                 f"MAP for {size} objects is:",
                 " ".join(f"{v:.3f}" for v in ap["threshavg"][:, size_idx]),
             )
@@ -392,8 +452,9 @@ class Trainer:
             for val, name in loss_items:
                 log[f"{mode}-losses/{name}"] = val
             self._wandb.log(log)
-            if self._epoch in self._visualization_epochs and hardest["data"] is not None:
-                self.visualize_batch(hardest["data"], hardest["output"], mode, prefix="hardest_")
+        if (self._wandb_on and self._epoch in self._visualization_epochs
+                and hardest["loss"] > -1e10):
+            self.visualize_batch(hardest["data"], hardest["output"], mode, prefix="hardest_")
 
     # ------------------------------------------------------------------
     def flush_saves(self):
@@ -404,7 +465,14 @@ class Trainer:
         """Write <save_name> (the reference's dict, trainer.py:282-299: epoch,
         net_type, net, optimizer, lr_schedule, stats, device; with the run's
         detr_args and train step) and, when is_final, <save_name>_final (the
-        net with net_type and detr_args). Durable on return."""
+        net with net_type and detr_args). Durable on return. Under a mesh,
+        rank 0 writes (every rank holds the same state) and every rank waits
+        for the write."""
+        if self._main:
+            self._write_checkpoint(is_final)
+        self._barrier()
+
+    def _write_checkpoint(self, is_final: bool):
         net_type = type(self._model).__name__
         detr_args = dataclasses.asdict(self._args)
         save_checkpoint(self._checkpoint_path, self._save_name, {
@@ -435,24 +503,24 @@ class Trainer:
         meters) raises unless `trust_pickle`, since unpickling can run code."""
         if checkpoint is not None and checkpoint.endswith((".pth", ".pth.tar")):
             path = os.path.expanduser(checkpoint)
-            print(f"Loading reference checkpoint: {path}")
+            self._print(f"Loading reference checkpoint: {path}")
             blob = _load_reference(path, trust_pickle)
             state_dict = blob["net"] if isinstance(blob, dict) and "net" in blob else blob
             self._model.load_state_dict(state_dict, strict=True)
-            print(f"Loaded: {path}")
+            self._print(f"Loaded: {path}")
             return
         if checkpoint is None:
             ckpt_dir, name = self._checkpoint_path, self._save_name
         else:
             path = os.path.expanduser(checkpoint)
             ckpt_dir, name = os.path.dirname(path) or ".", os.path.basename(path)
-        print(f"Loading checkpoint: {os.path.join(ckpt_dir, name)}")
+        self._print(f"Loading checkpoint: {os.path.join(ckpt_dir, name)}")
         # on the CPU: load_state_dict copies each tensor to its parameter's
         # device, and AdamW's step counts stay on the CPU, as a fresh
         # optimizer keeps them (on the card each step would read them back)
         blob = load_checkpoint(ckpt_dir, name, map_location="cpu")
         if blob is None:
-            print(
+            self._print(
                 "WARNING: Attempted to load checkpoint, but it does not exist. "
                 "Continuing without loading."
             )
@@ -467,7 +535,7 @@ class Trainer:
             for key in ("encode_offset", "no_imu_speed", "space_to_depth"):
                 saved = blob["detr_args"].get(key)
                 if saved is not None and saved != ours.get(key):
-                    print(
+                    self._print(
                         f"WARNING: checkpoint was trained with {key}={saved} "
                         f"but this run uses {key}={ours.get(key)}: outputs "
                         "will be wrong unless this is intentional."
@@ -480,11 +548,17 @@ class Trainer:
             for key, meter_state in blob.get("stats", {}).items():
                 if key in self._stats:
                     self._stats[key].load_state_dict(meter_state)
-        print(f"Loaded: {os.path.join(ckpt_dir, name)}")
+        self._print(f"Loaded: {os.path.join(ckpt_dir, name)}")
 
     # ------------------------------------------------------------------
     def visualize_batch(self, batch, output, mode: str, prefix: str = ""):
-        """PNGs, and W&B box overlays (trainer.py:334-413)."""
+        """PNGs, and W&B box overlays (trainer.py:334-413). Under a mesh
+        every rank calls it with its rows (None: none), and rank 0 draws
+        the whole batch."""
+        if self._mesh is not None:
+            batch, output = _gathered(batch, output)
+            if batch is None:
+                return
         scores = np.asarray(output["class_scores"])  # (B, L_out, 1, M, C+1)
         boxes = np.asarray(output["boxes"])
         B, L_out = scores.shape[:2]
@@ -527,6 +601,24 @@ class Trainer:
                 f"visualization/{prefix}{mode}_bounding_boxes": wandb_images,
                 "epoch": self._epoch,
             })
+
+
+# the batch keys `visualize_batch` draws
+_VISUALIZED_KEYS = ("video", "classes", "active", "boxes", "annotated_frame_idx", "ignore_boxes")
+
+
+def _gathered(batch, output):
+    """(batch, output) of every rank's rows, concatenated in rank order, on
+    rank 0; (None, None) on the other ranks. A rank without rows sends None."""
+    mine = None if batch is None else (
+        {k: np.asarray(batch[k]) for k in _VISUALIZED_KEYS if k in batch},
+        {k: np.asarray(v) for k, v in output.items()})
+    parts = distributed.gather_objects_to_main(mine)
+    if parts is None:
+        return None, None
+    parts = [p for p in parts if p is not None]
+    return tuple({k: np.concatenate([p[j][k] for p in parts]) for k in parts[0][j]}
+                 for j in range(2))
 
 
 def _load_reference(path: str, trust_pickle: bool):

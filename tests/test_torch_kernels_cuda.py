@@ -625,3 +625,45 @@ def test_loaded_artifact_launches_the_kernels(cuda, np_rng, monkeypatch, tmp_pat
     assert {k: _kernels.launch_counts[k] for k in want} == want
     for key, tol in (("class_scores", 1e-4), ("boxes", 1e-2)):  # boxes in pixels
         assert (got[key] - eager[key]).abs().max().item() <= tol
+
+
+def test_kernels_launch_on_their_operands_card(np_rng):
+    """The device guard: with cuda:0 current, K1-K6 (and K7 inside K4-K6)
+    on operands of cuda:1 launch there, on cuda:1's stream, and equal their
+    plain versions. Needs two cards; skips with one."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the guard matters only off the current card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    before = dict(_kernels.launch_counts)
+    q, k, v = on(dev, torch.float32, np_rng.normal(size=(1, 2, 1024, 32)),
+                 np_rng.normal(size=(1, 2, 1024, 32)), np_rng.normal(size=(1, 2, 1024, 32)))
+    assert_close(flash_attention(q, k, v, 0.2), reference_attention(q, k, v, 0.2), torch.float32)
+    (x,) = on(dev, torch.float32, np.abs(np_rng.normal(size=(1, 8, 20, 64))))
+    w = bottleneck_weights(dev, torch.float32, np_rng, 64, 64, 256, True)
+    assert_close(fused_bottleneck(x, **w), bottleneck_plain(x, **w), torch.float32)
+    xs = space_to_depth(torch.from_numpy(np_rng.normal(size=(1, 64, 96, 3)).astype(np.float32)))
+    w4 = stem_weights_to_space_to_depth(torch.from_numpy(
+        (np_rng.normal(size=(7, 7, 3, 64)) * 0.1).astype(np.float32)))
+    xs, w4 = xs.to(dev), w4.to(dev)
+    (bias,) = on(dev, torch.float32, np_rng.normal(size=(64,)) * 0.1)
+    assert_close(fused_stem(xs, w4, bias), stem_plain(xs, w4, bias), torch.float32)
+    q, k, v, do = on(dev, torch.float32, *(np_rng.normal(size=(16, 300, 32)) for _ in range(4)))
+    args = (777, 1.0 / math.sqrt(32), 0.1, *fa.train_shapes(300, 300, 256, 512))
+    ref_out, ref_lse = fa.flash_train_fwd_plain(q, k, v, *args)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    out, _ = fa.flash_train_fwd(q, k, v, *args)
+    assert_close(out, ref_out, torch.float32)
+    assert_close(fa.flash_dq(q, k, v, do, ref_lse, delta, *args),
+                 fa.flash_dq_plain(q, k, v, do, ref_lse, delta, *args), torch.float32)
+    dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, *args)
+    ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
+    assert_close(dk, ref_dk, torch.float32)
+    assert_close(dv, ref_dv, torch.float32)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    for name in ("flash_attention", "fused_bottleneck", "fused_stem", "flash_train_fwd",
+                 "flash_train_dq", "flash_train_dkv"):
+        assert _kernels.launch_counts[name] == before[name] + 1, name

@@ -11,7 +11,7 @@ single-frame script trains `build_single_frame` at the same tiny widths
 final checkpoint into `build_tracker_baseline`.
 The eval scripts load a fabricated checkpoint. The serving script
 (`runs/serve.py`) serves the tiny flagship on the CPU at 64x96, from random
-weights and from a fabricated checkpoint. About 35 s alone.
+weights and from a fabricated checkpoint, and over a 2-device CPU grid. About 35 s alone.
 """
 import dataclasses
 import json
@@ -24,6 +24,7 @@ import torch
 
 from future_od_tpu_torch.models.build import build_flagship, build_single_frame, build_tracker_baseline
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+from future_od_tpu_torch.parallel.mesh import make_mesh
 from future_od_tpu_torch.data.synthetic import SyntheticClipDataset
 from future_od_tpu_torch.runs import _helper, _loader, _model
 from future_od_tpu_torch.runs import nuim_single_frame as single_frame
@@ -225,9 +226,22 @@ def test_serve_script_builds_from_the_checkpoint(tmp_path, monkeypatch, capsys):
         serve.main(["--checkpoint", "missing", "--checkpoint_dir", str(tmp_path)])
 
 
-def test_serve_script_mesh_waits_for_parallel():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        serve.main(["--mesh_data", "2"])
+def test_serve_script_mesh_waits_for_parallel(monkeypatch, capsys):
+    """--mesh_data 2 serves over a 2-device mesh (here a grid listing the
+    CPU twice): the streams spread over both devices, every clip comes
+    back; on a machine without 2 cards, make_mesh asserts, as the JAX
+    script's does."""
+    monkeypatch.setattr(serve, "build_flagship", lambda detr_args: tiny_model(None, detr_args))
+    with pytest.raises(AssertionError, match="need 2x1 devices"):
+        serve.main(SERVE_ARGV + ["--mesh_data", "2"])
+    monkeypatch.setattr(serve, "make_mesh", lambda num_data, num_model: make_mesh(
+        num_data, num_model, devices=["cpu"] * num_data))
+    line = serve.main(SERVE_ARGV + ["--mesh_data", "2"])
+    assert "serving over a 2-chip data mesh" in capsys.readouterr().out
+    # a device's share (one row) dispatches as soon as one of its 2 streams
+    # has a frame, the other device's share padded: as the JAX server does
+    assert line["clips"] == 4 * 2 and line["pad_fraction"] == 0.5
+    assert line["active_streams"] == 4 and line["frames"] == 4 * (2 + 2)
 
 
 def test_serve_script_help_lists_the_jax_flags():

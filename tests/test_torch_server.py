@@ -5,7 +5,8 @@ padding is bit for bit inert, streams join and leave, a flooding stream
 queues, a random arrival schedule keeps each stream's order, a mixed-IMU
 fleet is refused before any bookkeeping, an IMU-less fleet is served; and
 the port's server against the JAX server on one arrival schedule, stream by
-stream. `mesh=` raises until ROADMAP.md Queue 1 item 4.
+stream; and the server over a 2-device CPU grid against the unsharded one
+and the JAX server on a 2-device data mesh.
 
 The model is tests/test_torch_streaming.py's tiny flagship with JAX
 weights (one for the file); frames are 64x96. The JAX server runs eagerly.
@@ -14,11 +15,13 @@ About 35 s alone.
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from future_od_tpu.serve import MultiStreamServer as JaxServer
 from future_od_tpu.serve.server import split_results as jax_split_results
 
+from future_od_tpu_torch.parallel.mesh import make_mesh
 from future_od_tpu_torch.serve import MultiStreamServer, StreamingSession
 from future_od_tpu_torch.serve.server import split_results
 from test_torch_flash_tc_rounding import one_torch_thread  # noqa: F401 (autouse)
@@ -242,5 +245,68 @@ def test_server_equals_jax_server(twins):
 
 
 def test_mesh_waits_for_parallel(model):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        MultiStreamServer(model, max_batch=2, clip_frames=L, mesh=object(), device="cpu")
+    """What the sharded server still refuses: a mesh with a model axis
+    (tensor parallelism, ROADMAP.md Queue 1 item 4b), and a batch or a ring
+    that does not divide by the data axis (the JAX server asserts)."""
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 4b"):
+        MultiStreamServer(model, max_batch=2, clip_frames=L,
+                          mesh=make_mesh(1, 2, devices=["cpu", "cpu"]))
+    with pytest.raises(ValueError, match="divide by the data axis 2"):
+        MultiStreamServer(model, max_batch=3, clip_frames=L, mesh=cpu_grid(2))
+    with pytest.raises(ValueError, match="divide by the data axis 2"):
+        MultiStreamServer(model, max_batch=2, max_streams=5, clip_frames=L, mesh=cpu_grid(2))
+
+
+def test_sharded_server_matches_unsharded(twins):
+    """The counterpart of tests/test_server.py::test_sharded_server_matches_unsharded
+    on a 2-device CPU grid: 8 streams pinned 4 and 4 to the devices (each its
+    ring shard and 4 rows of every dispatch) give the unsharded server's
+    outputs (the other batch shape: test_torch_streaming.py's bound) and
+    the JAX server's on a 2-device data mesh, with the same placements."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from future_od_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    jmodel, variables, port = twins("flagship")
+    rng = np.random.default_rng(4)
+    streams = {sid: [make_frame(rng) for _ in range(3)] for sid in range(8)}
+
+    def run(server, wrap=lambda f: f):
+        got, placements = {}, []
+        for t in range(3):
+            for sid in streams:
+                res = server.submit(sid, wrap(streams[sid][t]))
+                placements += [p for p, _ in res]
+                for rsid, out in split_results(res):
+                    got.setdefault(rsid, []).append(out)
+        res = server.flush()
+        placements += [p for p, _ in res]
+        for rsid, out in split_results(res):
+            got.setdefault(rsid, []).append(out)
+        return got, placements
+
+    ours, placed = run(MultiStreamServer(port, max_batch=8, clip_frames=L, max_streams=16,
+                                         mesh=cpu_grid(2)))
+    ref, _ = run(server(port, 8, max_streams=16))
+    mesh = jax_make_mesh(num_data=2, num_model=1)
+    jax_vars = jax.device_put(variables, NamedSharding(mesh, PartitionSpec()))
+    theirs, jax_placed = run(JaxServer(jmodel, jax_vars, max_batch=8, clip_frames=L,
+                                       max_streams=16, mesh=mesh),
+                             lambda f: {k: jnp.asarray(v) for k, v in f.items()})
+    assert placed == jax_placed
+    assert {row // 4 for p in placed for _, row in p} == {0, 1}  # both devices served
+    assert set(ours) == set(ref) == set(theirs) == set(streams)
+    for sid in streams:
+        assert len(ours[sid]) == len(ref[sid]) == len(theirs[sid]) == 2  # clips end at t=1,2
+        assert_boxes_close(ours[sid], ref[sid])
+        for g, w in zip(ours[sid], theirs[sid]):
+            np.testing.assert_allclose(g["class_scores"].numpy(), np.asarray(w["class_scores"]),
+                                       rtol=0, atol=SCORE_ATOL)
+            np.testing.assert_allclose(g["boxes"].numpy(), np.asarray(w["boxes"]), rtol=0,
+                                       atol=BOX_ATOL)
+
+
+def cpu_grid(n):
+    """A mesh of n devices listing the CPU n times (the JAX tests' virtual
+    CPU devices)."""
+    return make_mesh(n, 1, devices=["cpu"] * n)

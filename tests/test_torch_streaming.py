@@ -4,7 +4,8 @@ batch inference and the JAX session on the same clip (encode_offset off and
 on), the window slides over a 5-frame stream, a model without the IMU is
 served, and every core the per-frame cache cannot serve (a joint encoder,
 the single-frame and tracker cores) is refused; the JAX session's joint-
-encoder fault is pinned.
+encoder fault is pinned; a session sharded over a 2-device CPU grid equals
+the unsharded one and the JAX session sharded over a 2-device mesh.
 
 The model is the JAX tests' tiny flagship (tests/test_streaming.py: D=32, 2
 heads, 1+2 layers, 8 queries) on 64x96 frames. Its JAX variables are
@@ -30,6 +31,7 @@ from future_od_tpu.train.step import make_inference_fn as jax_make_inference_fn
 from future_od_tpu_torch.models import build
 from future_od_tpu_torch.models.cores import FuturePredCore
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+from future_od_tpu_torch.parallel.mesh import batch_sharding, make_mesh
 from future_od_tpu_torch.serve import StreamingSession, make_streaming_fns
 from future_od_tpu_torch.train.step import make_inference_fn
 from future_od_tpu_torch.utils.jax_weights import load_jax_variables
@@ -226,6 +228,47 @@ def test_joint_encoder_streaming_fault_is_pinned(twins):
 
 
 def test_input_sharding_waits_for_parallel(twins):
+    """What the sharded session still refuses: a mesh with a model axis
+    (tensor parallelism, ROADMAP.md Queue 1 item 4b), a sharding other than
+    `batch_sharding`, and a frame batch that does not split over the data
+    axis."""
     _, _, port = twins("flagship")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match=r"Queue 1 item 4b"):
+        StreamingSession(port, clip_frames=L, input_sharding=batch_sharding(
+            make_mesh(1, 2, devices=["cpu", "cpu"])))
+    with pytest.raises(TypeError, match="batch_sharding"):
         StreamingSession(port, clip_frames=L, device="cpu", input_sharding=object())
+    session = StreamingSession(port, clip_frames=L, input_sharding=batch_sharding(cpu_grid(2)))
+    data = make_data(np.random.default_rng(5), 3, L)
+    with pytest.raises(ValueError, match="3 rows does not split evenly over a data axis of 2"):
+        session.step(frame_at(data, 0))
+
+
+def cpu_grid(n):
+    """A mesh of n devices listing the CPU n times (the JAX tests' virtual
+    CPU devices)."""
+    return make_mesh(n, 1, devices=["cpu"] * n)
+
+
+def test_streaming_sharded_dp_mesh(twins):
+    """The counterpart of tests/test_streaming.py::test_streaming_sharded_dp_mesh
+    on a 2-device CPU grid: 8 lockstep streams split 4 and 4 over the data
+    axis (a model replica each) equal the unsharded session (a few f32
+    ulps: the other batch shape) and the JAX session with its frames
+    sharded over a 2-device data mesh."""
+    from future_od_tpu.parallel.mesh import batch_sharding as jax_batch_sharding
+    from future_od_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from future_od_tpu.parallel.mesh import replicate as jax_replicate
+
+    jmodel, variables, port = twins("flagship")
+    data = make_data(np.random.default_rng(2), 8, L)
+    sharded = StreamingSession(port, clip_frames=L, input_sharding=batch_sharding(cpu_grid(2)))
+    assert len({id(m) for m in sharded._models}) == 1  # one device listed twice: one replica
+    out = run_session(sharded, data, L - 1)
+    assert out["boxes"].shape[0] == 8
+    assert_close(out, run_session(StreamingSession(port, clip_frames=L, device="cpu"), data,
+                                  L - 1), SAME_SCORE_ATOL, SAME_BOX_ATOL)
+    mesh = jax_make_mesh(num_data=2, num_model=1)
+    jax_session = JaxSession(jmodel, jax.device_put(variables, jax_replicate(mesh)),
+                             clip_frames=L, input_sharding=jax_batch_sharding(mesh))
+    assert_close(out, run_session(jax_session, jnp_tree(data), L - 1))

@@ -38,6 +38,7 @@ from future_od_tpu_torch.data.synthetic import CATEGORY_DICT, SyntheticClipDatas
 from future_od_tpu_torch.models.build import build_flagship, build_tracker_baseline
 from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
 from future_od_tpu_torch.models.tracker import TrackerFuturePredictor
+from future_od_tpu_torch.parallel.mesh import make_mesh
 from future_od_tpu_torch.runs import _helper, _loader
 from future_od_tpu_torch.runs.nusc_spatiotemporal_imu_500ms import build_parser
 from future_od_tpu_torch.train.trainer import Trainer
@@ -349,10 +350,16 @@ def test_missing_checkpoint_warns(tmp_path, capsys):
     assert "does not exist" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=make_mesh(1, 2, devices=["cpu", "cpu"]))])
 def test_trainer_refuses_unported_options(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item \d"):
+    """A mesh with a model axis (tensor parallelism) waits for ROADMAP.md
+    item 4b; data parallelism runs one process a device, so a mesh of two
+    devices in this process is refused (tests/test_torch_distributed.py
+    trains over ranks)."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 4b"):
         port_trainer(tmp_path, **kw)
+    with pytest.raises(ValueError, match="one process a device"):
+        port_trainer(tmp_path, mesh=make_mesh(2, 1, devices=["cpu", "cpu"]))
 
 
 def test_trainer_runs_a_tracker_eval_epoch(tmp_path):
@@ -469,9 +476,18 @@ def script_args(**kw):
 @pytest.mark.parametrize("kw", [dict(mesh_model=2), dict(dist_coordinator="localhost:1"),
                                 dict(dist_process_id=0), dict(int8=True)])
 def test_get_trainer_refuses_unported_flags(kw):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item \d"):
-        _helper.refuse_unported(script_args(**kw))
-    _helper.refuse_unported(script_args())
+    """A run's start refuses --mesh_model > 1 (item 4b) and --int8 (item 6)
+    by name, and partial --dist_* flags with ValueError, as the JAX
+    package's distributed_config does; without the flags it starts one
+    process (no process group)."""
+    if "dist_coordinator" in kw or "dist_process_id" in kw:
+        with pytest.raises(ValueError, match="partial distributed flags"):
+            _helper.start_run(script_args(**kw))
+    else:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item \d"):
+            _helper.start_run(script_args(**kw))
+    _helper.start_run(script_args())
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("kw", [dict(loader="grain"), dict(device_normalize=True),
