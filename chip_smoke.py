@@ -9,9 +9,10 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    seconds; that K1 (csrc/flash_attention.cu), K2
    (csrc/fused_bottleneck.cu), K3 (csrc/fused_stem.cu) and K4, K5 and K6
    (csrc/flash_attention_train.cu) run on the tensor cores: the SASS of each
-   of their instantiations (cuobjdump) holds HMMA instructions, with its
-   registers, shared memory and spills (ptxas's report in the build log, and
-   the runtime's, with the resident blocks an SM).
+   of their instantiations (cuobjdump) holds HMMA instructions, and that of
+   K8 (csrc/int8_conv.cu) IMMA, with its registers, shared memory and
+   spills (ptxas's report in the build log, and the runtime's, with the
+   resident blocks an SM).
 1. each kernel against its plain PyTorch version at the flagship's shapes,
    f32 (TF32 off for matmuls and cuDNN convs) and bf16: max abs error
    within the stated tolerance, the kernel's time, the plain version's, one
@@ -211,8 +212,43 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    10c. the session and the server over a mesh of two devices (both cards,
    or the one card listed twice) at phase 9's sizes, fused gates, against
    the unsharded ones within phase 3's tolerances; clips/s of each.
+11. the int8 PTQ backbone (ops/quant.py; every trunk convolution on K8,
+   csrc/int8_conv.cu, an implicit GEMM on mma.sync m16n8k32 s8 with int32
+   sums):
+   11a. K8 against its plain version (a float64 convolution of the codes,
+   exact) at every distinct convolution of the flagship's trunk on 4 frames
+   at 896x1600 (the 7x7/2 stem, the s2d 4x4 stem, each stage's 1x1, 3x3,
+   3x3/2 and 1x1/2 downsample), f32 and bf16 out: bit-equal; each shape's
+   K8 ms, plain ms, cuDNN's bf16 conv of the shape (a yardstick),
+   torch._int_mm's ms on the stride-1 1x1s (the same int8 product; the
+   faster of the weights row-major and column-major) and the bound at the
+   int8 dense peak (1979 TOPS) or the bytes (the codes the windows read);
+   per forward, the 53 launches' sums.
+   11b. the dynamic int8 flagship (phase 2's weights, int8_backbone) through
+   make_inference_fn: K8 53 and K1 6 launches a forward (K8 33, K2 6, K3 1
+   under the fused gates); the trunk's output bit-equal to the same forward
+   with K8's plain version in the kernel's place, the encoder, decoder,
+   scores and boxes within phase 3's tolerances of it; outputs finite;
+   request ms in f32, fused f32 and bf16 beside phases 2-3's; the int8
+   features' and scores' gap to the float forward (reported: random
+   weights).
+   11c. the static int8 flagship (int8_static): refused before calibration,
+   calibrated on the request's batch (calibrate_int8), then bit-equal to
+   the dynamic path on it (trunk, scores, boxes); on another batch its gap
+   to float (reported); calibration and request ms. The same built under
+   the fused gates: range buffers only for the 33 int8 convolutions,
+   refused, calibrated, then the fused launches and bit-equal to dynamic.
+   11d. StreamingSession with the static and the dynamic int8 model over
+   phase 9a's 12 streams: clips/s beside phase 9a's f32 default, the static
+   session's output against its batch path within phase 9's tolerances;
+   `export_inference` of the dynamic int8 model, loaded from its bytes:
+   bit-equal to eager, K8 53 launches; the flagship's eval script
+   (`...runs.eval.nusc_500ms_attendprev_decoder_eval --synthetic --int8`) on
+   a checkpoint of a random flagship with nuScenes' 8 classes (phase 6's has
+   the synthetic data's 2, which the eval scripts' model does not take): K8
+   53 launches an eval batch, its AP dict.
 4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's,
-   6b's, 8's, 9's and 10's runs), then the device JSON line, last.
+   6b's, 8's, 9's, 10's and 11's runs), then the device JSON line, last.
 
 Phases 2 and 3 also say where a request's time goes: the device time of the
 backbone, the encoder and the detector (CUDA events recorded by forward
@@ -251,7 +287,7 @@ EX2_PER_CLOCK_SM = 16
 GATES = (
     "FUTURE_OD_DISABLE_FLASH", "FUTURE_OD_FLASH_MIN_KEYS", "FUTURE_OD_FLASH_MIN_QUERIES",
     "FUTURE_OD_FUSED_RESNET", "FUTURE_OD_FUSED_STEM", "FUTURE_OD_FUSE_STAGES",
-    "FUTURE_OD_TRAIN_FLASH",
+    "FUTURE_OD_TRAIN_FLASH", "FUTURE_OD_INT8_SKIP", "FUTURE_OD_S2D_STEM",
 )
 BATCH, FRAMES, HEIGHT, WIDTH = 2, 3, 896, 1600
 REQUESTS = 3
@@ -275,7 +311,8 @@ PHASE3_TOLS = {"encoder_out_rel": ENCODER_RTOL, "decoder_out_rel": DECODER_RTOL,
 TOP_KERNELS = 8
 # the port's kernels on the serving and training paths, as the profiler names them
 PORT_KERNEL_NAMES = ("flash_attention_kernel", "fused_bottleneck_kernel", "fused_stem_kernel",
-                     "train_fwd_kernel", "train_dq_kernel", "train_dkv_kernel")
+                     "train_fwd_kernel", "train_dq_kernel", "train_dkv_kernel",
+                     "int8_conv_kernel")
 # Training: bench_train.py's stage-1 config (448x800, 3 frames, 256 target
 # slots) at batch 4 instead of 32.
 TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS, TRAIN_STEPS = 4, 448, 800, 256, 5
@@ -472,6 +509,16 @@ FUSED_LAUNCHES = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1}
 # stage 2's size (K1's 1400 tokens), and one step at dropout 0 beside one
 # process's. 10b: torchrun with one rank (NCCL). 10c: serving over a mesh of
 # two devices.
+# Phase 11, the int8 PTQ backbone: K8's launches a forward (the stem, 16
+# blocks x 3, 4 downsamples) and under the fused gates (K2 takes layer1's and
+# layer2's stride-1 blocks, K3 the stem: 20 convolutions); the int8 dense
+# peak of one H100 SXM (NVIDIA data sheet); the timing target a call kind.
+INT8_LAUNCHES = 53
+INT8_FUSED_LAUNCHES = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1,
+                       "int8_conv": 33}
+PEAK_INT8 = 1979e12
+INT8_TIME_S = 0.1
+INT8_EVAL_SCRIPT = "future_od_tpu_torch.runs.eval.nusc_500ms_attendprev_decoder_eval"
 DIST_RANKS = 2
 DIST_ARGV = ["--synthetic", "--debug", "--disable_wandb", "--epochs", "1"]
 DIST_BATCH = 32
@@ -567,12 +614,14 @@ def flash_bound(torch, ops: float, nbytes: float, exps: float, dtype: str):
             {k: t * 1e3 for k, t in times.items()})
 
 
-def tensor_core_report(lib_name: str, kernel: str, instantiations: int, resources: dict):
-    """Phase 0's proof that a kernel runs on the tensor cores: HMMA
-    instructions in the SASS of each instantiation of `kernel` in library
-    `lib_name`, with ptxas's registers and spills from the build log and
-    `resources` (the runtime's, from the kernel's info query). Raises unless
-    there are `instantiations` of them, each with HMMA."""
+def tensor_core_report(lib_name: str, kernel: str, instantiations: int, resources: dict,
+                       op: str = "HMMA"):
+    """Phase 0's proof that a kernel runs on the tensor cores: `op`
+    instructions (HMMA, or IMMA for int8) in the SASS of each instantiation
+    of `kernel` in library `lib_name`, with ptxas's registers and spills
+    from the build log and `resources` (the runtime's, from the kernel's
+    info query). Raises unless there are `instantiations` of them, each
+    with `op`."""
     import re
     from pathlib import Path
 
@@ -586,9 +635,9 @@ def tensor_core_report(lib_name: str, kernel: str, instantiations: int, resource
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
         if kernel in name:
-            counts[name] = {op: part.count(op) for op in ("HMMA", "MUFU.EX2", "LDSM", "LDGSTS")}
-    if len(counts) != instantiations or not all(c["HMMA"] for c in counts.values()):
-        raise AssertionError(f"{kernel}'s SASS: {counts}; want HMMA in each of "
+            counts[name] = {o: part.count(o) for o in (op, "MUFU.EX2", "LDSM", "LDGSTS")}
+    if len(counts) != instantiations or not all(c[op] for c in counts.values()):
+        raise AssertionError(f"{kernel}'s SASS: {counts}; want {op} in each of "
                              f"{instantiations} instantiations")
     build_log = _kernels.BUILD_DIR / f"{lib_name}.log"
     ptxas = {}
@@ -637,6 +686,17 @@ def k3_tensor_core_report():
 
     resources = {dt: fr.fused_stem_info(getattr(torch, dt)) for dt in ("float32", "bfloat16")}
     return tensor_core_report(fr.STEM, "fused_stem_kernel", 2, resources)
+
+
+def k8_tensor_core_report():
+    """K8: both output dtypes x the two gathers (16-byte, byte), on IMMA."""
+    import torch
+
+    from future_od_tpu_torch.ops import int8_conv as k8
+
+    resources = {f"{dt} {'vector' if vec else 'byte'} gather": k8.int8_conv_info(
+        getattr(torch, dt), vec) for dt in ("float32", "bfloat16") for vec in (True, False)}
+    return tensor_core_report(k8.NAME, "int8_conv_kernel", 4, resources, op="IMMA")
 
 
 def train_tensor_core_report():
@@ -3618,6 +3678,559 @@ def rank_main(role: str, out: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the int8 PTQ backbone (ops/quant.py) on K8 (csrc/int8_conv.cu).
+
+
+def int8_trunk_convs(body, H: int, W: int, frames: int):
+    """Every convolution of the trunk `body` (a ResNet) on `frames` images
+    of H x W, in order: its geometry as K8 takes it."""
+    convs = []
+
+    def add(name, h, w, conv, stride, pad, dil, pad_value=-128):
+        convs.append({"name": name, "B": frames, "H": h, "W": w, "Cin": conv.in_channels,
+                      "Cout": conv.out_channels, "kernel": tuple(conv.kernel_size),
+                      "stride": (stride, stride), "padding": pad,
+                      "dilation": (dil, dil), "pad_value": pad_value})
+
+    if body.space_to_depth:
+        add("stem (s2d 4x4)", H // 2, W // 2, body.conv1, 1, ((2, 1), (2, 1)), 1, 0)
+    else:
+        add("stem (7x7/2)", H, W, body.conv1, 2, ((3, 3), (3, 3)), 1, 0)
+    h, w = H // 4, W // 4
+    for s in range(1, body.num_stages + 1):
+        for i, blk in enumerate(getattr(body, f"layer{s}")):
+            d, st = blk.dilation, blk.stride
+            add(f"layer{s}.{i}.conv1", h, w, blk.conv1, 1, ((0, 0), (0, 0)), 1)
+            add(f"layer{s}.{i}.conv2", h, w, blk.conv2, st, ((d, d), (d, d)), d)
+            h2, w2 = (h - 1) // st + 1, (w - 1) // st + 1
+            add(f"layer{s}.{i}.conv3", h2, w2, blk.conv3, 1, ((0, 0), (0, 0)), 1)
+            if blk.downsample is not None:
+                add(f"layer{s}.{i}.downsample", h, w, blk.downsample[0], st, ((0, 0), (0, 0)), 1)
+            h, w = h2, w2
+    return convs
+
+
+def distinct_convs(convs):
+    """{geometry key: (the first conv of that geometry, how many share it)}."""
+    out = {}
+    for c in convs:
+        key = (c["H"], c["W"], c["Cin"], c["Cout"], c["kernel"], c["stride"], c["padding"],
+               c["dilation"], c["pad_value"])
+        out[key] = (out[key][0] if key in out else c, out.get(key, (None, 0))[1] + 1)
+    return out
+
+
+def k8_case(torch, c, seed: int, dev):
+    """Random codes, packed weights, zero points (blocks), scales and bias at
+    conv geometry c, on dev."""
+    from future_od_tpu_torch.ops import int8_conv as k8
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-128, 128, (c["B"], c["H"], c["W"], c["Cin"]), dtype=torch.int8,
+                      device=dev, generator=g)
+    wq = torch.randint(-127, 128, c["kernel"] + (c["Cin"], c["Cout"]), dtype=torch.int8,
+                       device=dev, generator=g)
+    block = c["pad_value"] == -128
+    return {"q": q, "wq": wq, "w": k8.pack_int8_weights(wq),
+            "zp": k8.zero_point_correction(wq) if block else None,
+            "sw": torch.rand(c["Cout"], device=dev, generator=g) * 1e-4,
+            "bias": torch.randn(c["Cout"], device=dev, generator=g)}
+
+
+def k8_phase(torch, dev):
+    """Phase 11a: K8 against its plain version at every distinct convolution
+    of the flagship's trunk (4 frames at 896x1600, the 7x7 stem and the s2d
+    4x4 one), f32 and bf16 out: bit-equal; K8's, the plain version's, a
+    yardstick's (cuDNN's bf16 conv of the shape, channels-last) and, on the
+    stride-1 1x1s, torch._int_mm's ms (the same int8 product), and the
+    bound at the int8 dense peak. Returns (per-shape records, per-forward
+    totals)."""
+    from future_od_tpu_torch.models.resnet import ResNet
+    from future_od_tpu_torch.ops import int8_conv as k8
+
+    F = torch.nn.functional
+    frames = BATCH * (FRAMES - 1)
+    trunk = int8_trunk_convs(ResNet(), HEIGHT, WIDTH, frames)
+    s2d = int8_trunk_convs(ResNet(space_to_depth=True), HEIGHT, WIDTH, frames)[:1]
+    shapes = distinct_convs(trunk)
+    shapes.update({k: (c, 0) for k, (c, _) in distinct_convs(s2d).items()})
+    records, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "yardstick_ms": 0.0,
+                           "int_mm_ms": 0.0, "ms_on_int_mm_convs": 0.0, "ops": 0, "bytes": 0,
+                           "int_mm_convs": 0}
+    for i, (c, count) in enumerate(shapes.values()):
+        x = k8_case(torch, c, i, dev)
+        geometry = (c["stride"], c["padding"], c["dilation"], c["pad_value"], False)
+
+        def kernel(dt, x=x, geometry=geometry):
+            return k8.int8_conv_codes(x["q"], x["w"], x["zp"], x["sw"], x["bias"], *geometry, dt)
+
+        def plain(dt, x=x, c=c, geometry=geometry):
+            return k8.int8_conv_plain(x["q"], x["w"].wt, x["zp"], x["sw"], x["bias"],
+                                      c["kernel"], *geometry, dt)
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            out, ref = kernel(dt), plain(dt)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"11a K8 {c['name']} {dt}: differs from its plain version "
+                                     f"by {(out.float() - ref.float()).abs().max().item()}")
+            errs[str(dt).split(".")[1]] = 0.0
+            del out, ref
+        ms = time_ms(torch, lambda: kernel(torch.float32), INT8_TIME_S)
+        plain_ms = time_ms(torch, lambda: plain(torch.float32), INT8_TIME_S)
+        pad = c["padding"]  # cuDNN's input padded beforehand, channels-last
+        xc = F.pad(x["q"].to(torch.bfloat16).permute(0, 3, 1, 2),
+                   (pad[1][0], pad[1][1], pad[0][0], pad[0][1])).contiguous(
+                       memory_format=torch.channels_last)
+        wc = x["wq"].permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        yard_ms = time_ms(torch, lambda: F.conv2d(xc, wc, stride=c["stride"],
+                                                  dilation=c["dilation"]), INT8_TIME_S)
+        int_mm_ms = int_mm_layouts = None
+        if c["kernel"] == (1, 1) and c["stride"] == (1, 1):
+            a = x["q"].reshape(-1, c["Cin"])
+            b_row = x["wq"].reshape(c["Cin"], c["Cout"])
+            b_col = b_row.t().contiguous().t()  # cuBLASLt's TN layout
+            int_mm_layouts = {
+                layout: time_ms(torch, lambda b=b: torch._int_mm(a, b), INT8_TIME_S)
+                for layout, b in (("row_major", b_row), ("column_major", b_col))}
+            int_mm_ms = min(int_mm_layouts.values())
+        ops, nbytes = k8.int8_conv_cost(c["B"], c["H"], c["W"], c["Cin"], c["Cout"],
+                                        c["kernel"], c["stride"], c["padding"], c["dilation"], 4)
+        t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
+        rec = {"shape": c["name"], "per_forward": count, "B": c["B"], "H": c["H"], "W": c["W"],
+               "Cin": c["Cin"], "Cout": c["Cout"], "kernel": list(c["kernel"]),
+               "stride": c["stride"][0], "dilation": c["dilation"][0],
+               "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+               "yardstick_cudnn_bf16_ms": yard_ms, "int_mm_ms": int_mm_ms,
+               "int_mm_ms_by_b_layout": int_mm_layouts,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "ops": ops, "bytes": nbytes, "tops": ops / ms / 1e9}
+        records.append(rec)
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", rec["bound_ms"]),
+                           ("yardstick_ms", yard_ms), ("ops", ops), ("bytes", nbytes)):
+            totals[key] += count * value
+        if int_mm_ms is not None:
+            totals["int_mm_ms"] += count * int_mm_ms
+            totals["ms_on_int_mm_convs"] += count * ms
+            totals["int_mm_convs"] += count
+        del x, xc, wc
+        torch.cuda.empty_cache()
+    t_ops, t_bytes = totals["ops"] / PEAK_INT8, totals["bytes"] / PEAK_BYTES
+    totals["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    totals["launches_per_forward"] = sum(r["per_forward"] for r in records)
+    if totals["launches_per_forward"] != INT8_LAUNCHES:
+        raise AssertionError(f"11a: {totals['launches_per_forward']} trunk convolutions, want "
+                             f"{INT8_LAUNCHES}")
+    return records, totals
+
+
+def set_int8(torch, model, int8=None, static=None) -> None:
+    """Turn the int8 path (and its static ranges) of model's trunk on or
+    off in place, as build_flagship's flags set them (the weights stay)."""
+    from future_od_tpu_torch.models.resnet import Bottleneck, ResNet
+
+    for m in model.modules():
+        if isinstance(m, (Bottleneck, ResNet)):
+            if int8 is not None:
+                m.int8 = int8
+            if static is not None:
+                m.int8_static = static
+
+
+class TrunkTap:
+    """Keeps the trunk's output (NCHW) and the backbone's features of the
+    last forward."""
+
+    def __init__(self, model):
+        backbone = model._model.separate_encoder.backbone
+        self.values = {}
+        backbone.body.register_forward_hook(self._keep("trunk"))
+        backbone.register_forward_hook(self._keep("features"))
+
+    def _keep(self, name):
+        def hook(module, args, out):
+            self.values[name] = out.detach().clone()
+        return hook
+
+
+def rel_norm(a, b) -> float:
+    """||a - b|| / ||b||, in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def plain_k8(quant, k8):
+    """quant.int8_conv_codes with K8's plain version in the kernel's place."""
+    def run(q, w, zp, sw, bias, strides, padding, dilation, pad_value, relu, out_dtype):
+        return k8.int8_conv_plain(q, w.wt, zp, sw, bias, w.kernel_hw, strides, padding,
+                                  dilation, pad_value, relu, out_dtype)
+    return run
+
+
+def int8_request_phase(torch, batch, phase2_s, phase3_bf16_s):
+    """Phase 11b: the dynamic int8 flagship (phase 2's weights) through
+    make_inference_fn: K8 53 and K1 6 launches a forward (K8 33, K2 6, K3 1
+    under the fused gates); the trunk bit-equal to the same forward with
+    K8's plain version in its place, the encoder, decoder, scores and boxes
+    within phase 3's gates of it; f32 and bf16 request ms; the int8
+    features' and scores' gap to the float forward (random weights:
+    reported only). Returns (record, the f32 model's launches, the model)."""
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels, quant
+    from future_od_tpu_torch.ops import int8_conv as k8
+    from future_od_tpu_torch.train.step import make_inference_fn
+
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, int8_backbone=True)
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    taps, tap = Taps(torch, model), TrunkTap(model)
+    infer = make_inference_fn(model)
+    record = {}
+    set_gates()
+    _kernels.reset_launch_counts()
+    out, seconds = forward(torch, infer, batch, REQUESTS)
+    counts = launched(_kernels)
+    want = {"flash_attention": 6 * REQUESTS, "int8_conv": INT8_LAUNCHES * REQUESTS}
+    if counts != want:
+        raise AssertionError(f"11b int8 default gates: launches {counts}, want {want}")
+    check_output(torch, out, args.num_queries, args.num_classes)
+    trunk, features, values = tap.values["trunk"], tap.values["features"], dict(taps.values)
+    record["f32"] = {"request_s": seconds, "stage_ms": taps.stage_ms(), "launches": counts,
+                     "phase2_float_request_s": phase2_s}
+
+    original = quant.int8_conv_codes
+    quant.int8_conv_codes = plain_k8(quant, k8)
+    try:
+        _kernels.reset_launch_counts()
+        plain = infer(batch)
+        torch.cuda.synchronize()
+    finally:
+        quant.int8_conv_codes = original
+    if _kernels.launch_counts["int8_conv"]:
+        raise AssertionError("11b: the plain-K8 forward launched K8")
+    if not torch.equal(trunk, tap.values["trunk"]):
+        raise AssertionError("11b: the int8 trunk differs from the one through K8's plain "
+                             "version")
+    diffs = fused_vs_plain(values, out, taps.values, plain)
+    if not all(diffs[k] <= PHASE3_TOLS[k] for k in PHASE3_TOLS):
+        raise AssertionError(f"11b: outputs through K8 differ from the plain-K8 forward {diffs}")
+    record["vs_plain_k8"] = {"trunk_equal": True, **diffs, "tolerances": PHASE3_TOLS}
+
+    set_int8(torch, model, int8=False)
+    float_out = infer(batch)
+    torch.cuda.synchronize()
+    set_int8(torch, model, int8=True)
+    record["int8_vs_float"] = {
+        "features_rel_norm": rel_norm(features, tap.values["features"]),
+        "trunk_rel_norm": rel_norm(trunk, tap.values["trunk"]),
+        "score_max_abs": (out["class_scores"] - float_out["class_scores"]).abs().max().item(),
+        "box_max_abs_px": (out["boxes"] - float_out["boxes"]).abs().max().item(),
+        "note": "random weights: reported, not gated"}
+
+    set_gates(**FUSED_GATES)
+    _kernels.reset_launch_counts()
+    fused, fused_s = forward(torch, infer, batch, REQUESTS)
+    counts_fused = launched(_kernels)
+    want_fused = {k: n * REQUESTS for k, n in INT8_FUSED_LAUNCHES.items()}
+    if counts_fused != want_fused:
+        raise AssertionError(f"11b int8 fused gates: launches {counts_fused}, want {want_fused}")
+    check_output(torch, fused, args.num_queries, args.num_classes)
+    record["f32 fused"] = {"request_s": fused_s, "stage_ms": taps.stage_ms(),
+                           "launches": counts_fused}
+
+    model.to(torch.bfloat16)
+    set_gates()
+    _kernels.reset_launch_counts()
+    bf16, bf16_s = forward(torch, infer, batch, REQUESTS)
+    counts_bf16 = launched(_kernels)
+    if counts_bf16 != want:
+        raise AssertionError(f"11b int8 bf16: launches {counts_bf16}, want {want}")
+    check_output(torch, bf16, args.num_queries, args.num_classes)
+    record["bf16"] = {"request_s": bf16_s, "stage_ms": taps.stage_ms(), "launches": counts_bf16,
+                      "phase3_float_bf16_fused_request_s": phase3_bf16_s,
+                      "score_diff_vs_f32": (bf16["class_scores"].float()
+                                            - out["class_scores"]).abs().max().item()}
+    set_gates()
+    del model, infer, taps, tap
+    torch.cuda.empty_cache()
+    return record, counts
+
+
+def int8_static_phase(torch, batch):
+    """Phase 11c: the static-int8 flagship (phase 2's weights): refused
+    before calibration, then calibrated on `batch`; on it the static request
+    equals the dynamic one bit for bit (trunk and outputs); on another batch
+    its gap to the float forward (reported). Returns (record, the model)."""
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.ops.quant import assert_calibrated
+    from future_od_tpu_torch.train.step import calibrate_int8, make_inference_fn
+
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, int8_static=True)
+    set_gates()
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    tap = TrunkTap(model)
+    refused_uncalibrated("11c", lambda: assert_calibrated(model),
+                         lambda: make_inference_fn(model))
+    set_gates()
+    t0 = time.perf_counter()
+    calibrate_int8(model, [batch])
+    torch.cuda.synchronize()
+    calibrate_s = time.perf_counter() - t0
+    assert_calibrated(model)
+    infer = make_inference_fn(model)
+    _kernels.reset_launch_counts()
+    static, static_s = forward(torch, infer, batch, REQUESTS)
+    counts = launched(_kernels)
+    want = {"flash_attention": 6 * REQUESTS, "int8_conv": INT8_LAUNCHES * REQUESTS}
+    if counts != want:
+        raise AssertionError(f"11c static: launches {counts}, want {want}")
+    check_output(torch, static, args.num_queries, args.num_classes)
+    trunk_static = tap.values["trunk"]
+    set_int8(torch, model, static=False)
+    dynamic, dynamic_s = forward(torch, infer, batch, REQUESTS)
+    set_int8(torch, model, static=True)
+    if not (torch.equal(trunk_static, tap.values["trunk"])
+            and all(torch.equal(static[k], dynamic[k]) for k in ("class_scores", "boxes"))):
+        raise AssertionError("11c: static differs from dynamic on the calibration batch")
+    other = make_batch(seed=1)
+    static_other = infer(other)
+    trunk_other = tap.values["trunk"]
+    set_int8(torch, model, int8=False)
+    float_other = infer(other)
+    torch.cuda.synchronize()
+    set_int8(torch, model, int8=True)
+    record = {"calibrate_s": calibrate_s, "request_s": static_s, "dynamic_request_s": dynamic_s,
+              "launches": counts, "equal_to_dynamic_on_calibration_batch": True,
+              "other_batch_vs_float": {
+                  "trunk_rel_norm": rel_norm(trunk_other, tap.values["trunk"]),
+                  "score_max_abs": (static_other["class_scores"]
+                                    - float_other["class_scores"]).abs().max().item(),
+                  "note": "random weights: reported, not gated"},
+              "fused_gates": static_fused_check(torch, args, model, batch)}
+    del infer, tap
+    return record, model
+
+
+def refused_uncalibrated(label: str, *calls) -> None:
+    """Each call must raise the uncalibrated-ranges ValueError."""
+    for call in calls:
+        try:
+            call()
+        except ValueError as e:
+            if "uncalibrated" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{label}: an uncalibrated static model was not refused")
+
+
+def static_fused_check(torch, args, model, batch) -> dict:
+    """Static int8 built and served under the fused gates: ranges only for
+    the 33 convolutions the int8 path reaches (K2 and K3 take the rest),
+    refused before calibration, then served with the fused launches and
+    equal to the dynamic path on the calibration batch bit for bit."""
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.ops.quant import assert_calibrated
+    from future_od_tpu_torch.train.step import calibrate_int8, make_inference_fn
+
+    set_gates(**FUSED_GATES)
+    fused = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    fused.load_state_dict({k: v for k, v in model.state_dict().items()
+                           if not k.endswith("_amax")}, strict=False)
+    ranges = [k for k, _ in fused.named_buffers() if k.endswith("_amax")]
+    if len(ranges) != INT8_FUSED_LAUNCHES["int8_conv"]:
+        raise AssertionError(f"11c fused gates: {len(ranges)} range buffers, want "
+                             f"{INT8_FUSED_LAUNCHES['int8_conv']}")
+    refused_uncalibrated("11c fused gates", lambda: assert_calibrated(fused))
+    calibrate_int8(fused, [batch])
+    infer = make_inference_fn(fused)
+    _kernels.reset_launch_counts()
+    static, _ = forward(torch, infer, batch, 1)
+    counts = launched(_kernels)
+    if counts != INT8_FUSED_LAUNCHES:
+        raise AssertionError(f"11c fused gates: launches {counts}, want {INT8_FUSED_LAUNCHES}")
+    set_int8(torch, fused, static=False)
+    dynamic = infer(batch)
+    torch.cuda.synchronize()
+    if not all(torch.equal(static[k], dynamic[k]) for k in ("class_scores", "boxes")):
+        raise AssertionError("11c fused gates: static differs from dynamic on the calibration "
+                             "batch")
+    set_gates()
+    del infer, fused
+    torch.cuda.empty_cache()
+    return {"ranges": len(ranges), "launches": counts,
+            "equal_to_dynamic_on_calibration_batch": True}
+
+
+def int8_serving_phase(torch, static_model, batch, phase9_clips_per_s):
+    """Phase 11d: the session over phase 9a's 12 streams with the dynamic
+    and the static int8 flagship (clips/s beside phase 9a's float default;
+    the static session's output against its batch path within phase 9's
+    gates, which a dynamic per-batch scale cannot promise); the dynamic int8
+    artifact against eager bit for bit (K8 53 a forward); the flagship's
+    eval script with --int8 on a checkpoint of a random nuScenes-class
+    flagship. Returns (record, K8's launches by run)."""
+    import dataclasses
+    import importlib
+    import tempfile
+
+    from future_od_tpu_torch.data import nu_scenes
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.serve import StreamingSession, export_inference, load_serving
+    from future_od_tpu_torch.train import trainer as trainer_module
+    from future_od_tpu_torch.train.step import make_inference_fn, to_device_batch
+    from future_od_tpu_torch.utils.checkpoint import save_checkpoint
+
+    record, k8_launches = {}, {}
+    stream = make_stream(10, SERVE_STREAMS, SERVE_STREAM_FRAMES)
+    set_gates()
+    session = StreamingSession(static_model, clip_frames=FRAMES)
+    for t in range(2):
+        out = session.step(frame_of(stream, t))
+    gaps = serve_gaps(torch, out, make_inference_fn(static_model)(clip_of(stream, 1)))
+    check_serve_gaps("11d static session against its batch path", gaps)
+    _kernels.reset_launch_counts()
+    record["session static"] = session_throughput(torch, static_model, stream)
+    record["session static"]["vs_batch_path"] = gaps
+    k8_launches["11d session static"] = _kernels.launch_counts["int8_conv"]
+    del session
+    set_int8(torch, static_model, static=False)
+    _kernels.reset_launch_counts()
+    record["session dynamic"] = session_throughput(torch, static_model, stream)
+    k8_launches["11d session dynamic"] = _kernels.launch_counts["int8_conv"]
+    record["phase9a_f32_default_session_clips_per_s"] = phase9_clips_per_s
+    del stream
+
+    device = next(static_model.parameters()).device
+    dev_batch = to_device_batch(batch, device)
+    eager = make_inference_fn(static_model)(dev_batch)
+    t0 = time.perf_counter()
+    blob = export_inference(static_model, batch)
+    export_s = time.perf_counter() - t0
+    program = load_serving(blob)
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = program(dev_batch)
+    torch.cuda.synchronize()
+    counts = launched(_kernels)
+    if counts != {"flash_attention": 6, "int8_conv": INT8_LAUNCHES}:
+        raise AssertionError(f"11d int8 artifact: launches {counts}")
+    if not all(torch.equal(got[k], eager[k]) for k in ("class_scores", "boxes")):
+        raise AssertionError("11d: the int8 artifact differs from eager")
+    k8_launches["11d artifact"] = counts["int8_conv"]
+    record["artifact"] = {"equal_to_eager": True, "export_s": export_s,
+                          "blob_mb": len(blob) / 1e6, "launches": counts}
+    del program, blob
+    torch.cuda.empty_cache()
+
+    script = importlib.import_module(INT8_EVAL_SCRIPT)
+    args = SpatioTemporalDETRArgs(num_classes=len(nu_scenes.CATEGORY_DICT), num_queries=128,
+                                  lr_backbone=1e-4)
+    model = build_flagship(args, generator=torch.Generator().manual_seed(8))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(9))
+    net = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    aps, eval_launches = [], []
+    aggregate = trainer_module.aggregate_mean_average_precision
+    make_eval_step = trainer_module.make_eval_step
+
+    def counted_eval_step(*a, **kw):
+        step = make_eval_step(*a, **kw)
+
+        def run(data):
+            before = _kernels.launch_counts["int8_conv"]
+            out = step(data)
+            eval_launches.append(_kernels.launch_counts["int8_conv"] - before)
+            return out
+        return run
+
+    trainer_module.aggregate_mean_average_precision = lambda *a: aps.append(aggregate(*a)) or (
+        aps[-1])
+    trainer_module.make_eval_step = counted_eval_step
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = save_checkpoint(tmp, "w6_nusc_500ms_attendprev_decoder", {
+                "net": net, "net_type": "SpatioTemporalDETR",
+                "detr_args": dataclasses.asdict(args)})
+            t0 = time.perf_counter()
+            trainer = script.main(["--checkpoint", path, "--synthetic", "--disable_wandb",
+                                   "--int8"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    finally:
+        trainer_module.aggregate_mean_average_precision = aggregate
+        trainer_module.make_eval_step = make_eval_step
+    if not trainer._args.int8_backbone:
+        raise AssertionError("11d: --int8 did not reach the eval model")
+    if not eval_launches or any(n != INT8_LAUNCHES for n in eval_launches):
+        raise AssertionError(f"11d eval: K8 launches a batch {eval_launches}, want "
+                             f"{INT8_LAUNCHES}")
+    if len(aps) != 1:
+        raise AssertionError(f"11d eval: {len(aps)} AP aggregations")
+    check_ap(aps[0], args.num_classes)
+    k8_launches["11d eval script"] = sum(eval_launches)
+    record["eval script"] = {"script": INT8_EVAL_SCRIPT, "run_s": run_s,
+                             "batches": len(eval_launches),
+                             "val0_ap": {k: v.tolist() for k, v in aps[0].items()
+                                         if k.endswith("threshavg")}}
+    del trainer
+    torch.cuda.empty_cache()
+    return record, k8_launches
+
+
+def int8_phase(torch, batch, phase2_s, phase3_bf16_s, phase9_clips_per_s, dev=None):
+    """Phase 11, the int8 PTQ backbone: 11a-11d (11a's tensors on dev,
+    default the card). Returns K8's kernels-line row."""
+    t0 = time.perf_counter()
+    shapes, totals = k8_phase(torch, dev or torch.device("cuda"))
+    log("11a-k8-vs-plain", ok=True, card=gpu_name_and_power(), totals=totals, shapes=shapes,
+        seconds=time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    request, main_counts = int8_request_phase(torch, batch, phase2_s, phase3_bf16_s)
+    log("11b-int8-request", ok=True, card=gpu_name_and_power(), **request,
+        seconds=time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    static, static_model = int8_static_phase(torch, batch)
+    log("11c-int8-static", ok=True, card=gpu_name_and_power(), **static,
+        seconds=time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    serving, k8_launches = int8_serving_phase(torch, static_model, batch, phase9_clips_per_s)
+    log("11d-int8-serving", ok=True, card=gpu_name_and_power(), **serving,
+        seconds=time.perf_counter() - t1)
+    del static_model
+    torch.cuda.empty_cache()
+    log("11-int8", ok=True, seconds=time.perf_counter() - t0)
+    row = {
+        "name": "int8_conv", "route": "cuda", "source": "future_od_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "future_od_tpu/ops/quant.py:99 and :121 (XLA's int8 convolution, "
+                    "lax.conv_general_dilated with int32 sums; not a Pallas kernel)",
+        "launches": main_counts["int8_conv"], "max_abs_err": 0.0,
+        "ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+        "bound_by": totals["bound_by"], "library_ms": None,
+        "library_is": "none: no PyTorch call computes an int8 convolution",
+        "yardstick_ms": totals["yardstick_ms"],
+        "yardstick_is": "cuDNN's bf16 convolutions of the same 53 shapes, channels-last",
+        "int_mm_ms": totals["int_mm_ms"], "ms_on_int_mm_convs": totals["ms_on_int_mm_convs"],
+        "int_mm_convs": totals["int_mm_convs"],
+        "int_mm_is": "torch._int_mm (cuBLAS int8 GEMM) on the stride-1 1x1 convolutions, "
+                     "the same int32 product without the epilogue, the faster of the weights "
+                     "row-major and column-major",
+        "per": f"one forward's {INT8_LAUNCHES} launches, {BATCH * (FRAMES - 1)} frames at "
+               f"{HEIGHT}x{WIDTH}, f32 out",
+        "phase11_launches": {"11b f32 default": main_counts["int8_conv"], **k8_launches},
+        "calls": shapes,
+    }
+    return row
+
 def max_rel(a, b) -> float:
     """max |a - b| over max |b|."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -3646,6 +4259,7 @@ def main() -> int:
     log("0-k2-tensor-cores", **k2_tensor_core_report())
     log("0-k3-tensor-cores", **k3_tensor_core_report())
     log("0-k4-k6-tensor-cores", **train_tensor_core_report())
+    log("0-k8-tensor-cores", **k8_tensor_core_report())
 
     t0 = time.perf_counter()
     records = kernel_phase(torch, torch.device("cuda"))
@@ -3783,6 +4397,8 @@ def main() -> int:
     log("10-data-parallel", ok=True, card=gpu_name_and_power(),
         seconds=time.perf_counter() - t0,
         **{k: dist_records[k]["seconds"] for k in ("10a", "10b", "10c")})
+    k8_row = int8_phase(torch, batch, seconds, bf16_s,
+                        serving_records["9a"]["throughput f32 default"]["session_clips_per_s"])
     phase8_launches = {
         name: {"8a single-frame script": single_totals.get(name, 0),
                "8b tracker eval": tracker_totals.get(name, 0),
@@ -3890,6 +4506,7 @@ def main() -> int:
                                    "library_is", "per")},
             "calls": rec["calls"],
         })
+    kernels.append(k8_row)
     for row in kernels:  # the launches on phase 6's, 6b's, 8's and 9's runs, by stage
         if row["name"] in phase8_launches:
             row["phase8_launches"] = phase8_launches[row["name"]]

@@ -53,12 +53,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
 def _separate_encoder(args: SpatioTemporalDETRArgs, use_imu: bool = True,
                       concat_imu: bool = False) -> SeparateEncoder:
     """The per-frame encoder of every builder; `concat_imu` (no JAX builder
-    sets it) adds the IMU embedding to the features instead."""
-    if args.int8_backbone or args.int8_static:
-        raise NotImplementedError(
-            "the int8 PTQ backbone (int8_backbone / int8_static) is not ported yet "
-            "(ROADMAP.md Queue 1 item 6, ops/quant.py)"
-        )
+    sets it) adds the IMU embedding to the features instead. `int8_static`
+    implies the int8 backbone (`models/resnet.py`)."""
     return SeparateEncoder(
         hidden_dim=args.hidden_dim,
         imu_dim=args.imu_dim(),
@@ -70,6 +66,8 @@ def _separate_encoder(args: SpatioTemporalDETRArgs, use_imu: bool = True,
         backbone_dilation=args.dilation,
         freeze_stem=args.freeze_stem,
         backbone_space_to_depth=args.space_to_depth,
+        backbone_int8=args.int8_backbone or args.int8_static,
+        backbone_int8_static=args.int8_static,
         use_encoder=args.enc_layers > 0,
         use_imu=use_imu,
         use_egodeep=use_imu,
@@ -127,9 +125,10 @@ def build_flagship(
     first_layer_special "always"; `aux_loss`, the stem+layer1 `freeze_stem`
     cut and the `space_to_depth` stem as `args` sets them. With
     `store_attention` every decoder image attention captures its weights
-    (`models/st_detr.py::captured_attention`). The int8 backbone
-    (`int8_backbone`, `int8_static`) is not ported yet and raises
-    NotImplementedError."""
+    (`models/st_detr.py::captured_attention`). `int8_backbone` runs the
+    trunk's convolutions on the int8 path in inference, `int8_static` with
+    calibrated ranges (`models/resnet.py::int8_calibration`; before that
+    `ops/quant.py::assert_calibrated(model)` raises)."""
     core = FuturePredCore(
         separate_encoder=_separate_encoder(args, use_imu=True),
         detector=_detector(args, num_images=2, store_attention=store_attention),

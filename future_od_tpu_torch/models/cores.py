@@ -50,12 +50,14 @@ class SeparateEncoder(nn.Module):
                  enc_heads: int = 8, ff_dim: int = 2048, dropout: float = 0.1,
                  backbone_name: str = "resnet50", backbone_dilation: bool = False,
                  freeze_stem: bool = False, backbone_space_to_depth: bool = False,
+                 backbone_int8: bool = False, backbone_int8_static: bool = False,
                  use_encoder: bool = True, use_imu: bool = True, use_egodeep: bool = True,
                  concat_imu: bool = False):
         super().__init__()
         self.concat_imu, self.use_egodeep = concat_imu, use_egodeep
         self.backbone = CDetrBackbone(hidden_dim, backbone_name, backbone_dilation, freeze_stem,
-                                      backbone_space_to_depth)
+                                      backbone_space_to_depth, backbone_int8,
+                                      backbone_int8_static)
         self.imu_layers = ImuEncoder(imu_dim, hidden_dim) if use_imu else None
         self.transformer = None
         if use_encoder and enc_layers > 0:

@@ -24,6 +24,28 @@ package does; a bottleneck and the stem keep their folded, packed weights
 until their parameters or buffers change (`Bottleneck.fused_weights`,
 `ResNet.fused_stem_weights`).
 
+The int8 PTQ backbone (`int8`, and `int8_static` for calibrated ranges;
+ops/quant.py, every convolution on K8) runs in inference only (not
+`self.training`, JAX's `deterministic`), after the gates above as in the
+JAX package: a block the fused gate takes and the fused stem run before
+int8, and FUTURE_OD_S2D_STEM=1 keeps the stem float. FUTURE_OD_INT8_SKIP, a
+comma list of "stem" and stage indices "1".."4", keeps those in float. A
+block's convolutions take the zero-point path on BN-folded kernels (k * s,
+bias t); the stem is signed (7x7/2 pad 3, or the s2d 4x4 with pad (2, 1))
+with relu and the max pool after it and no bn1. With `int8_static` each
+int8 convolution has a per-input-channel range buffer, `<conv>_amax` (the
+JAX "quant" collection: `conv1_amax` .. `conv3_amax`,
+`downsample_conv_amax` a block, `conv1_amax` on the trunk for the stem).
+As JAX creates these leaves at init, the gates at construction decide
+which exist: none on a block FUTURE_OD_INT8_SKIP names, none on a block the
+fused gate takes (its input height assumed a multiple of 8, as at every
+configuration whose height is a multiple of 64) and none for the stem
+under the fused stem gate; a static convolution without its range raises.
+Under `int8_calibration(model)` a forward runs the dynamic
+path and raises each range to the running max of its conv's input (|x| for
+the stem); otherwise the static convolutions quantize with the stored
+ranges, their weights kept until the weights or ranges change.
+
 `space_to_depth` builds the stem with the s2d-format (4, 4, 12, 64) kernel
 (`conv1` is a 12 -> 64 4x4 conv): a 12-channel (host-packed, (di, dj, c)
 order; data/loader.py::host_space_to_depth) video goes in as it is, a
@@ -44,6 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from future_od_tpu_torch.ops import quant
 from future_od_tpu_torch.ops.fused_resnet import (
     BottleneckWeights,
     StemWeights,
@@ -75,6 +98,60 @@ def device_normalize(x: torch.Tensor, out_dtype) -> torch.Tensor:
 def fused_resnet_allowed() -> bool:
     """The fused bottleneck gate (opt-in FUTURE_OD_FUSED_RESNET=1)."""
     return os.environ.get("FUTURE_OD_FUSED_RESNET", "0") == "1"
+
+
+def fused_stem_allowed() -> bool:
+    """The fused stem gate (opt-in FUTURE_OD_FUSED_STEM=1 with
+    FUTURE_OD_FUSED_RESNET=1)."""
+    return os.environ.get("FUTURE_OD_FUSED_STEM", "0") == "1" and fused_resnet_allowed()
+
+
+def int8_skip() -> set:
+    """FUTURE_OD_INT8_SKIP's entries: "stem" and stage indices "1".."4" kept
+    in float under int8."""
+    return {t for t in os.environ.get("FUTURE_OD_INT8_SKIP", "").split(",") if t}
+
+
+@contextlib.contextmanager
+def int8_calibration(model: nn.Module):
+    """Within it, forwards of `model`'s static-int8 trunks run the dynamic
+    int8 path and raise each `<conv>_amax` range to the running max of its
+    input (the JAX package's mutable-"quant" apply). Run it in inference
+    (e.g. through `make_inference_fn`) on the batches to calibrate on."""
+    modules = [m for m in model.modules() if isinstance(m, (Bottleneck, ResNet))]
+    for m in modules:
+        m.calibrating = True
+    try:
+        yield model
+    finally:
+        for m in modules:
+            m.calibrating = False
+
+
+def _int8_conv(module: nn.Module, name: str, x, conv: nn.Conv2d, bn, static: bool,
+               nonneg: bool, relu: bool, **geometry):
+    """One int8 convolution of the trunk on NHWC x: conv's kernel with bn
+    folded in (k * s, bias t), by ops/quant.py's dynamic or static path
+    (`static`: the module's `<name>_amax` range; its weights kept on the
+    module until conv's or bn's tensors or the range change). Under
+    calibration the dynamic path runs and the range takes the running max
+    of x (`nonneg`: x, else |x|)."""
+    scale, shift = bn.scale_shift()
+    amax = getattr(module, f"{name}_amax", None) if static else None
+    if static and amax is None:
+        raise ValueError(f"{name}: static int8 without a range buffer (the module was "
+                         "built under another FUTURE_OD_INT8_SKIP or fused gate, or the "
+                         "fused gate's shape condition fails on this input)")
+    qrange = 255.0 if nonneg else quant.QMAX
+    if amax is not None and not module.calibrating:
+        kept = kept_pack(module, f"_int8_{name}", (conv.weight, *bn.buffers(), amax), x.dtype,
+                         lambda: quant.static_weights(_hwio(conv) * scale, amax, qrange))
+        fn = quant.int8_conv_nonneg_static if nonneg else quant.int8_conv_static
+        return fn(x, None, None, shift, relu=relu, kept=kept, **geometry)
+    if amax is not None:
+        amax.copy_(torch.maximum(amax, quant.observe_channel_amax(x, nonneg=nonneg)))
+    fn = quant.int8_conv_nonneg if nonneg else quant.int8_conv
+    return fn(x, _hwio(conv) * scale, shift, relu=relu, **geometry)
 
 
 def kept_pack(module: nn.Module, attr: str, tensors, dtype, build):
@@ -213,9 +290,11 @@ class Bottleneck(nn.Module):
     """torchvision-v1 bottleneck: 1x1 -> 3x3(stride, dilation) -> 1x1 (x4)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
-                 downsample: bool = False, stage: int = 0):
+                 downsample: bool = False, stage: int = 0, int8: bool = False,
+                 int8_static: bool = False):
         super().__init__()
         self.stride, self.dilation, self.stage = stride, dilation, stage
+        self.int8, self.int8_static, self.calibrating = int8, int8_static, False
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = FrozenBatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=dilation,
@@ -229,16 +308,22 @@ class Bottleneck(nn.Module):
                 nn.Conv2d(inplanes, 4 * planes, 1, stride=stride, bias=False),
                 FrozenBatchNorm2d(4 * planes),
             )
+        if int8_static and str(stage + 1) not in int8_skip() and not self.fusable():
+            for name, c in (("conv1", inplanes), ("conv2", planes), ("conv3", planes)) + (
+                    (("downsample_conv", inplanes),) if downsample else ()):
+                self.register_buffer(f"{name}_amax", torch.zeros(c))
 
-    def use_fused(self, x) -> bool:
+    def fusable(self) -> bool:
+        """The fused gate's conditions that do not depend on the input."""
         return (
-            not self.training
-            and self.stride == 1
+            self.stride == 1
             and self.dilation == 1
-            and x.shape[2] % 8 == 0
             and str(self.stage) in os.environ.get("FUTURE_OD_FUSE_STAGES", "01")
             and fused_resnet_allowed()
         )
+
+    def use_fused(self, x) -> bool:
+        return not self.training and x.shape[2] % 8 == 0 and self.fusable()
 
     def fused_weights(self, dtype) -> BottleneckWeights:
         """The block's BN-folded weights packed for the fused kernel in
@@ -266,10 +351,31 @@ class Bottleneck(nn.Module):
         if self.use_fused(x):
             out = fused_bottleneck_packed(x.permute(0, 2, 3, 1), self.fused_weights(x.dtype))
             return out.permute(0, 3, 1, 2)
+        skipped = str(self.stage + 1) in int8_skip()
+        if self.int8 and not self.training and not skipped:
+            return self.int8_forward(x.permute(0, 2, 3, 1), self.int8_static).permute(0, 3, 1, 2)
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+    def int8_forward(self, x, static: bool):
+        """The block on the int8 path: NHWC x (post-ReLU) -> NHWC, every
+        convolution on the zero-point path, the residual add and relu in x's
+        dtype."""
+        d = self.dilation
+        out = _int8_conv(self, "conv1", x, self.conv1, self.bn1, static, True, True)
+        out = _int8_conv(self, "conv2", out, self.conv2, self.bn2, static, True, True,
+                         strides=(self.stride, self.stride), padding=((d, d), (d, d)),
+                         dilation=(d, d))
+        out = _int8_conv(self, "conv3", out, self.conv3, self.bn3, static, True, False)
+        identity = x
+        if self.downsample is not None:
+            identity = _int8_conv(self, "downsample_conv", x, self.downsample[0],
+                                  self.downsample[1], static, True, False,
+                                  strides=(self.stride, self.stride))
         return F.relu(out + identity)
 
 
@@ -278,14 +384,18 @@ class ResNet(nn.Module):
     dilation)."""
 
     def __init__(self, name_id: str = "resnet50", dilation: bool = False,
-                 freeze_stem: bool = False, space_to_depth: bool = False):
+                 freeze_stem: bool = False, space_to_depth: bool = False, int8: bool = False,
+                 int8_static: bool = False):
         super().__init__()
         self.freeze_stem, self.space_to_depth = freeze_stem, space_to_depth
+        self.int8, self.int8_static, self.calibrating = int8, int8_static, False
         if space_to_depth:  # padding (2, 1) is applied with F.pad in forward
             self.conv1 = nn.Conv2d(4 * 3, 64, 4, bias=False)
         else:
             self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
+        if int8_static and not fused_stem_allowed():
+            self.register_buffer("conv1_amax", torch.zeros(self.conv1.in_channels))
         inplanes, planes = 64, 64
         for stage_idx, num_blocks in enumerate(STAGE_BLOCKS[name_id]):
             stride = 1 if stage_idx == 0 else 2
@@ -302,6 +412,8 @@ class ResNet(nn.Module):
                     dilation=1 if block_idx == 0 else dil,
                     downsample=(block_idx == 0),
                     stage=stage_idx,
+                    int8=int8,
+                    int8_static=int8_static,
                 ))
                 inplanes = 4 * planes
             setattr(self, f"layer{stage_idx + 1}", nn.Sequential(*blocks))
@@ -314,10 +426,9 @@ class ResNet(nn.Module):
     def use_fused_stem(self, x) -> bool:
         return (
             not self.training
-            and os.environ.get("FUTURE_OD_FUSED_STEM", "0") == "1"
             and x.shape[1] % 32 == 0
             and x.shape[2] % 4 == 0
-            and fused_resnet_allowed()
+            and fused_stem_allowed()
         )
 
     def use_s2d_math(self, x) -> bool:
@@ -356,9 +467,16 @@ class ResNet(nn.Module):
             if not self.space_to_depth:
                 x = space_to_depth(x)
             return fused_stem_packed(x, self.fused_stem_weights(dtype)).permute(0, 3, 1, 2)
+        s2d_math = self.use_s2d_math(x)
+        if self.int8 and not self.training and "stem" not in int8_skip() and not s2d_math:
+            geometry = ({"padding": ((2, 1), (2, 1))} if self.space_to_depth else
+                        {"strides": (2, 2), "padding": ((3, 3), (3, 3))})
+            x = _int8_conv(self, "conv1", x, self.conv1, self.bn1, self.int8_static, False,
+                           True, **geometry)
+            return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1)
         if self.space_to_depth:
             x = self.conv1(F.pad(x.permute(0, 3, 1, 2), (2, 1, 2, 1)))
-        elif self.use_s2d_math(x):
+        elif s2d_math:
             w4 = stem_weights_to_space_to_depth(_hwio(self.conv1)).permute(3, 2, 0, 1)
             x = F.conv2d(F.pad(space_to_depth(x).permute(0, 3, 1, 2), (2, 1, 2, 1)), w4)
         else:
@@ -382,9 +500,9 @@ class CDetrBackbone(nn.Module):
 
     def __init__(self, hidden_dim: int = 256, name_id: str = "resnet50",
                  dilation: bool = False, freeze_stem: bool = False,
-                 space_to_depth: bool = False):
+                 space_to_depth: bool = False, int8: bool = False, int8_static: bool = False):
         super().__init__()
-        self.body = ResNet(name_id, dilation, freeze_stem, space_to_depth)
+        self.body = ResNet(name_id, dilation, freeze_stem, space_to_depth, int8, int8_static)
         self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
 
     def forward(self, x):

@@ -6,8 +6,8 @@ assignment of a center-distance + class-disparity cost, and the matched box
 centers (and optionally dimensions) are extrapolated to the future frame.
 The assignment is scipy's (`scipy.optimize.linear_sum_assignment`), which is
 what the JAX module computes when its native solver (`native/lap.cpp`) is
-not built; the port's loader of that solver is ROADMAP.md Queue 1 item 6
-(1d).
+not built; the port's loader of that solver is ROADMAP.md Queue 1 item
+1d.
 """
 from __future__ import annotations
 

@@ -91,6 +91,13 @@ KERNELS: Dict[str, Dict[str, list]] = {
         # layer1, tile_h, cmid, im2col, dtype, int[4] out (launches nothing)
         "fod_bottleneck_plan": [_I] * 5 + [_P],
     },
+    # q, w, zp, sw, bias, out, B, H, W, Cin, Ho, Wo, Cout, KH, KW, sh, sw, pt, pl, dh,
+    # dw, Kp, pad_value, relu, dtype, stream
+    "int8_conv": {
+        "fod_int8_conv": [_P] * 6 + [_I] * 19 + [_P],
+        # dtype, vec, int[5] out (launches nothing)
+        "fod_int8_conv_info": [_I, _I, _P],
+    },
     "stem_variants": {
         # patches / sp, w, bias, out, B, Hp, Wp, Js, dtype, stream
         "fod_stem_a": [_P] * 4 + [_I] * 5 + [_P],
@@ -118,7 +125,7 @@ HOST_LIBRARIES: Dict[str, Dict[str, tuple]] = {
 }
 # entry points that launch no kernel, so have no launch counter
 QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info", "fod_flash_train_info",
-           "fod_fused_bottleneck_info", "fod_fused_stem_info")
+           "fod_fused_bottleneck_info", "fod_fused_stem_info", "fod_int8_conv_info")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -7,10 +7,12 @@ torch.distributed process group: by torchrun (`python -m torch.distributed.run
 --nproc_per_node N -m future_od_tpu_torch.runs.<script>`), by the `--dist_*`
 options, or by COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID or SLURM
 (`parallel/distributed.py`). Its ranks then train as one data-parallel
-global-batch step (`_build_mesh`). Options the port cannot honour yet raise
-NotImplementedError naming their ROADMAP.md item when a run uses them, never
-silently: `--mesh_model` > 1 (item 4b) and `--int8` (item 6). `--bf16` and
-`--accum` reach the Trainer's train step.
+global-batch step (`_build_mesh`). The one option the port cannot honour
+yet, `--mesh_model` > 1 (ROADMAP.md item 4b), raises NotImplementedError
+when a run uses it, never silently. `--bf16` and `--accum` reach the
+Trainer's train step; `--int8` builds the eval scripts' model with the int8
+PTQ backbone (runs/eval/_common.py), as in the JAX package, and training
+runs the float path.
 `--prng` picks the JAX package's dropout generator, which torch's has no
 counterpart for; it changes nothing here.
 """
@@ -43,9 +45,6 @@ def refuse_unported(args) -> None:
     yet."""
     if int(getattr(args, "mesh_model", 1)) > 1:
         raise NotImplementedError(f"--mesh_model > 1: {TENSOR_PARALLEL_ITEM}")
-    if getattr(args, "int8", False):
-        raise NotImplementedError(
-            "--int8 (the int8 PTQ backbone) is not ported yet (ROADMAP.md Queue 1 item 6)")
 
 
 def start_run(args) -> None:
@@ -216,7 +215,8 @@ def add_tpu_args(parser):
     )
     parser.add_argument(
         "--int8", action="store_true", default=False,
-        help="int8 PTQ backbone for inference/eval; not ported yet (raises)",
+        help="int8 PTQ backbone for inference/eval (ops/quant.py; training "
+        "steps always run the float path)",
     )
     parser.add_argument(
         "--loader", default="thread", choices=["thread", "grain"],

@@ -4,10 +4,12 @@
 An artifact is a sealed program: a serving host reloads it with
 `load_serving` without the model-building code on its path. What it needs
 at load is torch and the port's op registrations
-(`future_od_tpu_torch/ops/flash_attention.py` and `ops/fused_resnet.py`,
-which `load_serving` imports): the kernels K1-K3 stay in the graph as the
-ops `fod::flash_attention`, `fod::fused_bottleneck` and `fod::fused_stem`,
-as the Pallas kernels stay in the JAX artifact. The gates set at export
+(`future_od_tpu_torch/ops/flash_attention.py`, `ops/fused_resnet.py` and
+`ops/int8_conv.py`, which `load_serving` imports): the kernels K1-K3 and K8
+stay in the graph as the ops `fod::flash_attention`, `fod::fused_bottleneck`,
+`fod::fused_stem` and `fod::int8_conv`, as the Pallas kernels stay in the
+JAX artifact. An int8 model's activation quantization and reductions are
+the graph's own ops, and a static-int8 model's ranges travel in its state. The gates set at export
 time (`FUTURE_OD_FLASH_*`, `FUTURE_OD_FUSED_*`) are fixed in the artifact,
 which launches the kernels the eager call launches under them; the fused
 blocks' packed weights are computed in the graph from the weights at every
@@ -61,7 +63,7 @@ def load_serving(path_or_blob, device: DeviceLike = None) -> torch.nn.Module:
     exported shapes and dtypes. Call it under `torch.inference_mode()`."""
     from torch.export.passes import move_to_device_pass
 
-    from future_od_tpu_torch.ops import flash_attention, fused_resnet  # noqa: F401 (fod:: ops)
+    from future_od_tpu_torch.ops import flash_attention, fused_resnet, int8_conv  # noqa: F401
 
     device = resolve_device(device)
     source = path_or_blob if isinstance(path_or_blob, (str, os.PathLike)) else io.BytesIO(
@@ -83,8 +85,12 @@ def _model_device(model) -> torch.device:
 
 def export_inference(model, example_data, path: Optional[str] = None) -> bytes:
     """Export the batch clip path at `example_data`'s shapes (numpy arrays
-    or tensors; moved to the model's device)."""
+    or tensors; moved to the model's device). A static-int8 model must be
+    calibrated first (ValueError)."""
+    from future_od_tpu_torch.ops.quant import assert_calibrated
     from future_od_tpu_torch.train.step import InferenceProgram, to_device_batch
+
+    assert_calibrated(model)
 
     data = to_device_batch(example_data, _model_device(model))
     return export_serving(InferenceProgram(model).eval(), (data,), path)

@@ -31,6 +31,7 @@ from torch import nn
 
 from future_od_tpu_torch.models.cores import FuturePredCore, _positions
 from future_od_tpu_torch.models.st_detr import normalize_outputs, post_process
+from future_od_tpu_torch.ops.quant import assert_calibrated
 from future_od_tpu_torch.parallel.mesh import (
     TENSOR_PARALLEL_ITEM,
     BatchSharding,
@@ -109,7 +110,9 @@ def make_streaming_fns(model, clip_frames: int = 3,
     FuturePredCore without a joint encoder (ValueError for any other).
     clip_frames: the L of the batch clip this emulates (the decoder reads
     its L-1 past frames; the future frame is only a shape in
-    post-processing). The model's weights are the pair's."""
+    post-processing). The model's weights are the pair's. A static-int8
+    model must be calibrated first (ValueError)."""
+    assert_calibrated(model)
     return EncodeFrame(model), DetectWindow(model, clip_frames, image_hw)
 
 

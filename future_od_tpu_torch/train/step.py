@@ -41,7 +41,9 @@ from future_od_tpu_torch.models.st_detr import (
     normalize_outputs,
     post_process,
 )
+from future_od_tpu_torch.models.resnet import int8_calibration
 from future_od_tpu_torch.ops.misc import video_hw
+from future_od_tpu_torch.ops.quant import assert_calibrated
 from future_od_tpu_torch.parallel import distributed
 from future_od_tpu_torch.parallel.mesh import TENSOR_PARALLEL_ITEM, Mesh
 from future_od_tpu_torch.train.optimizer import AdamWClipped, clip_by_global_norm_, global_norm
@@ -393,7 +395,7 @@ def make_tracker_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfi
     if host_matched:
         raise NotImplementedError(
             "make_tracker_eval_step(host_matched=True), the host-matched split of the step, "
-            "is not ported (ROADMAP.md Queue 1 item 6, 1c)")
+            "is not ported (ROADMAP.md Queue 1 item 1c)")
     device = resolve_device(device)
     mesh = data_parallel(mesh)
 
@@ -480,8 +482,10 @@ def make_inference_fn(model: torch.nn.Module, device: DeviceLike = None) -> Call
     """Returns infer(data) -> post-processed output dict (the deployment /
     serving path; no targets needed). `data` is the JAX package's batch
     dict, as numpy arrays or tensors; it is moved to `device` (default
-    CUDA; raises without a card), where the model must live."""
+    CUDA; raises without a card), where the model must live. A static-int8
+    model must be calibrated first (`calibrate_int8`; else ValueError)."""
     device = resolve_device(device)
+    assert_calibrated(model)
     program = InferenceProgram(model.eval()).eval()
 
     def infer(data: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -490,3 +494,17 @@ def make_inference_fn(model: torch.nn.Module, device: DeviceLike = None) -> Call
             return program(batch)
 
     return infer
+
+
+def calibrate_int8(model: torch.nn.Module, batches, device: DeviceLike = None):
+    """Calibrate a static-int8 model (`int8_static`) on `batches` (batch
+    dicts, as `make_inference_fn`'s infer takes them): each forward runs the
+    dynamic int8 path and raises every range to the running max of its
+    convolution's input (`models/resnet.py::int8_calibration`, the JAX
+    package's mutable-"quant" apply). Returns the model."""
+    device = resolve_device(device)
+    program = InferenceProgram(model.eval()).eval()
+    with int8_calibration(model), torch.inference_mode():
+        for data in batches:
+            program(to_device_batch(data, device))
+    return model

@@ -3,9 +3,11 @@ every model the JAX package builds (the flagship, the joint-encoder
 ablations, the single-frame core, the tracker baseline, the detector modes).
 
 Input: `{"params": ..., "frozen": ...}` as nested dicts of numpy arrays (what
-`jax.tree.map(np.asarray, variables)` gives). Output: a state_dict keyed by
-the reference PyTorch checkpoint's names, which are this port's parameter
-names (the inverse of future_od_tpu/utils/checkpoint_convert.py::
+`jax.tree.map(np.asarray, variables)` gives), with the `"quant"` collection
+of a static-int8 model (`int8_static`: its calibrated per-channel ranges,
+which a JAX init computes). Output: a state_dict keyed by the reference
+PyTorch checkpoint's names, which are this port's parameter names (the
+inverse of future_od_tpu/utils/checkpoint_convert.py::
 convert_reference_checkpoint, for the modules that converter knows).
 Layout changes:
 - flax kernel (in, out) -> Linear weight (out, in);
@@ -13,6 +15,8 @@ Layout changes:
 - LayerNorm `scale` -> `weight`;
 - separate q/k/v projections -> packed `in_proj_weight` / `in_proj_bias`;
 - frozen BN statistics -> the FrozenBatchNorm2d buffers;
+- the "quant" ranges `body/conv1_amax` and `body/layer{s}_block{b}/<conv>_amax`
+  -> `body.conv1_amax` and `body.layer{s}.{b}.<conv>_amax`;
 - the modules the reference has no names for keep the JAX names, with
   indices as ModuleList entries: `previmage_attn{i}` -> `previmage_attn.{i}`,
   the F2F encoder's `conv{i}` -> `convs.{i}`.
@@ -41,12 +45,13 @@ BN_KEYS = ("weight", "bias", "running_mean", "running_var")
 
 class _Leaves:
     """The variables' leaves by '/'-joined path (`params/core/...`,
-    `frozen/core/...`); each is taken once, and `left()` names the rest."""
+    `frozen/core/...`, `quant/core/...`); each is taken once, and `left()`
+    names the rest."""
 
     def __init__(self, variables: Tree):
         self.flat: Dict[str, Any] = {}
         for collection, tree in variables.items():
-            if collection not in ("params", "frozen"):
+            if collection not in ("params", "frozen", "quant"):
                 raise ValueError(f"cannot place the JAX collection {collection!r}")
             self._flatten(collection, tree)
 
@@ -136,13 +141,22 @@ def _encoder_attention(sd, prefix, v: _Leaves, src: str) -> None:
 STEM_KERNEL_SHAPES = ((7, 7, 3, 64), (4, 4, 12, 64))  # the 7x7 stem, the space_to_depth one
 
 
+INT8_CONVS = ("conv1", "conv2", "conv3", "downsample_conv")  # a block's static-int8 ranges
+
+
+def _amax(sd, key: str, v: _Leaves, src: str) -> None:
+    if v.has(src):
+        sd[key] = v.take(src)
+
+
 def _resnet_body(sd, prefix, v: _Leaves, src: str) -> None:
-    params, frozen = f"params/{src}", f"frozen/{src}"
+    params, frozen, quant = f"params/{src}", f"frozen/{src}", f"quant/{src}"
     stem = np.shape(v.flat[f"{params}/conv1/kernel"])
     if stem not in STEM_KERNEL_SHAPES:
         raise ValueError(f"stem kernel {stem}; want one of {STEM_KERNEL_SHAPES}")
     _conv(sd, f"{prefix}.conv1", v, f"{params}/conv1")
     _bn(sd, f"{prefix}.bn1", v, f"{frozen}/bn1")
+    _amax(sd, f"{prefix}.conv1_amax", v, f"{quant}/conv1_amax")
     blocks = sorted({k[len(params) + 1:].split("/")[0] for k in v.flat
                      if k.startswith(params + "/layer")})
     for name in blocks:
@@ -154,6 +168,8 @@ def _resnet_body(sd, prefix, v: _Leaves, src: str) -> None:
         if v.has(f"{params}/{name}/downsample_conv"):
             _conv(sd, f"{out}.downsample.0", v, f"{params}/{name}/downsample_conv")
             _bn(sd, f"{out}.downsample.1", v, f"{frozen}/{name}/downsample_bn")
+        for conv in INT8_CONVS:
+            _amax(sd, f"{out}.{conv}_amax", v, f"{quant}/{name}/{conv}_amax")
 
 
 def _encoder(sd, prefix, v: _Leaves, src: str) -> None:

@@ -1,11 +1,14 @@
 """Export of the port's serving programs (future_od_tpu_torch/serve/
-export.py) on the CPU, the counterparts of tests/test_export.py without
-int8: a batch program round-trips through bytes and through a file and
-equals the eager forward bit for bit, refuses a wrong shape, keeps K1-K3 as
-`fod::` nodes in its graph and takes a checkpoint with `load_state_dict`;
-the streaming pair equals the live pair and the session; each op's CPU
-implementation is its plain function and its fake implementation gives the
-real output's shape and dtype.
+export.py) on the CPU, the counterparts of tests/test_export.py: a batch
+program round-trips through bytes and through a file and equals the eager
+forward bit for bit, refuses a wrong shape, keeps K1-K3 as `fod::` nodes in
+its graph and takes a checkpoint with `load_state_dict`; the streaming pair
+equals the live pair and the session; the int8 flagship's program (the int8
+PTQ backbone, dynamic) equals its eager forward bit for bit with K8's 53
+`fod::int8_conv` nodes and the activation reductions in its graph, and an
+uncalibrated static-int8 model is refused; each op's CPU implementation is
+its plain function and its fake implementation gives the real output's
+shape and dtype.
 
 The model is tests/test_torch_streaming.py's tiny flagship with JAX weights
 (the eager port is held against the JAX package there). Every gate is set
@@ -14,7 +17,7 @@ FUTURE_OD_FLASH_MIN_KEYS/_QUERIES=1 (the encoder's self-attention and the
 decoder's image attentions), FUTURE_OD_FUSED_RESNET=1 (layer1's and
 layer2's stride-1 blocks) and FUTURE_OD_FUSED_STEM=1. On the CPU each op
 runs its plain version. One export of each program for the file; about
-45 s alone (each ResNet-50 artifact holds 97 MB of weights).
+80 s alone (each ResNet-50 artifact holds 97 MB of weights).
 """
 import copy
 import io
@@ -24,7 +27,10 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from future_od_tpu_torch.models.build import build_flagship
+from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
 from future_od_tpu_torch.ops import fused_resnet as fr
+from future_od_tpu_torch.ops import int8_conv as k8
 from future_od_tpu_torch.ops.flash_attention import reference_attention
 from future_od_tpu_torch.serve import (
     StreamingSession,
@@ -35,7 +41,7 @@ from future_od_tpu_torch.serve import (
 )
 from future_od_tpu_torch.train.step import make_inference_fn
 from test_torch_flash_tc_rounding import one_torch_thread  # noqa: F401 (autouse)
-from test_torch_streaming import L, frame_at, make_data, make_twins
+from test_torch_streaming import TINY, L, frame_at, make_data, make_twins
 
 GATES = {"FUTURE_OD_FLASH_MIN_KEYS": "1", "FUTURE_OD_FLASH_MIN_QUERIES": "1",
          "FUTURE_OD_FUSED_RESNET": "1", "FUTURE_OD_FUSED_STEM": "1"}
@@ -152,6 +158,43 @@ def test_streaming_pair_matches_live_pair_and_session(model, data):
     assert_equal(got, want)
 
 
+def int8_model(model, **flags):
+    """The tiny flagship's twin with the int8 backbone flags, its weights."""
+    twin = build_flagship(SpatioTemporalDETRArgs(**TINY, **flags), device="cpu")
+    missing, unexpected = twin.load_state_dict(model.state_dict(), strict=False)
+    assert not unexpected and all(k.endswith("_amax") for k in missing)
+    return twin.eval()
+
+
+def test_export_int8_backbone_roundtrip(model, data, monkeypatch):
+    """The int8 program exports and reloads like the float one (under the
+    default gates, so every trunk convolution is int8): bit for bit the
+    eager forward, each of the trunk's 53 convolutions a `fod::int8_conv`
+    node a frame batch, the activations' reductions (amax) traced in."""
+    for name in ("FUTURE_OD_FUSED_RESNET", "FUTURE_OD_FUSED_STEM"):
+        monkeypatch.delenv(name)
+    int8 = int8_model(model, int8_backbone=True)
+    served = load_serving(export_inference(int8, data), device="cpu")
+    names = [str(n.target) for n in served.graph.nodes if n.op == "call_function"]
+    assert names.count("fod.int8_conv.default") == 53
+    assert any("amax" in name for name in names)
+    with torch.inference_mode():
+        assert_equal(served(tensors(data)), make_inference_fn(int8, device="cpu")(data))
+    with pytest.raises(ValueError, match="uncalibrated"):
+        export_inference(int8_model(model, int8_static=True), data)
+
+
+def int8_conv_case(rng, dtype):
+    q = torch.from_numpy(rng.integers(-128, 128, size=(1, 9, 11, 16)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(3, 3, 16, 64)).astype(np.int8))
+    w, zp = k8.pack_int8_weights(wq), k8.zero_point_correction(wq)
+    sw = torch.from_numpy(rng.uniform(0, 1e-3, size=64).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=64).astype(np.float32))
+    geo = ((2, 2), ((1, 1), (0, 2)), (1, 1))
+    return ((q, w.wt, zp, sw, bias, [3, 3], [2, 2], [1, 1, 0, 2], [1, 1], -128, True, dtype),
+            k8.int8_conv_plain(q, w.wt, zp, sw, bias, (3, 3), *geo, -128, True, dtype))
+
+
 def flash_case(rng, dtype):
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, n, 32)).astype(np.float32)).to(dtype)
                for n in (9, 13, 13))
@@ -174,7 +217,7 @@ def stem_case(rng, dtype):
 
 
 OPS = {"flash_attention": flash_case, "fused_bottleneck": bottleneck_case,
-       "fused_stem": stem_case}
+       "fused_stem": stem_case, "int8_conv": int8_conv_case}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

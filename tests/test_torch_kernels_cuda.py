@@ -667,3 +667,98 @@ def test_kernels_launch_on_their_operands_card(np_rng):
     for name in ("flash_attention", "fused_bottleneck", "fused_stem", "flash_train_fwd",
                  "flash_train_dq", "flash_train_dkv"):
         assert _kernels.launch_counts[name] == before[name] + 1, name
+
+
+# (B, H, W, Cin, KH, KW, Cout, stride, ((top, bottom), (left, right)), dilation,
+# pad value): the trunk's kinds at odd sizes (a ragged last block of pixels),
+# both stems, a dilated 3x3, asymmetric padding
+INT8_SHAPES = [
+    (2, 17, 23, 64, 1, 1, 64, 1, ((0, 0), (0, 0)), 1, -128),
+    (2, 17, 23, 64, 3, 3, 128, 1, ((1, 1), (1, 1)), 1, -128),
+    (1, 30, 41, 128, 3, 3, 128, 2, ((1, 1), (1, 1)), 1, -128),
+    (1, 13, 11, 512, 3, 3, 512, 1, ((2, 2), (2, 2)), 2, -128),
+    (1, 14, 15, 256, 1, 1, 1024, 2, ((0, 0), (0, 0)), 1, -128),
+    (2, 64, 96, 3, 7, 7, 64, 2, ((3, 3), (3, 3)), 1, 0),
+    (2, 32, 48, 12, 4, 4, 64, 1, ((2, 1), (2, 1)), 1, 0),
+    (1, 9, 10, 32, 3, 3, 64, 2, ((0, 2), (1, 0)), 1, 5),
+]
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_conv(cuda, dtype, relu, shape):
+    """K8 equals its plain version bit for bit: exact int32 sums, the
+    epilogue rounded as the plain version rounds it; zero points and bias
+    present on the block convs, absent on the stems."""
+    from future_od_tpu_torch.ops import int8_conv as k8
+
+    B, H, W, C, KH, KW, Co, s, p, d, pad = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape[:7]))
+    q = torch.randint(-128, 128, (B, H, W, C), dtype=torch.int8, device=cuda, generator=g)
+    wq = torch.randint(-127, 128, (KH, KW, C, Co), dtype=torch.int8, device=cuda, generator=g)
+    w = k8.pack_int8_weights(wq)
+    block = pad == -128
+    zp = k8.zero_point_correction(wq) if block else None
+    sw = torch.rand(Co, device=cuda, generator=g) * 1e-4
+    bias = torch.randn(Co, device=cuda, generator=g) if block else None
+    before = _kernels.launch_counts["int8_conv"]
+    out = k8.int8_conv_codes(q, w, zp, sw, bias, (s, s), p, (d, d), pad, relu, dtype)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["int8_conv"] == before + 1
+    ref = k8.int8_conv_plain(q, w.wt, zp, sw, bias, (KH, KW), (s, s), p, (d, d), pad, relu, dtype)
+    assert out.dtype == dtype and torch.equal(out, ref)
+
+
+def test_int8_conv_refuses(cuda):
+    from future_od_tpu_torch.ops import int8_conv as k8
+
+    q = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=cuda)
+    w = k8.pack_int8_weights(torch.ones((1, 1, 64, 96), dtype=torch.int8, device=cuda))
+    sw = torch.ones(96, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        k8.int8_conv_codes(q, w, None, sw, None, (1, 1), ((0, 0), (0, 0)), (1, 1), 0, False,
+                           torch.float32)
+    w = k8.pack_int8_weights(torch.ones((1, 1, 64, 64), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="aligned"):
+        k8.int8_conv_codes(q.flatten()[1:4097].view(1, 8, 8, 64), w, None, sw[:64], None,
+                           (1, 1), ((0, 0), (0, 0)), (1, 1), 0, False, torch.float32)
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_flagship_trunk_equals_plain(cuda, np_rng, monkeypatch, static):
+    """A narrow int8 flagship at 64x96: K8 launches 53 times a forward (the
+    trunk's convolutions), and the trunk's output equals the same forward's
+    with K8's plain version in its place, bit for bit; static after its
+    calibration equals dynamic."""
+    from future_od_tpu_torch.ops import int8_conv as k8
+    from future_od_tpu_torch.ops import quant
+    from future_od_tpu_torch.train.step import calibrate_int8
+
+    args = SpatioTemporalDETRArgs(num_classes=4, hidden_dim=64, enc_nheads=2, nheads=2,
+                                  enc_layers=1, dec_layers=1, dim_feedforward=96,
+                                  num_queries=8, dropout=0.0, int8_backbone=True,
+                                  int8_static=static)
+    model = build_flagship(args, device=cuda)
+    batch = {"video": np_rng.normal(size=(2, 3, 64, 96, 3)).astype(np.float32)}
+    for key, width in {"translation": 3, "acceleration": 3, "rotation": 4,
+                       "rotation_rate": 3, "speed": 1}.items():
+        batch[key] = np_rng.normal(size=(2, 3, width)).astype(np.float32)
+    if static:
+        calibrate_int8(model, [batch], device=cuda)
+    trunk = []
+    model._model.separate_encoder.backbone.body.register_forward_hook(
+        lambda m, a, out: trunk.append(out.clone()))
+    infer = make_inference_fn(model, device=cuda)
+    _kernels.reset_launch_counts()
+    infer(batch)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["int8_conv"] == 53
+
+    def plain(q, w, zp, sw, bias, strides, padding, dilation, pad_value, relu, out_dtype):
+        return k8.int8_conv_plain(q, w.wt, zp, sw, bias, w.kernel_hw, strides, padding,
+                                  dilation, pad_value, relu, out_dtype)
+
+    monkeypatch.setattr(quant, "int8_conv_codes", plain)
+    infer(batch)
+    assert torch.equal(trunk[0], trunk[1])

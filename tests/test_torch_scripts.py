@@ -136,6 +136,27 @@ def test_eval_script_on_a_fabricated_checkpoint(tiny_runs, script, encode_offset
     assert "val0" in trainer._ap_by_mode and trainer.step == 0
 
 
+def test_eval_script_int8(tiny_runs, monkeypatch):
+    """--int8 builds the eval script's model with the int8 PTQ backbone (as
+    the JAX runs/eval/_common.py does); its eval epoch runs every trunk
+    convolution through K8 (the op's plain version on the CPU), 53 calls a
+    forward, and gives the AP dict."""
+    from future_od_tpu_torch.ops import quant
+
+    calls = []
+    original = quant.int8_conv_codes
+    monkeypatch.setattr(quant, "int8_conv_codes",
+                        lambda *a, **k: calls.append(1) or original(*a, **k))
+    net = tiny_model(None, SpatioTemporalDETRArgs(num_classes=8)).state_dict()
+    path = save_checkpoint(str(tiny_runs / "fabricated"), "w6", {
+        "net": net, "net_type": "SpatioTemporalDETR", "detr_args": {}})
+    trainer = eval500.main(["--checkpoint", path, "--disable_wandb", "--int8"])
+    assert trainer._args.int8_backbone and not trainer._args.int8_static
+    assert trainer._model._model.separate_encoder.backbone.body.int8
+    assert calls and len(calls) % 53 == 0
+    assert "val0" in trainer._ap_by_mode and trainer.step == 0
+
+
 def tiny_builder(build):
     return lambda detr_args, use_imu=False: build(dataclasses.replace(detr_args, **TINY),
                                                   use_imu=use_imu, device="cpu")

@@ -291,5 +291,12 @@ class TestSpaceToDepthFlagship:
 
 @pytest.mark.parametrize("flag", ["int8_backbone", "int8_static"])
 def test_int8_backbone_not_built_silently(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build_flagship(SpatioTemporalDETRArgs(**TINY, **{flag: True}), device="cpu")
+    """The int8 flags build the int8 trunk (tests/test_torch_quant.py holds
+    it against JAX's), int8_static with its range buffers; never a float
+    trunk in their place."""
+    model = build_flagship(SpatioTemporalDETRArgs(**TINY, **{flag: True}), device="cpu")
+    body = model._model.separate_encoder.backbone.body
+    assert body.int8 and body.int8_static == (flag == "int8_static")
+    assert all(block.int8 for stage in (body.layer1, body.layer4) for block in stage)
+    ranges = [n for n, _ in model.named_buffers() if n.endswith("_amax")]
+    assert len(ranges) == (53 if flag == "int8_static" else 0)

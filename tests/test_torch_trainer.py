@@ -476,13 +476,16 @@ def script_args(**kw):
 @pytest.mark.parametrize("kw", [dict(mesh_model=2), dict(dist_coordinator="localhost:1"),
                                 dict(dist_process_id=0), dict(int8=True)])
 def test_get_trainer_refuses_unported_flags(kw):
-    """A run's start refuses --mesh_model > 1 (item 4b) and --int8 (item 6)
-    by name, and partial --dist_* flags with ValueError, as the JAX
-    package's distributed_config does; without the flags it starts one
-    process (no process group)."""
+    """A run's start refuses --mesh_model > 1 (item 4b) by name, and partial
+    --dist_* flags with ValueError, as the JAX package's distributed_config
+    does; --int8 (ported: the eval scripts' int8 backbone) starts as the JAX
+    run does; without the flags it starts one process (no process group)."""
     if "dist_coordinator" in kw or "dist_process_id" in kw:
         with pytest.raises(ValueError, match="partial distributed flags"):
             _helper.start_run(script_args(**kw))
+    elif "int8" in kw:
+        _helper.start_run(script_args(**kw))
+        assert not torch.distributed.is_initialized()
     else:
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item \d"):
             _helper.start_run(script_args(**kw))
