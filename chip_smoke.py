@@ -10,9 +10,11 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    (csrc/fused_bottleneck.cu), K3 (csrc/fused_stem.cu) and K4, K5 and K6
    (csrc/flash_attention_train.cu) run on the tensor cores: the SASS of each
    of their instantiations (cuobjdump) holds HMMA instructions, and that of
-   K8 (csrc/int8_conv.cu) IMMA, with its registers, shared memory and
-   spills (ptxas's report in the build log, and the runtime's, with the
-   resident blocks an SM).
+   K8's twelve (csrc/int8_conv.cu: the TMA kernel, the 16-byte and the byte
+   gather, tiles of 64 and 128 channels, f32 and bf16 out) IGMMA, wgmma's
+   int8 opcode, with its registers, shared memory and spills (ptxas's
+   report in the build log, and the runtime's, with the resident blocks an
+   SM).
 1. each kernel against its plain PyTorch version at the flagship's shapes,
    f32 (TF32 off for matmuls and cuDNN convs) and bf16: max abs error
    within the stated tolerance, the kernel's time, the plain version's, one
@@ -213,8 +215,9 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    or the one card listed twice) at phase 9's sizes, fused gates, against
    the unsharded ones within phase 3's tolerances; clips/s of each.
 11. the int8 PTQ backbone (ops/quant.py; every trunk convolution on K8,
-   csrc/int8_conv.cu, an implicit GEMM on mma.sync m16n8k32 s8 with int32
-   sums):
+   csrc/int8_conv.cu, an implicit GEMM on wgmma m64nNk32 s8 with int32 sums,
+   the stride-1 1x1s fed by TMA; each input's range and codes by K9,
+   csrc/int8_quantize.cu):
    11a. K8 against its plain version (a float64 convolution of the codes,
    exact) at every distinct convolution of the flagship's trunk on 4 frames
    at 896x1600 (the 7x7/2 stem, the s2d 4x4 stem, each stage's 1x1, 3x3,
@@ -223,30 +226,41 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    torch._int_mm's ms on the stride-1 1x1s (the same int8 product; the
    faster of the weights row-major and column-major) and the bound at the
    int8 dense peak (1979 TOPS) or the bytes (the codes the windows read);
-   per forward, the 53 launches' sums.
+   K8's and _int_mm's device ms under torch.profiler beside the paced ms;
+   per forward, the 53 launches' sums. K9 at every distinct convolution
+   input (post-ReLU on a block, signed on a stem), f32 and bf16: its range
+   (of |x| and of x) and its codes bit-equal to their plain versions; ms,
+   device ms, plain ms, the bytes bound, and the range's one-call yardstick
+   (torch.linalg.vector_norm(x, inf, dim=(0, 1, 2))); per forward, K9's 49
+   range passes and 53 quantizations.
    11b. the dynamic int8 flagship (phase 2's weights, int8_backbone) through
-   make_inference_fn: K8 53 and K1 6 launches a forward (K8 33, K2 6, K3 1
-   under the fused gates); the trunk's output bit-equal to the same forward
-   with K8's plain version in the kernel's place, the encoder, decoder,
-   scores and boxes within phase 3's tolerances of it; outputs finite;
-   request ms in f32, fused f32 and bf16 beside phases 2-3's; the int8
-   features' and scores' gap to the float forward (reported: random
-   weights).
+   make_inference_fn: K8 53, K9 49 + 53 and K1 6 launches a forward (K8
+   33, K9 30 + 33, K2 6, K3 1 under the fused gates); the trunk's output
+   bit-equal to the same forward with K8's and K9's plain versions in the
+   kernels' places, the encoder, decoder, scores and boxes within phase 3's
+   tolerances of it; outputs finite; request ms in f32, fused f32 and bf16
+   beside phases 2-3's; the backbone's device ms split by part (K8, the
+   ranges, the quantization, the weights' smoothing and quantization, the
+   residual add and relu, layout copies; future_od_tpu_torch/tools/
+   int8_split.py) in f32 and
+   bf16; the int8 features' and scores' gap to the float forward (reported:
+   random weights).
    11c. the static int8 flagship (int8_static): refused before calibration,
    calibrated on the request's batch (calibrate_int8), then bit-equal to
    the dynamic path on it (trunk, scores, boxes); on another batch its gap
-   to float (reported); calibration and request ms. The same built under
+   to float (reported); calibration and request ms, K9's 53 quantizations
+   and no range pass a forward, the backbone's split. The same built under
    the fused gates: range buffers only for the 33 int8 convolutions,
    refused, calibrated, then the fused launches and bit-equal to dynamic.
    11d. StreamingSession with the static and the dynamic int8 model over
    phase 9a's 12 streams: clips/s beside phase 9a's f32 default, the static
    session's output against its batch path within phase 9's tolerances;
    `export_inference` of the dynamic int8 model, loaded from its bytes:
-   bit-equal to eager, K8 53 launches; the flagship's eval script
+   bit-equal to eager, K8 53 and K9 49 + 53 launches; the flagship's eval script
    (`...runs.eval.nusc_500ms_attendprev_decoder_eval --synthetic --int8`) on
    a checkpoint of a random flagship with nuScenes' 8 classes (phase 6's has
    the synthetic data's 2, which the eval scripts' model does not take): K8
-   53 launches an eval batch, its AP dict.
+   53 and K9 49 + 53 launches an eval batch, its AP dict.
 4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's,
    6b's, 8's, 9's, 10's and 11's runs), then the device JSON line, last.
 
@@ -263,6 +277,7 @@ repo.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -312,7 +327,8 @@ TOP_KERNELS = 8
 # the port's kernels on the serving and training paths, as the profiler names them
 PORT_KERNEL_NAMES = ("flash_attention_kernel", "fused_bottleneck_kernel", "fused_stem_kernel",
                      "train_fwd_kernel", "train_dq_kernel", "train_dkv_kernel",
-                     "int8_conv_kernel")
+                     "int8_gemm_tma_kernel", "int8_conv_gather_kernel",
+                     "channel_range_kernel", "quantize_kernel", "quantize_channels_kernel")
 # Training: bench_train.py's stage-1 config (448x800, 3 frames, 256 target
 # slots) at batch 4 instead of 32.
 TRAIN_BATCH, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS, TRAIN_STEPS = 4, 448, 800, 256, 5
@@ -511,11 +527,22 @@ FUSED_LAUNCHES = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1}
 # two devices.
 # Phase 11, the int8 PTQ backbone: K8's launches a forward (the stem, 16
 # blocks x 3, 4 downsamples) and under the fused gates (K2 takes layer1's and
-# layer2's stride-1 blocks, K3 the stem: 20 convolutions); the int8 dense
-# peak of one H100 SXM (NVIDIA data sheet); the timing target a call kind.
+# layer2's stride-1 blocks, K3 the stem: 20 convolutions); K9's: a range pass
+# a dynamic convolution but the downsamples (each shares its block's conv1's:
+# 49, 30 fused), a quantization each; the int8 dense peak of one H100 SXM
+# (NVIDIA data sheet); the timing target a call kind.
 INT8_LAUNCHES = 53
+INT8_RANGE_LAUNCHES = 49
 INT8_FUSED_LAUNCHES = {"flash_attention": 6, "fused_bottleneck": 6, "fused_stem": 1,
-                       "int8_conv": 33}
+                       "int8_conv": 33, "int8_channel_range": 30, "int8_quantize": 33}
+INT8_DYNAMIC_LAUNCHES = {"flash_attention": 6, "int8_conv": INT8_LAUNCHES,
+                         "int8_channel_range": INT8_RANGE_LAUNCHES,
+                         "int8_quantize": INT8_LAUNCHES}
+INT8_STATIC_LAUNCHES = {k: n for k, n in INT8_DYNAMIC_LAUNCHES.items()
+                        if k != "int8_channel_range"}
+INT8_STATIC_FUSED_LAUNCHES = {k: n for k, n in INT8_FUSED_LAUNCHES.items()
+                              if k != "int8_channel_range"}
+INT8_KERNELS = ("int8_conv", "int8_channel_range", "int8_quantize")  # K8, K9's two
 PEAK_INT8 = 1979e12
 INT8_TIME_S = 0.1
 INT8_EVAL_SCRIPT = "future_od_tpu_torch.runs.eval.nusc_500ms_attendprev_decoder_eval"
@@ -617,11 +644,11 @@ def flash_bound(torch, ops: float, nbytes: float, exps: float, dtype: str):
 def tensor_core_report(lib_name: str, kernel: str, instantiations: int, resources: dict,
                        op: str = "HMMA"):
     """Phase 0's proof that a kernel runs on the tensor cores: `op`
-    instructions (HMMA, or IMMA for int8) in the SASS of each instantiation
-    of `kernel` in library `lib_name`, with ptxas's registers and spills
-    from the build log and `resources` (the runtime's, from the kernel's
-    info query). Raises unless there are `instantiations` of them, each
-    with `op`."""
+    instructions (HMMA, or IGMMA for int8 wgmma) in the SASS of each
+    instantiation of `kernel` in library `lib_name`, with ptxas's registers
+    and spills from the build log and `resources` (the runtime's, from the
+    kernel's info query). Raises unless there are `instantiations` of them,
+    each with `op`."""
     import re
     from pathlib import Path
 
@@ -635,7 +662,8 @@ def tensor_core_report(lib_name: str, kernel: str, instantiations: int, resource
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
         if kernel in name:
-            counts[name] = {o: part.count(o) for o in (op, "MUFU.EX2", "LDSM", "LDGSTS")}
+            counts[name] = {o: part.count(o) for o in (op, "MUFU.EX2", "LDSM", "LDGSTS", "UTMALDG",
+                                                       "UTMASTG")}
     if len(counts) != instantiations or not all(c[op] for c in counts.values()):
         raise AssertionError(f"{kernel}'s SASS: {counts}; want {op} in each of "
                              f"{instantiations} instantiations")
@@ -689,14 +717,17 @@ def k3_tensor_core_report():
 
 
 def k8_tensor_core_report():
-    """K8: both output dtypes x the two gathers (16-byte, byte), on IMMA."""
+    """K8: both output dtypes x both tile widths x its three kernels (the TMA
+    GEMM, the 16-byte and the byte gather), on the int8 warpgroup MMA
+    (IGMMA, wgmma's SASS)."""
     import torch
 
     from future_od_tpu_torch.ops import int8_conv as k8
 
-    resources = {f"{dt} {'vector' if vec else 'byte'} gather": k8.int8_conv_info(
-        getattr(torch, dt), vec) for dt in ("float32", "bfloat16") for vec in (True, False)}
-    return tensor_core_report(k8.NAME, "int8_conv_kernel", 4, resources, op="IMMA")
+    resources = {f"{dt} {variant} n{bn}": k8.int8_conv_info(getattr(torch, dt), variant, bn)
+                 for dt in ("float32", "bfloat16") for variant in k8.VARIANTS
+                 for bn in (64, 128)}
+    return tensor_core_report(k8.NAME, "int8_", 4 * len(k8.VARIANTS), resources, op="IGMMA")
 
 
 def train_tensor_core_report():
@@ -739,6 +770,21 @@ def device_us(torch, fn, calls: int = 20, sessions: int = 3) -> float:
         if total > 0:
             return total / calls
     raise AssertionError(f"the profiler saw no device time in {sessions} sessions")
+
+
+def add_or_none(total, value):
+    """total + value, None once either is None (a number not measured)."""
+    return None if total is None or value is None else total + value
+
+
+def device_ms_or_none(torch, fn, calls: int = 10):
+    """Phase 11's device ms a call (device_us), or None where the profiler
+    saw no device activity in its sessions (it has, once, after phase 10
+    in the same process): a reported number, not a gate."""
+    try:
+        return device_us(torch, fn, calls=calls) / 1e3
+    except AssertionError:
+        return None
 
 
 def host_us(torch, fn, calls: int = 100) -> float:
@@ -3755,9 +3801,10 @@ def k8_phase(torch, dev):
     s2d = int8_trunk_convs(ResNet(space_to_depth=True), HEIGHT, WIDTH, frames)[:1]
     shapes = distinct_convs(trunk)
     shapes.update({k: (c, 0) for k, (c, _) in distinct_convs(s2d).items()})
-    records, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "yardstick_ms": 0.0,
-                           "int_mm_ms": 0.0, "ms_on_int_mm_convs": 0.0, "ops": 0, "bytes": 0,
-                           "int_mm_convs": 0}
+    records, totals = [], {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                           "yardstick_ms": 0.0, "int_mm_ms": 0.0, "ms_on_int_mm_convs": 0.0,
+                           "int_mm_device_ms": 0.0, "device_ms_on_int_mm_convs": 0.0,
+                           "ops": 0, "bytes": 0, "int_mm_convs": 0}
     for i, (c, count) in enumerate(shapes.values()):
         x = k8_case(torch, c, i, dev)
         geometry = (c["stride"], c["padding"], c["dilation"], c["pad_value"], False)
@@ -3778,6 +3825,7 @@ def k8_phase(torch, dev):
             errs[str(dt).split(".")[1]] = 0.0
             del out, ref
         ms = time_ms(torch, lambda: kernel(torch.float32), INT8_TIME_S)
+        device_ms = device_ms_or_none(torch, lambda: kernel(torch.float32))
         plain_ms = time_ms(torch, lambda: plain(torch.float32), INT8_TIME_S)
         pad = c["padding"]  # cuDNN's input padded beforehand, channels-last
         xc = F.pad(x["q"].to(torch.bfloat16).permute(0, 3, 1, 2),
@@ -3787,7 +3835,7 @@ def k8_phase(torch, dev):
             memory_format=torch.channels_last)
         yard_ms = time_ms(torch, lambda: F.conv2d(xc, wc, stride=c["stride"],
                                                   dilation=c["dilation"]), INT8_TIME_S)
-        int_mm_ms = int_mm_layouts = None
+        int_mm_ms = int_mm_layouts = int_mm_device_ms = None
         if c["kernel"] == (1, 1) and c["stride"] == (1, 1):
             a = x["q"].reshape(-1, c["Cin"])
             b_row = x["wq"].reshape(c["Cin"], c["Cout"])
@@ -3796,15 +3844,16 @@ def k8_phase(torch, dev):
                 layout: time_ms(torch, lambda b=b: torch._int_mm(a, b), INT8_TIME_S)
                 for layout, b in (("row_major", b_row), ("column_major", b_col))}
             int_mm_ms = min(int_mm_layouts.values())
+            int_mm_device_ms = device_ms_or_none(torch, lambda: torch._int_mm(a, b_col))
         ops, nbytes = k8.int8_conv_cost(c["B"], c["H"], c["W"], c["Cin"], c["Cout"],
                                         c["kernel"], c["stride"], c["padding"], c["dilation"], 4)
         t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
         rec = {"shape": c["name"], "per_forward": count, "B": c["B"], "H": c["H"], "W": c["W"],
                "Cin": c["Cin"], "Cout": c["Cout"], "kernel": list(c["kernel"]),
                "stride": c["stride"][0], "dilation": c["dilation"][0],
-               "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": errs, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                "yardstick_cudnn_bf16_ms": yard_ms, "int_mm_ms": int_mm_ms,
-               "int_mm_ms_by_b_layout": int_mm_layouts,
+               "int_mm_ms_by_b_layout": int_mm_layouts, "int_mm_device_ms": int_mm_device_ms,
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "ops": ops, "bytes": nbytes, "tops": ops / ms / 1e9}
@@ -3812,9 +3861,14 @@ def k8_phase(torch, dev):
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", rec["bound_ms"]),
                            ("yardstick_ms", yard_ms), ("ops", ops), ("bytes", nbytes)):
             totals[key] += count * value
+        totals["device_ms"] = add_or_none(totals["device_ms"], device_ms and count * device_ms)
         if int_mm_ms is not None:
             totals["int_mm_ms"] += count * int_mm_ms
             totals["ms_on_int_mm_convs"] += count * ms
+            totals["int_mm_device_ms"] = add_or_none(totals["int_mm_device_ms"],
+                                                     int_mm_device_ms and count * int_mm_device_ms)
+            totals["device_ms_on_int_mm_convs"] = add_or_none(
+                totals["device_ms_on_int_mm_convs"], device_ms and count * device_ms)
             totals["int_mm_convs"] += count
         del x, xc, wc
         torch.cuda.empty_cache()
@@ -3824,6 +3878,101 @@ def k8_phase(torch, dev):
     if totals["launches_per_forward"] != INT8_LAUNCHES:
         raise AssertionError(f"11a: {totals['launches_per_forward']} trunk convolutions, want "
                              f"{INT8_LAUNCHES}")
+    return records, totals
+
+
+def k9_phase(torch, dev):
+    """Phase 11a, K9: at every distinct convolution input of the trunk (4
+    frames at 896x1600, both stems; post-ReLU with channels of spread scales
+    and a dead one on a block, signed on a stem), f32 and bf16: the range
+    (|x|, and x itself) and the quantization (by the dynamic path's m and
+    scale from random weights) bit-equal to their plain versions; f32 ms of
+    both, of their plain versions and of the range's one-call yardstick
+    (`torch.linalg.vector_norm(x, inf, dim=(0, 1, 2))`), and the bytes
+    bound. Returns (records, per-forward totals of both entry points)."""
+    from future_od_tpu_torch.models.resnet import ResNet
+    from future_od_tpu_torch.ops import int8_quantize as k9
+    from future_od_tpu_torch.ops.quant import static_smooth_and_scale
+
+    frames = BATCH * (FRAMES - 1)
+    inputs = {}
+    for convs, counted in ((int8_trunk_convs(ResNet(), HEIGHT, WIDTH, frames), 1),
+                           (int8_trunk_convs(ResNet(space_to_depth=True), HEIGHT, WIDTH,
+                                             frames)[:1], 0)):
+        for c in convs:
+            key = (c["B"], c["H"], c["W"], c["Cin"], c["pad_value"] == -128)
+            rec = inputs.setdefault(key, {"conv": c, "ranges": 0, "quantizations": 0})
+            rec["ranges"] += counted * ("downsample" not in c["name"])
+            rec["quantizations"] += counted
+    records = []
+    totals = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0,
+                     "ops": 0, "bytes": 0, "launches_per_forward": 0}
+              for name in (k9.RANGE, k9.QUANTIZE)}
+    for i, ((B, H, W, C, zero_point), rec) in enumerate(inputs.items()):
+        c = rec["conv"]
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        x32 = torch.randn((B, H, W, C), device=dev, generator=g)
+        if zero_point:
+            x32 = torch.relu(x32) * (torch.rand(C, device=dev, generator=g) * 2.9 + 0.1)
+            x32[..., 0] = 0.0
+        kernel = torch.randn(c["kernel"] + (C, c["Cout"]), device=dev, generator=g) * 0.1
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            for absolute in (True, False):
+                out, ref = k9.channel_range(x, absolute), k9.channel_range_plain(x, absolute)
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"11a K9 range {c['name']} {dt} absolute={absolute}: "
+                                         "differs from its plain version")
+            m, amax = static_smooth_and_scale(k9.channel_range(x), kernel)
+            scale = torch.clamp_min(amax, 1e-12) / (255.0 if zero_point else 127.0)
+            q = k9.quantize_codes(x, m, scale, zero_point)
+            if not torch.equal(q, k9.quantize_codes_plain(x, m, scale, zero_point)):
+                raise AssertionError(f"11a K9 quantize {c['name']} {dt}: differs from its plain "
+                                     "version")
+            del q
+        x = x32
+        m, amax = static_smooth_and_scale(k9.channel_range(x), kernel)
+        scale = torch.clamp_min(amax, 1e-12) / (255.0 if zero_point else 127.0)
+        timed = {
+            k9.RANGE: (lambda: k9.channel_range(x), lambda: k9.channel_range_plain(x),
+                       lambda: torch.linalg.vector_norm(x, float("inf"), dim=(0, 1, 2)),
+                       k9.range_cost(x), rec["ranges"]),
+            k9.QUANTIZE: (lambda: k9.quantize_codes(x, m, scale, zero_point),
+                          lambda: k9.quantize_codes_plain(x, m, scale, zero_point), None,
+                          k9.quantize_cost(x), rec["quantizations"]),
+        }
+        row = {"input": c["name"], "B": B, "H": H, "W": W, "C": C,
+               "zero_point": zero_point, "max_abs_err": 0.0}
+        for name, (kernel_fn, plain_fn, library_fn, (ops, nbytes), count) in timed.items():
+            t_ops, t_bytes = ops / PEAK_OPS["float32"], nbytes / PEAK_BYTES
+            part = {"per_forward": count, "ms": time_ms(torch, kernel_fn, INT8_TIME_S),
+                    "device_ms": device_ms_or_none(torch, kernel_fn),
+                    "plain_ms": time_ms(torch, plain_fn, INT8_TIME_S),
+                    "library_ms": None if library_fn is None else time_ms(torch, library_fn,
+                                                                          INT8_TIME_S),
+                    "bound_ms": 1e3 * max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "ops": ops, "bytes": nbytes}
+            part["gb_per_s"] = nbytes / part["ms"] / 1e6
+            row[name] = part
+            tot = totals[name]
+            for key in ("ms", "plain_ms", "bound_ms", "ops", "bytes"):
+                tot[key] += count * part[key]
+            tot["device_ms"] = add_or_none(tot["device_ms"],
+                                           part["device_ms"] and count * part["device_ms"])
+            tot["library_ms"] = (None if part["library_ms"] is None or tot["library_ms"] is None
+                                 else tot["library_ms"] + count * part["library_ms"])
+            tot["launches_per_forward"] += count
+        records.append(row)
+        del x, x32, kernel
+        torch.cuda.empty_cache()
+    for name, tot in totals.items():
+        t_ops, t_bytes = tot["ops"] / PEAK_OPS["float32"], tot["bytes"] / PEAK_BYTES
+        tot["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    if (totals[k9.RANGE]["launches_per_forward"] != INT8_RANGE_LAUNCHES
+            or totals[k9.QUANTIZE]["launches_per_forward"] != INT8_LAUNCHES):
+        raise AssertionError(f"11a: K9's launches a forward {totals}")
     return records, totals
 
 
@@ -3862,6 +4011,18 @@ def rel_norm(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
+def int8_backbone_split(torch, model, infer, batch) -> dict:
+    """The backbone's device ms by part of one profiled request
+    (future_od_tpu_torch/tools/int8_split.py), or why it was not measured
+    (the profiler saw no K8 kernel: a reported number, not a gate)."""
+    from future_od_tpu_torch.tools.int8_split import int8_backbone_split as split
+
+    try:
+        return split(model, infer, batch)
+    except AssertionError as e:
+        return {"not_measured": str(e)}
+
+
 def plain_k8(quant, k8):
     """quant.int8_conv_codes with K8's plain version in the kernel's place."""
     def run(q, w, zp, sw, bias, strides, padding, dilation, pad_value, relu, out_dtype):
@@ -3870,18 +4031,37 @@ def plain_k8(quant, k8):
     return run
 
 
+@contextlib.contextmanager
+def plain_int8_kernels(quant):
+    """Within it, ops/quant.py runs K8's and K9's plain versions in the
+    kernels' places."""
+    from future_od_tpu_torch.ops import int8_conv as k8
+    from future_od_tpu_torch.ops import int8_quantize as k9
+
+    swaps = {"int8_conv_codes": plain_k8(quant, k8), "channel_range": k9.channel_range_plain,
+             "quantize_codes": k9.quantize_codes_plain}
+    originals = {name: getattr(quant, name) for name in swaps}
+    for name, fn in swaps.items():
+        setattr(quant, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(quant, name, fn)
+
+
 def int8_request_phase(torch, batch, phase2_s, phase3_bf16_s):
     """Phase 11b: the dynamic int8 flagship (phase 2's weights) through
-    make_inference_fn: K8 53 and K1 6 launches a forward (K8 33, K2 6, K3 1
-    under the fused gates); the trunk bit-equal to the same forward with
-    K8's plain version in its place, the encoder, decoder, scores and boxes
-    within phase 3's gates of it; f32 and bf16 request ms; the int8
+    make_inference_fn: K8 53, K9 49 + 53 and K1 6 launches a forward
+    (INT8_DYNAMIC_LAUNCHES; INT8_FUSED_LAUNCHES under the fused gates); the
+    trunk bit-equal to the same forward with K8's and K9's plain versions in
+    their places, the encoder, decoder, scores and boxes within phase 3's
+    gates of it; f32 and bf16 request ms and the backbone's split; the int8
     features' and scores' gap to the float forward (random weights:
-    reported only). Returns (record, the f32 model's launches, the model)."""
+    reported only). Returns (record, the f32 model's launches)."""
     from future_od_tpu_torch.models.build import build_flagship
     from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
     from future_od_tpu_torch.ops import _kernels, quant
-    from future_od_tpu_torch.ops import int8_conv as k8
     from future_od_tpu_torch.train.step import make_inference_fn
 
     args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, int8_backbone=True)
@@ -3894,31 +4074,30 @@ def int8_request_phase(torch, batch, phase2_s, phase3_bf16_s):
     _kernels.reset_launch_counts()
     out, seconds = forward(torch, infer, batch, REQUESTS)
     counts = launched(_kernels)
-    want = {"flash_attention": 6 * REQUESTS, "int8_conv": INT8_LAUNCHES * REQUESTS}
+    want = {k: n * REQUESTS for k, n in INT8_DYNAMIC_LAUNCHES.items()}
     if counts != want:
         raise AssertionError(f"11b int8 default gates: launches {counts}, want {want}")
     check_output(torch, out, args.num_queries, args.num_classes)
     trunk, features, values = tap.values["trunk"], tap.values["features"], dict(taps.values)
     record["f32"] = {"request_s": seconds, "stage_ms": taps.stage_ms(), "launches": counts,
-                     "phase2_float_request_s": phase2_s}
+                     "phase2_float_request_s": phase2_s,
+                     "backbone_split": int8_backbone_split(torch, model, infer, batch)}
 
-    original = quant.int8_conv_codes
-    quant.int8_conv_codes = plain_k8(quant, k8)
-    try:
+    with plain_int8_kernels(quant):
         _kernels.reset_launch_counts()
         plain = infer(batch)
         torch.cuda.synchronize()
-    finally:
-        quant.int8_conv_codes = original
-    if _kernels.launch_counts["int8_conv"]:
-        raise AssertionError("11b: the plain-K8 forward launched K8")
+    if any(_kernels.launch_counts[k] for k in ("int8_conv", "int8_channel_range",
+                                               "int8_quantize")):
+        raise AssertionError("11b: the plain-K8-K9 forward launched K8 or K9")
     if not torch.equal(trunk, tap.values["trunk"]):
-        raise AssertionError("11b: the int8 trunk differs from the one through K8's plain "
-                             "version")
+        raise AssertionError("11b: the int8 trunk differs from the one through K8's and K9's "
+                             "plain versions")
     diffs = fused_vs_plain(values, out, taps.values, plain)
     if not all(diffs[k] <= PHASE3_TOLS[k] for k in PHASE3_TOLS):
-        raise AssertionError(f"11b: outputs through K8 differ from the plain-K8 forward {diffs}")
-    record["vs_plain_k8"] = {"trunk_equal": True, **diffs, "tolerances": PHASE3_TOLS}
+        raise AssertionError(f"11b: outputs through K8 and K9 differ from the plain forward "
+                             f"{diffs}")
+    record["vs_plain_k8_k9"] = {"trunk_equal": True, **diffs, "tolerances": PHASE3_TOLS}
 
     set_int8(torch, model, int8=False)
     float_out = infer(batch)
@@ -3952,6 +4131,7 @@ def int8_request_phase(torch, batch, phase2_s, phase3_bf16_s):
     check_output(torch, bf16, args.num_queries, args.num_classes)
     record["bf16"] = {"request_s": bf16_s, "stage_ms": taps.stage_ms(), "launches": counts_bf16,
                       "phase3_float_bf16_fused_request_s": phase3_bf16_s,
+                      "backbone_split": int8_backbone_split(torch, model, infer, batch),
                       "score_diff_vs_f32": (bf16["class_scores"].float()
                                             - out["class_scores"]).abs().max().item()}
     set_gates()
@@ -3988,9 +4168,10 @@ def int8_static_phase(torch, batch):
     _kernels.reset_launch_counts()
     static, static_s = forward(torch, infer, batch, REQUESTS)
     counts = launched(_kernels)
-    want = {"flash_attention": 6 * REQUESTS, "int8_conv": INT8_LAUNCHES * REQUESTS}
+    want = {k: n * REQUESTS for k, n in INT8_STATIC_LAUNCHES.items()}
     if counts != want:
         raise AssertionError(f"11c static: launches {counts}, want {want}")
+    split = int8_backbone_split(torch, model, infer, batch)
     check_output(torch, static, args.num_queries, args.num_classes)
     trunk_static = tap.values["trunk"]
     set_int8(torch, model, static=False)
@@ -4007,7 +4188,8 @@ def int8_static_phase(torch, batch):
     torch.cuda.synchronize()
     set_int8(torch, model, int8=True)
     record = {"calibrate_s": calibrate_s, "request_s": static_s, "dynamic_request_s": dynamic_s,
-              "launches": counts, "equal_to_dynamic_on_calibration_batch": True,
+              "launches": counts, "backbone_split": split,
+              "equal_to_dynamic_on_calibration_batch": True,
               "other_batch_vs_float": {
                   "trunk_rel_norm": rel_norm(trunk_other, tap.values["trunk"]),
                   "score_max_abs": (static_other["class_scores"]
@@ -4054,8 +4236,9 @@ def static_fused_check(torch, args, model, batch) -> dict:
     _kernels.reset_launch_counts()
     static, _ = forward(torch, infer, batch, 1)
     counts = launched(_kernels)
-    if counts != INT8_FUSED_LAUNCHES:
-        raise AssertionError(f"11c fused gates: launches {counts}, want {INT8_FUSED_LAUNCHES}")
+    if counts != INT8_STATIC_FUSED_LAUNCHES:
+        raise AssertionError(f"11c fused gates: launches {counts}, want "
+                             f"{INT8_STATIC_FUSED_LAUNCHES}")
     set_int8(torch, fused, static=False)
     dynamic = infer(batch)
     torch.cuda.synchronize()
@@ -4091,6 +4274,10 @@ def int8_serving_phase(torch, static_model, batch, phase9_clips_per_s):
     from future_od_tpu_torch.utils.checkpoint import save_checkpoint
 
     record, k8_launches = {}, {}
+
+    def int8_counts():
+        return {k: _kernels.launch_counts[k] for k in INT8_KERNELS}
+
     stream = make_stream(10, SERVE_STREAMS, SERVE_STREAM_FRAMES)
     set_gates()
     session = StreamingSession(static_model, clip_frames=FRAMES)
@@ -4101,12 +4288,12 @@ def int8_serving_phase(torch, static_model, batch, phase9_clips_per_s):
     _kernels.reset_launch_counts()
     record["session static"] = session_throughput(torch, static_model, stream)
     record["session static"]["vs_batch_path"] = gaps
-    k8_launches["11d session static"] = _kernels.launch_counts["int8_conv"]
+    k8_launches["11d session static"] = int8_counts()
     del session
     set_int8(torch, static_model, static=False)
     _kernels.reset_launch_counts()
     record["session dynamic"] = session_throughput(torch, static_model, stream)
-    k8_launches["11d session dynamic"] = _kernels.launch_counts["int8_conv"]
+    k8_launches["11d session dynamic"] = int8_counts()
     record["phase9a_f32_default_session_clips_per_s"] = phase9_clips_per_s
     del stream
 
@@ -4122,11 +4309,12 @@ def int8_serving_phase(torch, static_model, batch, phase9_clips_per_s):
         got = program(dev_batch)
     torch.cuda.synchronize()
     counts = launched(_kernels)
-    if counts != {"flash_attention": 6, "int8_conv": INT8_LAUNCHES}:
-        raise AssertionError(f"11d int8 artifact: launches {counts}")
+    if counts != INT8_DYNAMIC_LAUNCHES:
+        raise AssertionError(f"11d int8 artifact: launches {counts}, want "
+                             f"{INT8_DYNAMIC_LAUNCHES}")
     if not all(torch.equal(got[k], eager[k]) for k in ("class_scores", "boxes")):
         raise AssertionError("11d: the int8 artifact differs from eager")
-    k8_launches["11d artifact"] = counts["int8_conv"]
+    k8_launches["11d artifact"] = {k: counts[k] for k in INT8_KERNELS}
     record["artifact"] = {"equal_to_eager": True, "export_s": export_s,
                           "blob_mb": len(blob) / 1e6, "launches": counts}
     del program, blob
@@ -4147,9 +4335,9 @@ def int8_serving_phase(torch, static_model, batch, phase9_clips_per_s):
         step = make_eval_step(*a, **kw)
 
         def run(data):
-            before = _kernels.launch_counts["int8_conv"]
+            before = int8_counts()
             out = step(data)
-            eval_launches.append(_kernels.launch_counts["int8_conv"] - before)
+            eval_launches.append({k: n - before[k] for k, n in int8_counts().items()})
             return out
         return run
 
@@ -4171,13 +4359,15 @@ def int8_serving_phase(torch, static_model, batch, phase9_clips_per_s):
         trainer_module.make_eval_step = make_eval_step
     if not trainer._args.int8_backbone:
         raise AssertionError("11d: --int8 did not reach the eval model")
-    if not eval_launches or any(n != INT8_LAUNCHES for n in eval_launches):
-        raise AssertionError(f"11d eval: K8 launches a batch {eval_launches}, want "
-                             f"{INT8_LAUNCHES}")
+    want = {k: INT8_DYNAMIC_LAUNCHES[k] for k in INT8_KERNELS}
+    if not eval_launches or any(n != want for n in eval_launches):
+        raise AssertionError(f"11d eval: K8's and K9's launches a batch {eval_launches}, "
+                             f"want {want}")
     if len(aps) != 1:
         raise AssertionError(f"11d eval: {len(aps)} AP aggregations")
     check_ap(aps[0], args.num_classes)
-    k8_launches["11d eval script"] = sum(eval_launches)
+    k8_launches["11d eval script"] = {k: sum(n[k] for n in eval_launches)
+                                      for k in INT8_KERNELS}
     record["eval script"] = {"script": INT8_EVAL_SCRIPT, "run_s": run_s,
                              "batches": len(eval_launches),
                              "val0_ap": {k: v.tolist() for k, v in aps[0].items()
@@ -4189,11 +4379,16 @@ def int8_serving_phase(torch, static_model, batch, phase9_clips_per_s):
 
 def int8_phase(torch, batch, phase2_s, phase3_bf16_s, phase9_clips_per_s, dev=None):
     """Phase 11, the int8 PTQ backbone: 11a-11d (11a's tensors on dev,
-    default the card). Returns K8's kernels-line row."""
+    default the card). Returns the kernels-line rows of K8 and of K9's two
+    entry points."""
     t0 = time.perf_counter()
     shapes, totals = k8_phase(torch, dev or torch.device("cuda"))
     log("11a-k8-vs-plain", ok=True, card=gpu_name_and_power(), totals=totals, shapes=shapes,
         seconds=time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    k9_records, k9_totals = k9_phase(torch, dev or torch.device("cuda"))
+    log("11a-k9-vs-plain", ok=True, card=gpu_name_and_power(), totals=k9_totals,
+        inputs=k9_records, seconds=time.perf_counter() - t1)
     t1 = time.perf_counter()
     request, main_counts = int8_request_phase(torch, batch, phase2_s, phase3_bf16_s)
     log("11b-int8-request", ok=True, card=gpu_name_and_power(), **request,
@@ -4214,22 +4409,54 @@ def int8_phase(torch, batch, phase2_s, phase3_bf16_s, phase9_clips_per_s, dev=No
         "replaces": "future_od_tpu/ops/quant.py:99 and :121 (XLA's int8 convolution, "
                     "lax.conv_general_dilated with int32 sums; not a Pallas kernel)",
         "launches": main_counts["int8_conv"], "max_abs_err": 0.0,
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+        "ms": totals["ms"], "device_ms": totals["device_ms"],
+        "ms_is": "paced: back-to-back calls timed by CUDA events (the host's pace where it is "
+                 "slower); device_ms the kernel's CUDA time under torch.profiler",
+        "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
         "bound_by": totals["bound_by"], "library_ms": None,
         "library_is": "none: no PyTorch call computes an int8 convolution",
         "yardstick_ms": totals["yardstick_ms"],
         "yardstick_is": "cuDNN's bf16 convolutions of the same 53 shapes, channels-last",
         "int_mm_ms": totals["int_mm_ms"], "ms_on_int_mm_convs": totals["ms_on_int_mm_convs"],
         "int_mm_convs": totals["int_mm_convs"],
+        "int_mm_device_ms": totals["int_mm_device_ms"],
+        "device_ms_on_int_mm_convs": totals["device_ms_on_int_mm_convs"],
         "int_mm_is": "torch._int_mm (cuBLAS int8 GEMM) on the stride-1 1x1 convolutions, "
                      "the same int32 product without the epilogue, the faster of the weights "
                      "row-major and column-major",
         "per": f"one forward's {INT8_LAUNCHES} launches, {BATCH * (FRAMES - 1)} frames at "
                f"{HEIGHT}x{WIDTH}, f32 out",
-        "phase11_launches": {"11b f32 default": main_counts["int8_conv"], **k8_launches},
+        "phase11_launches": {"11b f32 default": main_counts["int8_conv"],
+                             **{k: n["int8_conv"] for k, n in k8_launches.items()}},
         "calls": shapes,
     }
-    return row
+    k9_replaces = ("future_od_tpu/ops/quant.py:44-80, 91-93, 157-158, 300-301 (the "
+                   "activations' ranges and quantization, which XLA fuses into its int8 "
+                   "convolutions; not a Pallas kernel)")
+    rows = [row]
+    for name, what in (("int8_channel_range", "the per-channel range of each dynamic "
+                                              "convolution's input (a block's conv1 and "
+                                              "downsample share one)"),
+                       ("int8_quantize", "the codes of each convolution's input")):
+        tot = k9_totals[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "future_od_tpu_torch/csrc/int8_quantize.cu", "replaces": k9_replaces,
+            "launches": main_counts[name], "max_abs_err": 0.0,
+            **{k: tot[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "library_is": ("torch.linalg.vector_norm(x, inf, dim=(0, 1, 2))"
+                           if name == "int8_channel_range" else
+                           "none: no PyTorch call divides by per-channel factors and a scale "
+                           "and rounds to zero-point codes"),
+            "per": f"one forward's {tot['launches_per_forward']} launches ({what}), "
+                   f"{BATCH * (FRAMES - 1)} frames at {HEIGHT}x{WIDTH}, f32 in",
+            "phase11_launches": {"11b f32 default": main_counts[name],
+                                 **{k: n[name] for k, n in k8_launches.items()}},
+            "calls": [{"input": r["input"], "B": r["B"], "H": r["H"], "W": r["W"], "C": r["C"],
+                       **r[name]} for r in k9_records],
+        })
+    return rows
 
 def max_rel(a, b) -> float:
     """max |a - b| over max |b|."""
@@ -4397,7 +4624,7 @@ def main() -> int:
     log("10-data-parallel", ok=True, card=gpu_name_and_power(),
         seconds=time.perf_counter() - t0,
         **{k: dist_records[k]["seconds"] for k in ("10a", "10b", "10c")})
-    k8_row = int8_phase(torch, batch, seconds, bf16_s,
+    int8_rows = int8_phase(torch, batch, seconds, bf16_s,
                         serving_records["9a"]["throughput f32 default"]["session_clips_per_s"])
     phase8_launches = {
         name: {"8a single-frame script": single_totals.get(name, 0),
@@ -4506,7 +4733,7 @@ def main() -> int:
                                    "library_is", "per")},
             "calls": rec["calls"],
         })
-    kernels.append(k8_row)
+    kernels.extend(int8_rows)
     for row in kernels:  # the launches on phase 6's, 6b's, 8's and 9's runs, by stage
         if row["name"] in phase8_launches:
             row["phase8_launches"] = phase8_launches[row["name"]]

@@ -129,14 +129,20 @@ def int8_calibration(model: nn.Module):
 
 
 def _int8_conv(module: nn.Module, name: str, x, conv: nn.Conv2d, bn, static: bool,
-               nonneg: bool, relu: bool, **geometry):
+               nonneg: bool, relu: bool, x_range=None, **geometry):
     """One int8 convolution of the trunk on NHWC x: conv's kernel with bn
     folded in (k * s, bias t), by ops/quant.py's dynamic or static path
     (`static`: the module's `<name>_amax` range; its weights kept on the
     module until conv's or bn's tensors or the range change). Under
     calibration the dynamic path runs and the range takes the running max
-    of x (`nonneg`: x, else |x|)."""
-    scale, shift = bn.scale_shift()
+    of x (`nonneg`: x, else |x|). `x_range`: x's per-channel max |x| for
+    the dynamic path, when the caller has it. The BN-folded kernel and bias
+    are kept on the module as well, until conv's or bn's tensors change."""
+    def fold():
+        scale, shift = bn.scale_shift()
+        return _hwio(conv) * scale, shift
+    kernel, shift = kept_pack(module, f"_int8_fold_{name}", (conv.weight, *bn.buffers()),
+                              x.dtype, fold)
     amax = getattr(module, f"{name}_amax", None) if static else None
     if static and amax is None:
         raise ValueError(f"{name}: static int8 without a range buffer (the module was "
@@ -145,13 +151,13 @@ def _int8_conv(module: nn.Module, name: str, x, conv: nn.Conv2d, bn, static: boo
     qrange = 255.0 if nonneg else quant.QMAX
     if amax is not None and not module.calibrating:
         kept = kept_pack(module, f"_int8_{name}", (conv.weight, *bn.buffers(), amax), x.dtype,
-                         lambda: quant.static_weights(_hwio(conv) * scale, amax, qrange))
+                         lambda: quant.static_weights(kernel, amax, qrange))
         fn = quant.int8_conv_nonneg_static if nonneg else quant.int8_conv_static
         return fn(x, None, None, shift, relu=relu, kept=kept, **geometry)
     if amax is not None:
         amax.copy_(torch.maximum(amax, quant.observe_channel_amax(x, nonneg=nonneg)))
     fn = quant.int8_conv_nonneg if nonneg else quant.int8_conv
-    return fn(x, _hwio(conv) * scale, shift, relu=relu, **geometry)
+    return fn(x, kernel, shift, relu=relu, x_range=x_range, **geometry)
 
 
 def kept_pack(module: nn.Module, attr: str, tensors, dtype, build):
@@ -364,9 +370,13 @@ class Bottleneck(nn.Module):
     def int8_forward(self, x, static: bool):
         """The block on the int8 path: NHWC x (post-ReLU) -> NHWC, every
         convolution on the zero-point path, the residual add and relu in x's
-        dtype."""
+        dtype. On the dynamic path conv1 and the downsample share one range
+        pass over x."""
         d = self.dilation
-        out = _int8_conv(self, "conv1", x, self.conv1, self.bn1, static, True, True)
+        x_range = None
+        if self.downsample is not None and (not static or self.calibrating):
+            x_range = quant.channel_range(x)
+        out = _int8_conv(self, "conv1", x, self.conv1, self.bn1, static, True, True, x_range)
         out = _int8_conv(self, "conv2", out, self.conv2, self.bn2, static, True, True,
                          strides=(self.stride, self.stride), padding=((d, d), (d, d)),
                          dilation=(d, d))
@@ -374,7 +384,7 @@ class Bottleneck(nn.Module):
         identity = x
         if self.downsample is not None:
             identity = _int8_conv(self, "downsample_conv", x, self.downsample[0],
-                                  self.downsample[1], static, True, False,
+                                  self.downsample[1], static, True, False, x_range,
                                   strides=(self.stride, self.stride))
         return F.relu(out + identity)
 

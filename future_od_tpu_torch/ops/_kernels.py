@@ -95,8 +95,14 @@ KERNELS: Dict[str, Dict[str, list]] = {
     # dw, Kp, pad_value, relu, dtype, stream
     "int8_conv": {
         "fod_int8_conv": [_P] * 6 + [_I] * 19 + [_P],
-        # dtype, vec, int[5] out (launches nothing)
-        "fod_int8_conv_info": [_I, _I, _P],
+        # dtype, variant, bn, int[5] out (launches nothing)
+        "fod_int8_conv_info": [_I, _I, _I, _P],
+    },
+    "int8_quantize": {
+        # x, out, n, C, absolute, dtype, stream
+        "fod_int8_channel_range": [_P, _P, ctypes.c_int64, _I, _I, _I, _P],
+        # x, m, scale, q, n, C, zero_point, dtype, stream
+        "fod_int8_quantize": [_P] * 4 + [ctypes.c_int64, _I, _I, _I, _P],
     },
     "stem_variants": {
         # patches / sp, w, bias, out, B, Hp, Wp, Js, dtype, stream

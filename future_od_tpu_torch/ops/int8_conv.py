@@ -5,10 +5,12 @@ The JAX package computes the int8 PTQ backbone's convolutions with XLA
 operands with `preferred_element_type=int32`), not with a Pallas kernel. No
 PyTorch call computes an int8 convolution on CUDA, so the port has this
 kernel of its own: an implicit-GEMM NHWC convolution of int8 codes by int8
-HWIO weights on the tensor cores (`mma.sync` m16n8k32, int32 sums), any
-kernel size, stride, dilation and asymmetric padding, the padding in the
-quantized domain (`pad_value`: -128 for the zero-point path, 0 for the
-signed one), and the epilogue of `ops/quant.py`'s cores:
+HWIO weights on the tensor cores (`wgmma` m64nNk32, int32 sums; the
+stride-1 1x1s fed by TMA in a persistent kernel, the others by a cp.async
+gather; see the source's notes), any kernel size, stride, dilation and
+asymmetric padding, the padding in the quantized domain (`pad_value`: -128
+for the zero-point path, 0 for the signed one), and the epilogue of
+`ops/quant.py`'s cores:
 
     out = cast((acc + zp[c]) as f32 * sw[c] + bias[c]), then relu if asked
 
@@ -41,7 +43,8 @@ from future_od_tpu_torch.ops import _kernels
 
 NAME = "int8_conv"
 K_STEP = 32  # the mma's k-step in int8 values: Kp is a multiple of it
-COUT_STEP = 64  # output channels a block of the kernel owns
+COUT_STEP = 64  # Cout a multiple of it (a tile owns 128 channels, or 64)
+VARIANTS = {"byte gather": 0, "vector gather": 1, "tma": 2}  # int8_conv_info's variants
 
 
 class Int8ConvWeights(NamedTuple):
@@ -109,9 +112,10 @@ def int8_conv_codes(q: torch.Tensor, w: Int8ConvWeights, zp: Optional[torch.Tens
                     padding, dilation: Sequence[int], pad_value: int, relu: bool,
                     out_dtype: torch.dtype) -> torch.Tensor:
     """The convolution of int8 codes q (B, H, W, Cin) by packed int8 weights,
-    with the epilogue above: the op `fod::int8_conv` (off the CPU its
-    operands are checked before it)."""
-    if q.device.type != "cpu":
+    with the epilogue above: the op `fod::int8_conv` (its CUDA
+    implementation checks the operands; on another device, such as meta,
+    they are checked before it)."""
+    if q.device.type not in ("cpu", "cuda"):
         _check(q, w.wt, zp, sw, bias, out_dtype)
     return _INT8_CONV(q, w.wt, zp, sw, bias, list(w.kernel_hw), list(strides),
                       _padding4(padding), list(dilation), int(pad_value), bool(relu), out_dtype)
@@ -201,14 +205,16 @@ torch.library.register_fake("fod::int8_conv", _int8_conv_fake, lib=_LIB)
 _INT8_CONV = torch.ops.fod.int8_conv.default
 
 
-def int8_conv_info(dtype: torch.dtype, vector: bool) -> Dict[str, int]:
-    """The kernel instantiation's resources on the current card (`vector`:
-    the 16-byte gather taken when Cin % 16 == 0, else the byte gather of the
-    stem): registers a thread, static and dynamic shared bytes a block, local
-    (spill) bytes a thread, resident blocks an SM. Launches nothing."""
+def int8_conv_info(dtype: torch.dtype, variant: str, bn: int) -> Dict[str, int]:
+    """The kernel instantiation's resources on the current card (`variant`,
+    a key of VARIANTS: the TMA kernel of the stride-1 1x1s, the 16-byte
+    gather taken when Cin % 16 == 0, or the byte gather of the stems; `bn`
+    the tile's 64 or 128 channels): registers a thread, static and dynamic
+    shared bytes a block, local (spill) bytes a thread, resident blocks an
+    SM. Launches nothing."""
     out = (ctypes.c_int * 5)()
-    _kernels.call(NAME, "fod_int8_conv_info", _kernels.DTYPE_CODES[dtype], int(vector),
-                  ctypes.addressof(out))
+    _kernels.call(NAME, "fod_int8_conv_info", _kernels.DTYPE_CODES[dtype], VARIANTS[variant],
+                  int(bn), ctypes.addressof(out))
     keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
             "blocks_per_sm")
     return dict(zip(keys, out))

@@ -13,9 +13,16 @@ Scheme (standard conv PTQ):
     (`ops/int8_conv.py::int8_conv_codes`, the op `fod::int8_conv`), whose
     epilogue dequantizes by `scale * ws[c]`, adds the bias and casts.
 
-Everything else (the reductions, the smoothing, the quantization of the
-activations and the weights) is plain torch, as XLA computes it in the JAX
-package. Rounding is half to even (`torch.round`, as `jnp.round`). The
+The activations' per-channel ranges and their quantization are K9
+(`ops/int8_quantize.py`, the ops `fod::int8_channel_range` and
+`fod::int8_quantize`): one pass over a convolution's input for its range
+(a block's conv1 and downsample share it) and one that writes its codes.
+The dynamic path takes its smoothing factors and its per-tensor range from
+the per-channel ranges (`static_smooth_and_scale`), as the static path
+takes them from calibrated ones. The rest (the smoothing factors, the
+quantization of the weights) is plain torch on per-channel vectors and
+weights, as XLA computes it in the JAX package. Rounding is half to even
+(`torch.round`, as `jnp.round`). The
 smoothing factors' square root is taken in float64 and rounded to f32 once:
 torch's f32 `sqrt` on the CPU is not correctly rounded (about 0.7 % of
 inputs come out 1 ulp off), and one factor off flips that channel's codes;
@@ -37,18 +44,7 @@ from future_od_tpu_torch.ops.int8_conv import (
     pack_int8_weights,
     zero_point_correction,
 )
-
-QMAX = 127.0
-
-
-def _amax(t: torch.Tensor, dims=None) -> torch.Tensor:
-    """jnp.max(t, axis=dims, initial=0.0): the max over dims (all by
-    default), at least 0, and 0 over an empty tensor."""
-    dims = tuple(range(t.ndim)) if dims is None else tuple(dims)
-    if t.numel() == 0:
-        shape = [s for i, s in enumerate(t.shape) if i not in dims]
-        return t.new_zeros(shape)
-    return torch.clamp_min(torch.amax(t, dim=dims), 0.0)
+from future_od_tpu_torch.ops.int8_quantize import QMAX, _amax, channel_range, quantize_codes
 
 
 def _sqrt(t: torch.Tensor) -> torch.Tensor:
@@ -66,11 +62,7 @@ def smooth_factors(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Per-input-channel scale-migration factors m (SmoothQuant, alpha 0.5):
     m_c = sqrt(amax(x_c) / colmax(w_c)); dead channels (all-zero
     activations) keep m = 1."""
-    x32 = x.float()
-    act_amax = _amax(x32.abs(), range(x.ndim - 1))
-    w_amax = _kernel_in_amax(kernel)
-    m = _sqrt(torch.clamp_min(act_amax, 1e-12) / torch.clamp_min(w_amax, 1e-12))
-    return torch.where(act_amax > 0.0, m, torch.ones_like(m))
+    return static_smooth_and_scale(channel_range(x), kernel)[0]
 
 
 def quantize_weight_per_channel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -85,12 +77,9 @@ def quantize_weight_per_channel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
 
 def quantize_act_per_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Activation tensor -> (int8 tensor, scalar f32 scale), dynamic abs-max
-    symmetric quantization."""
-    x32 = x.float()
-    amax = _amax(x32.abs())
-    scale = torch.clamp_min(amax, 1e-12) / QMAX
-    q = torch.clamp(torch.round(x32 / scale), -QMAX, QMAX).to(torch.int8)
-    return q, scale
+    symmetric quantization (the tensor's range: the max of its channels')."""
+    scale = torch.clamp_min(_amax(channel_range(x.reshape(-1, 1))), 1e-12) / QMAX
+    return quantize_codes(x, None, scale, zero_point=False), scale
 
 
 def _pairs(padding) -> tuple:
@@ -98,23 +87,24 @@ def _pairs(padding) -> tuple:
 
 
 def _conv_nonneg_core(x32, scale, wq, ws, bias, strides, padding, dilation, out_dtype,
-                      relu: bool = False, packed=None):
+                      relu: bool = False, packed=None, m=None):
     """Shared zero-point-128 conv body (dynamic and static paths): quantize
-    the smoothed input with the given per-tensor scale, pad in the quantized
-    domain with -128 (= x 0), the int8 conv with int32 sums, the
-    per-channel zero-point correction, dequantize, bias (all but the input's
-    quantization in K8). `packed`: (K8's weights, zp) already made of wq."""
-    q = (torch.clamp(torch.round(x32 / scale), 0.0, 255.0) - 128.0).to(torch.int8)
+    the smoothed input x32 / m (x32 itself without m) with the given
+    per-tensor scale (K9), pad in the quantized domain with -128 (= x 0),
+    the int8 conv with int32 sums, the per-channel zero-point correction,
+    dequantize, bias (K8). `packed`: (K8's weights, zp) already made of
+    wq."""
+    q = quantize_codes(x32, m, scale, zero_point=True)
     w, zp = packed if packed is not None else (pack_int8_weights(wq), zero_point_correction(wq))
     return int8_conv_codes(q, w, zp, scale * ws, None if bias is None else bias.float(),
                            strides, _pairs(padding), dilation, -128, relu, out_dtype)
 
 
 def _conv_signed_core(x32, scale, wq, ws, bias, strides, padding, dilation, out_dtype,
-                      relu: bool = False, packed=None):
+                      relu: bool = False, packed=None, m=None):
     """Shared symmetric-signed conv body (dynamic and static paths); zero
     padding is exact in the quantized domain (0 maps to q = 0)."""
-    q = torch.clamp(torch.round(x32 / scale), -QMAX, QMAX).to(torch.int8)
+    q = quantize_codes(x32, m, scale, zero_point=False)
     w = packed[0] if packed is not None else pack_int8_weights(wq)
     return int8_conv_codes(q, w, None, scale * ws, None if bias is None else bias.float(),
                            strides, _pairs(padding), dilation, 0, relu, out_dtype)
@@ -124,44 +114,50 @@ def _smoothed_weights(kernel, m):
     return quantize_weight_per_channel(kernel.float() * m[None, None, :, None])
 
 
+def _dynamic_scale(x, kernel, qrange: float, x_range):
+    """(m, per-tensor scale) of the dynamic path from the input's
+    per-channel range (K9's range pass, or `x_range` when the caller has
+    it). `static_smooth_and_scale` gives m by `smooth_factors`' formula and
+    the per-tensor range as max_c(amax_c / m_c), which equals the range of
+    x / m bit for bit: dividing by a positive constant and rounding are both
+    monotone, so the largest |x_c| gives the largest |x_c| / m_c (on the
+    zero-point path x >= 0, post-ReLU, and its max is its range)."""
+    m, amax = static_smooth_and_scale(channel_range(x) if x_range is None else x_range, kernel)
+    return m, torch.clamp_min(amax, 1e-12) / qrange
+
+
 def int8_conv_nonneg(x, kernel, bias=None, strides: Sequence[int] = (1, 1),
                      padding=((0, 0), (0, 0)), dilation: Sequence[int] = (1, 1),
-                     relu: bool = False) -> torch.Tensor:
+                     relu: bool = False, x_range=None) -> torch.Tensor:
     """int8 conv for non-negative (post-ReLU) NHWC inputs with the full 8-bit
     range recovered by a fixed zero point of 128: q = round(x/s) - 128 with
     s = max(x)/255, padded in the quantized domain with -128 (x = 0), so
     conv(x)/s == conv_valid(q_pad) + 128 * sum(w[c]) exactly. Output dtype
-    follows x."""
-    m = smooth_factors(x, kernel)
+    follows x. `x_range`: `channel_range(x)` when the caller has it (a
+    block's conv1 and downsample read the same x)."""
+    m, scale = _dynamic_scale(x, kernel, 255.0, x_range)
     wq, ws = _smoothed_weights(kernel, m)
-    x32 = x.float() / m
-    amax = _amax(x32)  # x >= 0: max is the range
-    scale = torch.clamp_min(amax, 1e-12) / 255.0
-    return _conv_nonneg_core(x32, scale, wq, ws, bias, strides, padding, dilation, x.dtype,
-                             relu)
+    return _conv_nonneg_core(x, scale, wq, ws, bias, strides, padding, dilation, x.dtype,
+                             relu, m=m)
 
 
 def int8_conv(x, kernel, bias=None, strides: Sequence[int] = (1, 1),
               padding=((0, 0), (0, 0)), dilation: Sequence[int] = (1, 1),
-              relu: bool = False) -> torch.Tensor:
+              relu: bool = False, x_range=None) -> torch.Tensor:
     """Float-in / float-out NHWC conv on the int8 path, symmetric (the stem's
     signed input). `kernel` is the effective HWIO kernel (frozen-BN scale
     folded in), `bias` the folded BN shift. Output dtype follows x."""
-    m = smooth_factors(x, kernel)
+    m, scale = _dynamic_scale(x, kernel, QMAX, x_range)
     wq, ws = _smoothed_weights(kernel, m)
-    x32 = x.float() / m
-    amax = _amax(x32.abs())
-    scale = torch.clamp_min(amax, 1e-12) / QMAX
-    return _conv_signed_core(x32, scale, wq, ws, bias, strides, padding, dilation, x.dtype,
-                             relu)
+    return _conv_signed_core(x, scale, wq, ws, bias, strides, padding, dilation, x.dtype,
+                             relu, m=m)
 
 
 def observe_channel_amax(x: torch.Tensor, nonneg: bool) -> torch.Tensor:
     """Per-input-channel activation range, (C,) f32: the one statistic the
-    static calibration stores per conv."""
-    x32 = x.float()
-    v = x32 if nonneg else x32.abs()
-    return _amax(v, range(x.ndim - 1))
+    static calibration stores per conv (K9's range pass: of x when nonneg,
+    else of |x|)."""
+    return channel_range(x, absolute=not nonneg)
 
 
 def static_smooth_and_scale(amax_c: torch.Tensor, kernel: torch.Tensor
@@ -217,9 +213,8 @@ def int8_conv_nonneg_static(x, kernel, amax_c, bias=None, strides: Sequence[int]
     equals the dynamic path bit for bit (the same op order: x/m, then
     /scale). `kept`: `static_weights(kernel, amax_c, 255.0)` made before."""
     m, scale, ws, packed = kept if kept is not None else static_weights(kernel, amax_c, 255.0)
-    x32 = x.float() / m
-    return _conv_nonneg_core(x32, scale, None, ws, bias, strides, padding, dilation, x.dtype,
-                             relu, packed)
+    return _conv_nonneg_core(x, scale, None, ws, bias, strides, padding, dilation, x.dtype,
+                             relu, packed, m)
 
 
 def int8_conv_static(x, kernel, amax_c, bias=None, strides: Sequence[int] = (1, 1),
@@ -228,6 +223,5 @@ def int8_conv_static(x, kernel, amax_c, bias=None, strides: Sequence[int] = (1, 
     """`int8_conv` (signed, the stem) with calibrated per-channel ranges.
     `kept`: `static_weights(kernel, amax_c, QMAX)` made before."""
     m, scale, ws, packed = kept if kept is not None else static_weights(kernel, amax_c, QMAX)
-    x32 = x.float() / m
-    return _conv_signed_core(x32, scale, None, ws, bias, strides, padding, dilation, x.dtype,
-                             relu, packed)
+    return _conv_signed_core(x, scale, None, ws, bias, strides, padding, dilation, x.dtype,
+                             relu, packed, m)

@@ -4,12 +4,14 @@
 An artifact is a sealed program: a serving host reloads it with
 `load_serving` without the model-building code on its path. What it needs
 at load is torch and the port's op registrations
-(`future_od_tpu_torch/ops/flash_attention.py`, `ops/fused_resnet.py` and
-`ops/int8_conv.py`, which `load_serving` imports): the kernels K1-K3 and K8
-stay in the graph as the ops `fod::flash_attention`, `fod::fused_bottleneck`,
-`fod::fused_stem` and `fod::int8_conv`, as the Pallas kernels stay in the
-JAX artifact. An int8 model's activation quantization and reductions are
-the graph's own ops, and a static-int8 model's ranges travel in its state. The gates set at export
+(`future_od_tpu_torch/ops/flash_attention.py`, `ops/fused_resnet.py`,
+`ops/int8_conv.py` and `ops/int8_quantize.py`, which `load_serving`
+imports): the kernels K1-K3, K8 and K9 stay in the graph as the ops
+`fod::flash_attention`, `fod::fused_bottleneck`, `fod::fused_stem`,
+`fod::int8_conv`, `fod::int8_channel_range` and `fod::int8_quantize`, as the
+Pallas kernels stay in the JAX artifact. An int8 model's smoothing and
+weight quantization are the graph's own ops, and a static-int8 model's
+ranges travel in its state. The gates set at export
 time (`FUTURE_OD_FLASH_*`, `FUTURE_OD_FUSED_*`) are fixed in the artifact,
 which launches the kernels the eager call launches under them; the fused
 blocks' packed weights are computed in the graph from the weights at every
@@ -63,7 +65,8 @@ def load_serving(path_or_blob, device: DeviceLike = None) -> torch.nn.Module:
     exported shapes and dtypes. Call it under `torch.inference_mode()`."""
     from torch.export.passes import move_to_device_pass
 
-    from future_od_tpu_torch.ops import flash_attention, fused_resnet, int8_conv  # noqa: F401
+    from future_od_tpu_torch.ops import (  # noqa: F401
+        flash_attention, fused_resnet, int8_conv, int8_quantize)
 
     device = resolve_device(device)
     source = path_or_blob if isinstance(path_or_blob, (str, os.PathLike)) else io.BytesIO(

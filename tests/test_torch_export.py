@@ -5,7 +5,8 @@ forward bit for bit, refuses a wrong shape, keeps K1-K3 as `fod::` nodes in
 its graph and takes a checkpoint with `load_state_dict`; the streaming pair
 equals the live pair and the session; the int8 flagship's program (the int8
 PTQ backbone, dynamic) equals its eager forward bit for bit with K8's 53
-`fod::int8_conv` nodes and the activation reductions in its graph, and an
+`fod::int8_conv` nodes and K9's 49 `fod::int8_channel_range` and 53
+`fod::int8_quantize` nodes in its graph, and an
 uncalibrated static-int8 model is refused; each op's CPU implementation is
 its plain function and its fake implementation gives the real output's
 shape and dtype.
@@ -170,13 +171,18 @@ def test_export_int8_backbone_roundtrip(model, data, monkeypatch):
     """The int8 program exports and reloads like the float one (under the
     default gates, so every trunk convolution is int8): bit for bit the
     eager forward, each of the trunk's 53 convolutions a `fod::int8_conv`
-    node a frame batch, the activations' reductions (amax) traced in."""
+    node a frame batch, its input's codes a `fod::int8_quantize` node and
+    its range a `fod::int8_channel_range` node (a block's conv1 and
+    downsample share one: 49), the smoothing's reductions (amax over the
+    per-channel ranges and the weights) traced in."""
     for name in ("FUTURE_OD_FUSED_RESNET", "FUTURE_OD_FUSED_STEM"):
         monkeypatch.delenv(name)
     int8 = int8_model(model, int8_backbone=True)
     served = load_serving(export_inference(int8, data), device="cpu")
     names = [str(n.target) for n in served.graph.nodes if n.op == "call_function"]
     assert names.count("fod.int8_conv.default") == 53
+    assert names.count("fod.int8_quantize.default") == 53
+    assert names.count("fod.int8_channel_range.default") == 49
     assert any("amax" in name for name in names)
     with torch.inference_mode():
         assert_equal(served(tensors(data)), make_inference_fn(int8, device="cpu")(data))

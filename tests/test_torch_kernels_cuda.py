@@ -671,9 +671,14 @@ def test_kernels_launch_on_their_operands_card(np_rng):
 
 # (B, H, W, Cin, KH, KW, Cout, stride, ((top, bottom), (left, right)), dilation,
 # pad value): the trunk's kinds at odd sizes (a ragged last block of pixels),
-# both stems, a dilated 3x3, asymmetric padding
+# both stems, a dilated 3x3, asymmetric padding; the TMA kernel (stride-1 1x1s)
+# with tiles of 64 and 128 channels, several K stages, K padded past Cin (48),
+# and Cout = 192 (tiles of 64 channels on both kernels)
 INT8_SHAPES = [
     (2, 17, 23, 64, 1, 1, 64, 1, ((0, 0), (0, 0)), 1, -128),
+    (2, 20, 30, 512, 1, 1, 256, 1, ((0, 0), (0, 0)), 1, -128),
+    (1, 9, 31, 48, 1, 1, 192, 1, ((0, 0), (0, 0)), 1, -128),
+    (1, 11, 13, 64, 3, 3, 192, 1, ((1, 1), (1, 1)), 1, -128),
     (2, 17, 23, 64, 3, 3, 128, 1, ((1, 1), (1, 1)), 1, -128),
     (1, 30, 41, 128, 3, 3, 128, 2, ((1, 1), (1, 1)), 1, -128),
     (1, 13, 11, 512, 3, 3, 512, 1, ((2, 2), (2, 2)), 2, -128),
@@ -720,18 +725,78 @@ def test_int8_conv_refuses(cuda):
         k8.int8_conv_codes(q, w, None, sw, None, (1, 1), ((0, 0), (0, 0)), (1, 1), 0, False,
                            torch.float32)
     w = k8.pack_int8_weights(torch.ones((1, 1, 64, 64), dtype=torch.int8, device=cuda))
+    misaligned = torch.zeros(4097, dtype=torch.int8, device=cuda)[1:].view(1, 8, 8, 64)
     with pytest.raises(ValueError, match="aligned"):
-        k8.int8_conv_codes(q.flatten()[1:4097].view(1, 8, 8, 64), w, None, sw[:64], None,
-                           (1, 1), ((0, 0), (0, 0)), (1, 1), 0, False, torch.float32)
+        k8.int8_conv_codes(misaligned, w, None, sw[:64], None, (1, 1), ((0, 0), (0, 0)), (1, 1),
+                           0, False, torch.float32)
+
+
+@pytest.mark.parametrize("zero_point", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 3), (2, 9, 11, 64), (1, 1, 1, 5), (5, 3, 2, 2048),
+                                   (4, 7, 13, 12), (2, 3, 3, 1), (1, 37, 41, 48), (1, 3, 3, 16)])
+def test_int8_quantize(cuda, dtype, zero_point, shape):
+    """K9 equals its plain version bit for bit: the range of |x| and of x (odd
+    C, element counts that leave a partial 16 bytes, channels past 16-byte
+    lanes), and the codes of x / m / scale with planted exact ties and values
+    past the clamp limits, with m and without."""
+    from future_od_tpu_torch.ops import int8_quantize as k9
+
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    C = shape[-1]
+    x = torch.randn(shape, device=cuda, generator=g)
+    if zero_point:
+        x = torch.relu(x)
+    m = torch.rand(C, device=cuda, generator=g) + 0.5
+    scale = (x.abs().amax() / m.min() / (255.0 if zero_point else 127.0)).reshape(())
+    flat = x.view(-1)
+    ties = torch.arange(flat.numel(), device=cuda) % 3 == 0  # t + 0.5 after both divisions
+    mc = m.repeat(flat.numel() // C)
+    t = torch.randint(-300, 300, (flat.numel(),), device=cuda, generator=g).float() + 0.5
+    if zero_point:
+        t = t.abs()
+    flat[ties] = (t * scale * mc)[ties]
+    x = x.to(dtype)
+    before = {n: _kernels.launch_counts[n] for n in (k9.RANGE, k9.QUANTIZE)}
+    for absolute in (True, False):
+        assert torch.equal(k9.channel_range(x, absolute), k9.channel_range_plain(x, absolute))
+    for mm in (m, None):
+        q = k9.quantize_codes(x, mm, scale, zero_point)
+        torch.cuda.synchronize()
+        assert q.dtype == torch.int8
+        assert torch.equal(q, k9.quantize_codes_plain(x, mm, scale, zero_point))
+    assert _kernels.launch_counts[k9.RANGE] == before[k9.RANGE] + 2
+    assert _kernels.launch_counts[k9.QUANTIZE] == before[k9.QUANTIZE] + 2
+
+
+def test_int8_quantize_refuses(cuda):
+    from future_od_tpu_torch.ops import int8_quantize as k9
+
+    x = torch.rand((2, 4, 4, 8), device=cuda)
+    m, scale = torch.ones(8, device=cuda), torch.tensor(0.1, device=cuda)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        k9.channel_range(x.to(torch.float16))
+    with pytest.raises(ValueError, match="channels"):
+        k9.channel_range(torch.zeros((1, k9.MAX_CHANNELS + 1), device=cuda))
+    with pytest.raises(ValueError, match="m must be"):
+        k9.quantize_codes(x, m[:4], scale, True)
+    with pytest.raises(ValueError, match="scale must be"):
+        k9.quantize_codes(x, m, scale.double(), True)
+    with pytest.raises(ValueError, match="CUDA"):
+        k9.quantize_codes(x, m.cpu(), scale, True)
+    with pytest.raises(ValueError, match="aligned"):
+        k9.channel_range(torch.rand(257, device=cuda)[1:].view(2, 4, 4, 8))
 
 
 @pytest.mark.parametrize("static", [False, True])
 def test_int8_flagship_trunk_equals_plain(cuda, np_rng, monkeypatch, static):
     """A narrow int8 flagship at 64x96: K8 launches 53 times a forward (the
-    trunk's convolutions), and the trunk's output equals the same forward's
-    with K8's plain version in its place, bit for bit; static after its
-    calibration equals dynamic."""
+    trunk's convolutions), K9 a quantization each and, on the dynamic path,
+    49 range passes (a block's conv1 and downsample share one); the trunk's
+    output equals the same forward's with K8's and K9's plain versions in
+    their places, bit for bit; static after its calibration equals dynamic."""
     from future_od_tpu_torch.ops import int8_conv as k8
+    from future_od_tpu_torch.ops import int8_quantize as k9
     from future_od_tpu_torch.ops import quant
     from future_od_tpu_torch.train.step import calibrate_int8
 
@@ -754,11 +819,17 @@ def test_int8_flagship_trunk_equals_plain(cuda, np_rng, monkeypatch, static):
     infer(batch)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["int8_conv"] == 53
+    assert _kernels.launch_counts[k9.QUANTIZE] == 53
+    assert _kernels.launch_counts[k9.RANGE] == (0 if static else 49)
 
     def plain(q, w, zp, sw, bias, strides, padding, dilation, pad_value, relu, out_dtype):
         return k8.int8_conv_plain(q, w.wt, zp, sw, bias, w.kernel_hw, strides, padding,
                                   dilation, pad_value, relu, out_dtype)
 
     monkeypatch.setattr(quant, "int8_conv_codes", plain)
+    monkeypatch.setattr(quant, "channel_range", k9.channel_range_plain)
+    monkeypatch.setattr(quant, "quantize_codes", k9.quantize_codes_plain)
+    _kernels.reset_launch_counts()
     infer(batch)
+    assert not any(_kernels.launch_counts[n] for n in ("int8_conv", k9.RANGE, k9.QUANTIZE))
     assert torch.equal(trunk[0], trunk[1])
