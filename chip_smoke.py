@@ -261,8 +261,22 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    a checkpoint of a random flagship with nuScenes' 8 classes (phase 6's has
    the synthetic data's 2, which the eval scripts' model does not take): K8
    53 and K9 49 + 53 launches an eval batch, its AP dict.
+12. the learning loop (future_od_tpu_torch/tools/). 12a. future_overfit_probe
+   (the flagship on 8 synthetic three-frame clips at 128x192) for 300
+   steps: the mean loss of the last 10 below half of step 0's; AP50 every
+   100 steps and the step time. 12b. matcher_drift_branched's base config
+   (the auction, batch 16, 256 + 64 images) for 3 epochs through the
+   Trainer into build/phase12/drift_base, then quant_ap_check's float and
+   int8 arms on that checkpoint over its fit and val0 splits, both arms' AP
+   dicts: K8 53, K9 49 + 53 launches a forward of the int8 arm; every
+   distinct K8 and K9 call of an int8 forward (16 images at 128x192, the
+   trained weights' activations) bit-equal to its plain version (K8 also
+   with bf16 out, K9 also on its input scaled to a range of 1e15), timed
+   beside its plain version and bound. 12c. the exact solver
+   (ops/native_lap.py, g++ on the card's host) against the auction on the
+   card on a batch of unique-optimum costs: equal indices.
 4. a `kernels` JSON line (with each main-path kernel's launches on phase 6's,
-   6b's, 8's, 9's, 10's and 11's runs), then the device JSON line, last.
+   6b's, 8's, 9's, 10's, 11's and 12's runs), then the device JSON line, last.
 
 Phases 2 and 3 also say where a request's time goes: the device time of the
 backbone, the encoder and the detector (CUDA events recorded by forward
@@ -279,6 +293,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import inspect
 import json
 import math
 import os
@@ -4458,6 +4473,261 @@ def int8_phase(torch, batch, phase2_s, phase3_bf16_s, phase9_clips_per_s, dev=No
         })
     return rows
 
+# ---------------------------------------------------------------------------
+# Phase 12: the learning loop on the card (future_od_tpu_torch/tools/).
+
+PROBE_STEPS = 300  # 12a: steps of future_overfit_probe after the first
+PROBE_INTERVAL = 100
+# 12a's gate: the mean loss of the last PROBE_TAIL steps below this fraction
+# of step 0's
+PROBE_LOSS_FRACTION = 0.5
+PROBE_TAIL = 10
+DRIFT_EPOCHS = 3  # 12b: epochs of matcher_drift_branched's base config
+DRIFT_BATCH = 16
+DRIFT_FORWARDS = 20  # quant_ap_check's splits at batch 16: 256 fit + 64 val0 images
+K9_FAR_RANGE = 1e15  # the JAX drift_base's activation ranges (BENCHMARKS.md, round 3)
+MATCH_PROBLEMS = (16, 32, 12)  # 12c: images, queries, target slots
+
+
+class Int8Calls:
+    """Within it, ops/quant.py's calls of K8 and K9 run as before and the
+    operands of the first call of each distinct shape are kept, with how
+    many calls share that shape."""
+
+    NAMES = ("int8_conv_codes", "channel_range", "quantize_codes")
+
+    def __init__(self, quant):
+        self.quant, self.calls = quant, {name: {} for name in self.NAMES}
+
+    def _wrap(self, name, fn):
+        signature = inspect.signature(fn)
+
+        def run(*args, **kwargs):
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            args = tuple(bound.arguments.values())
+            key = tuple(tuple(a.shape) if hasattr(a, "shape") else
+                        (a.wt.shape, a.kernel_hw) if hasattr(a, "wt") else repr(a)
+                        for a in args)
+            rec = self.calls[name].setdefault(key, {"args": None, "count": 0})
+            if rec["args"] is None:
+                rec["args"] = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+            rec["count"] += 1
+            return fn(*args)
+        return run
+
+    def __enter__(self):
+        self.originals = {name: getattr(self.quant, name) for name in self.NAMES}
+        for name, fn in self.originals.items():
+            setattr(self.quant, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.originals.items():
+            setattr(self.quant, name, fn)
+
+
+def probe_phase(torch, dev, check=False) -> dict:
+    """12a: future_overfit_probe (the flagship on 8 three-frame clips at
+    128x192) for PROBE_STEPS steps: the loss must fall below
+    PROBE_LOSS_FRACTION of step 0's; AP50 and the step time."""
+    from future_od_tpu_torch.tools import future_overfit_probe
+
+    t0 = time.perf_counter()
+    steps = 4 if check else PROBE_STEPS
+    rec = future_overfit_probe.run(check, steps, str(dev), 1 if check else PROBE_INTERVAL)
+    losses = rec["losses"]
+    tail = float(np.mean(losses[-PROBE_TAIL:]))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"12a: non-finite probe losses {losses}")
+    if not check and tail >= PROBE_LOSS_FRACTION * losses[0]:
+        raise AssertionError(f"12a: the loss {losses[0]:.3f} -> {tail:.3f} (mean of the last "
+                             f"{PROBE_TAIL}) did not fall below {PROBE_LOSS_FRACTION} of it")
+    return {"steps": steps + 1, "first_loss": losses[0], "tail_loss": tail,
+            "tail_over_first": tail / losses[0], "gate": PROBE_LOSS_FRACTION,
+            "lines": rec["lines"], "step_ms": rec["step_ms"],
+            "seconds": time.perf_counter() - t0}
+
+
+def replay_int8_calls(torch, quant, calls, time_s: float) -> dict:
+    """Each recorded K8 and K9 call of one int8 forward through the kernel
+    and through its plain version: bit-equal (K8 also with bf16 out; K9
+    also on its input scaled to a range of K9_FAR_RANGE, with the scale
+    alike). Times a call and a forward's sums, and the bounds."""
+    from future_od_tpu_torch.ops import int8_conv as k8
+    from future_od_tpu_torch.ops import int8_quantize as k9
+
+    plain_conv = plain_k8(quant, k8)
+    out = {"int8_conv": [], k9.RANGE: [], k9.QUANTIZE: []}
+    for key, rec in calls["int8_conv_codes"].items():
+        q, w, zp, sw, bias, strides, padding, dilation, pad_value, relu, dtype = rec["args"]
+        for dt in (dtype, torch.bfloat16 if dtype == torch.float32 else torch.float32):
+            args = (q, w, zp, sw, bias, strides, padding, dilation, pad_value, relu, dt)
+            if not torch.equal(k8.int8_conv_codes(*args), plain_conv(*args)):
+                raise AssertionError(f"12b K8 {tuple(q.shape)} -> Cout {w.wt.shape[0]} "
+                                     f"{w.kernel_hw} stride {strides} {dt}: differs from its "
+                                     "plain version")
+        ops, nbytes = k8.int8_conv_cost(*q.shape, w.wt.shape[0], w.kernel_hw, strides, padding,
+                                        dilation, 4)
+        t_ops, t_bytes = ops / PEAK_INT8, nbytes / PEAK_BYTES
+        out["int8_conv"].append({
+            "q": list(q.shape), "Cout": w.wt.shape[0], "kernel": list(w.kernel_hw),
+            "stride": list(strides), "pad_value": pad_value, "per_forward": rec["count"],
+            "ms": time_ms(torch, lambda: k8.int8_conv_codes(*rec["args"]), time_s),
+            "plain_ms": time_ms(torch, lambda: plain_conv(*rec["args"]), time_s),
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+    for name, kernel, plain in ((k9.RANGE, k9.channel_range, k9.channel_range_plain),
+                                (k9.QUANTIZE, k9.quantize_codes, k9.quantize_codes_plain)):
+        for key, rec in calls["channel_range" if name == k9.RANGE else "quantize_codes"].items():
+            x = rec["args"][0]
+            amax = x.float().abs().max().item()
+            factor = K9_FAR_RANGE / max(amax, 1e-30)
+            far = (x.float() * factor).to(x.dtype)
+            cases = {"recorded": rec["args"]}
+            if name == k9.RANGE:
+                cases["far"] = (far,) + rec["args"][1:]
+            else:
+                cases["far"] = (far, rec["args"][1], rec["args"][2] * factor, rec["args"][3])
+            for case, args in cases.items():
+                if not torch.equal(kernel(*args), plain(*args)):
+                    raise AssertionError(f"12b K9 {name} {tuple(x.shape)} ({case}, max |x| "
+                                         f"{amax if case == 'recorded' else K9_FAR_RANGE:.3g}): "
+                                         "differs from its plain version")
+            ops, nbytes = (k9.range_cost if name == k9.RANGE else k9.quantize_cost)(x)
+            t_ops, t_bytes = ops / PEAK_OPS["float32"], nbytes / PEAK_BYTES
+            out[name].append({
+                "x": list(x.shape), "max_abs_x": amax, "per_forward": rec["count"],
+                "ms": time_ms(torch, lambda: kernel(*rec["args"]), time_s),
+                "plain_ms": time_ms(torch, lambda: plain(*rec["args"]), time_s),
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+    totals = {}
+    for name, recs in out.items():
+        totals[name] = {k: sum(r[k] * r["per_forward"] for r in recs)
+                        for k in ("ms", "plain_ms", "bound_ms")}
+        totals[name]["launches_per_forward"] = sum(r["per_forward"] for r in recs)
+    return {"calls": out, "per_forward": totals}
+
+
+def drift_quant_phase(torch, dev, check=False) -> dict:
+    """12b: matcher_drift_branched's base config (the auction, batch 16, 256
+    + 64 synthetic images at 128x192) for DRIFT_EPOCHS epochs through the
+    Trainer into build/phase12/drift_base; then quant_ap_check's float and
+    int8 arms on that checkpoint over its "fit" and "val0" splits, the int8
+    arm counted: K8 53, K9 49 + 53 launches a forward. Each distinct K8 and
+    K9 call of an int8 forward on a fit batch is replayed against its plain
+    version (`replay_int8_calls`)."""
+    from future_od_tpu_torch.data.loader import ARRAY_KEYS, collate
+    from future_od_tpu_torch.ops import _kernels, quant
+    from future_od_tpu_torch.tools import _convergence as conv
+    from future_od_tpu_torch.tools import matcher_drift_branched, quant_ap_check
+
+    t0 = time.perf_counter()
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase12")
+    batch = conv.CHECK_BATCH if check else DRIFT_BATCH
+    base = matcher_drift_branched.make_trainer(
+        "auction", "drift_base", batch, conv.CHECK_SAMPLES if check else 256, ckpt_dir,
+        conv.CHECK_VAL_SAMPLES if check else 64, check=check, device=str(dev))
+    base.train(DRIFT_EPOCHS)
+    labels = base._stats["train labels loss"].history
+    if not all(math.isfinite(v) for v in labels):
+        raise AssertionError(f"12b: non-finite labels loss over the epochs {labels}")
+    for mode in ("train", "val0"):
+        check_ap(base._ap_by_mode[mode], 2)
+    train_s = time.perf_counter() - t0
+    ckpt = os.path.join(ckpt_dir, "drift_base")
+    float_aps = quant_ap_check.evaluate(False, ckpt, batch, check, str(dev))
+
+    trainer = quant_ap_check.make_trainer(True, ckpt, batch, check, str(dev))
+    fit = trainer._val_loaders["fit"].dataset  # its first batch (the loader keeps the order)
+    first = collate([fit[i] for i in range(batch)])
+    with Int8Calls(quant) as recorded:
+        trainer._eval_step({k: v for k, v in first.items() if k in ARRAY_KEYS})
+    per_forward = {name: sum(r["count"] for r in recs.values())
+                   for name, recs in recorded.calls.items()}
+    want = {"int8_conv_codes": INT8_LAUNCHES, "channel_range": INT8_RANGE_LAUNCHES,
+            "quantize_codes": INT8_LAUNCHES}
+    if per_forward != want:
+        raise AssertionError(f"12b: int8 calls a forward {per_forward}, want {want}")
+    _kernels.reset_launch_counts()
+    trainer._run_eval()
+    counts = launched(_kernels)
+    forwards = sum(len(loader) for loader in trainer._val_loaders.values())
+    expect = ({} if dev.type != "cuda" else
+              {"int8_conv": INT8_LAUNCHES * forwards, "int8_channel_range":
+               INT8_RANGE_LAUNCHES * forwards, "int8_quantize": INT8_LAUNCHES * forwards})
+    if counts != expect:
+        raise AssertionError(f"12b: the int8 arm launched {counts}, want {expect}")
+    int8_aps = quant_ap_check.split_aps(trainer)
+    for aps in (float_aps, int8_aps):
+        for mode, rec in aps.items():
+            if not all(0.0 <= v <= 1.0 for v in rec["ap50"]):
+                raise AssertionError(f"12b: AP50 out of [0, 1]: {mode} {rec}")
+    replay = replay_int8_calls(torch, quant, recorded.calls, INT8_TIME_S)
+    return {"epochs": DRIFT_EPOCHS, "train_labels_loss": labels, "train_s": train_s,
+            "base_ap50": {m: conv.ap50(base._ap_by_mode[m]) for m in ("train", "val0")},
+            "float": float_aps, "int8": int8_aps,
+            "fit_ap50_abs_delta": [abs(a - b) for a, b in zip(float_aps["fit"]["ap50"],
+                                                              int8_aps["fit"]["ap50"])],
+            "forwards": forwards, "launches": counts, "kernels": replay,
+            "seconds": time.perf_counter() - t0}
+
+
+def exact_matching_phase(torch, dev) -> dict:
+    """12c: one batch of matching problems with a unique optimum solved by
+    the exact solver on the card's host (ops/native_lap.py, built with g++
+    there) and by the auction on the card: the same indices. Every target
+    prefers one popular query (cost 0) and has its own planted query
+    (0.1 + 0.05 k for the k-th target, distinct) among queries costing 1-2,
+    so the targets bid against each other for several rounds, and the
+    optimum (the popular query to the target whose planted one is dearest)
+    beats every other assignment by 0.05, above the auction's slack of N x
+    its eps."""
+    from future_od_tpu_torch.ops.matching import auction_assignment, hungarian_assignment
+
+    B, M, N = MATCH_PROBLEMS
+    g = torch.Generator().manual_seed(12)
+    cost = 1.0 + torch.rand((B, M, N), generator=g)
+    active = torch.rand((B, N), generator=g) < 0.75
+    active[:, :2] = True
+    for b in range(B):
+        rows = torch.randperm(M, generator=g)[:N + 1]
+        cost[b, rows[0], :] = 0.0  # the popular query
+        cost[b, rows[1:], torch.arange(N)] = 0.1 + 0.05 * torch.randperm(N, generator=g).float()
+    cost, active = cost.to(dev), active.to(dev)
+    t0 = time.perf_counter()
+    exact = hungarian_assignment(cost, active)
+    exact_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    auction, rounds = auction_assignment(cost, active, return_rounds=True)
+    auction_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(exact, auction):
+        raise AssertionError("12c: the exact solver and the auction disagree on a "
+                             "unique-optimum cost")
+    return {"problems": [B, M, N], "exact_host_ms": exact_ms, "auction_ms": auction_ms,
+            "auction_rounds_max": int(rounds.max()), "device": str(exact.device)}
+
+
+def learning_phase(torch, dev=None, check=False) -> dict:
+    """Phase 12, the learning loop: 12a-12c (on dev, default the card;
+    check: the tools' tiny sizes, for a rehearsal on the CPU)."""
+    dev = dev or torch.device("cuda")
+    t0 = time.perf_counter()
+    records = {}
+    for name, fn in (("12a-future-overfit-probe", probe_phase),
+                     ("12b-drift-base-int8-ap", drift_quant_phase)):
+        records[name] = fn(torch, dev, check)
+        log(name, ok=True, card=gpu_name_and_power(),
+            **{k: v for k, v in records[name].items() if k != "kernels"})
+    kernels = records["12b-drift-base-int8-ap"]["kernels"]
+    log("12b-int8-kernels-vs-plain", ok=True, card=gpu_name_and_power(), **kernels)
+    records["12c-exact-matching"] = exact_matching_phase(torch, dev)
+    log("12c-exact-matching", ok=True, **records["12c-exact-matching"])
+    log("12-learning-loop", ok=True, seconds=time.perf_counter() - t0)
+    return records
+
+
 def max_rel(a, b) -> float:
     """max |a - b| over max |b|."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -4626,6 +4896,15 @@ def main() -> int:
         **{k: dist_records[k]["seconds"] for k in ("10a", "10b", "10c")})
     int8_rows = int8_phase(torch, batch, seconds, bf16_s,
                         serving_records["9a"]["throughput f32 default"]["session_clips_per_s"])
+    learning = learning_phase(torch)
+    int8_ap = learning["12b-drift-base-int8-ap"]
+    for row in int8_rows:  # K8's and K9's launches and times on phase 12b's path
+        row["phase12_launches"] = {"12b int8 AP (fit + val0)": int8_ap["launches"][row["name"]]}
+        row["phase12"] = {
+            "per": f"one int8 forward of quant_ap_check's path ({DRIFT_BATCH} images at "
+                   "128x192, the trained drift_base checkpoint), f32 out",
+            **int8_ap["kernels"]["per_forward"][row["name"]],
+            "calls": int8_ap["kernels"]["calls"][row["name"]]}
     phase8_launches = {
         name: {"8a single-frame script": single_totals.get(name, 0),
                "8b tracker eval": tracker_totals.get(name, 0),

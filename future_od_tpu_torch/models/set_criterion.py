@@ -1,11 +1,11 @@
-"""DETR set-prediction criterion (port of future_od_tpu/models/set_criterion.py,
-box losses only: the mask losses are not ported yet).
+"""DETR set-prediction criterion (port of future_od_tpu/models/set_criterion.py).
 
 Targets stay in the dense (B, Nmax) slot layout with an active mask. Before
 the cost build, active slots are gathered to the front and cut to
 `cost_slots` (`compact_targets`); all levels are matched in one batched
 solve; loss math runs in f32. `num_boxes` is the batch's active-target count
-before compaction, floored at 1.
+before compaction, floored at 1. With `masks`, the final level of an output
+that carries `pred_masks` also takes the mask focal and dice losses.
 """
 from __future__ import annotations
 
@@ -16,13 +16,17 @@ import torch
 import torch.nn.functional as F
 
 from future_od_tpu_torch.ops.boxes import box_cxcywh_to_xyxy, elementwise_generalized_box_iou
-from future_od_tpu_torch.ops.losses import class_error, sigmoid_focal_loss
+from future_od_tpu_torch.ops.losses import (
+    class_error,
+    sigmoid_binary_cross_entropy,
+    sigmoid_focal_loss,
+)
 from future_od_tpu_torch.ops.matching import SOLVERS, matching_cost
 
 
 @dataclass(frozen=True)
 class CriterionConfig:
-    """The JAX package's criterion settings (copy), without the mask losses."""
+    """The JAX package's criterion settings (copy)."""
 
     num_classes: int
     cls_loss_coef: float = 2.0
@@ -35,7 +39,9 @@ class CriterionConfig:
     matching_mode: str = "per level"  # | "last level"
     matcher: str = "auction"  # | "hungarian"
     aux_loss: bool = True
-    masks: bool = False
+    masks: bool = False  # the mask focal and dice losses
+    mask_loss_coef: float = 1.0
+    dice_loss_coef: float = 1.0
     # active targets gathered to the front and cut to this many slots before
     # matching (0 disables); overflow is dropped and counted in matcher_dropped
     cost_slots: int = 128
@@ -43,10 +49,6 @@ class CriterionConfig:
     def __post_init__(self):
         assert self.matching_mode in ("per level", "last level")
         assert self.matcher in SOLVERS
-        if self.masks:
-            raise NotImplementedError(
-                "mask losses are not ported yet (ROADMAP.md Queue 1 item 1e)"
-            )
 
 
 def compact_targets(targets: Dict[str, torch.Tensor],
@@ -64,6 +66,10 @@ def compact_targets(targets: Dict[str, torch.Tensor],
         "labels": torch.gather(targets["labels"], 1, order),
         "boxes": torch.gather(targets["boxes"], 1, order[..., None].expand(-1, -1, 4)),
     }
+    if "masks" in targets:
+        masks = targets["masks"]
+        out["masks"] = torch.gather(
+            masks, 1, order[..., None, None].expand(-1, -1, *masks.shape[2:]))
     dropped = (active.sum(-1) - n_cost).clamp(min=0).sum().float()
     return out, dropped
 
@@ -106,6 +112,63 @@ def _level_losses(outputs, targets, pred_idx, num_boxes, cfg: CriterionConfig,
             matched_logits = torch.gather(logits, 1, gather_idx[..., None].expand(-1, -1, C))
             losses["class_error"] = class_error(matched_logits, targets["labels"].long(), matched)
     return losses
+
+
+def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """(in_size, out_size) f32 weights of jax.image.resize's "linear" method
+    along one axis: the triangle kernel at half-pixel centres, widened by
+    in/out when the axis shrinks (JAX antialiases, where
+    F.interpolate(mode="bilinear") would sample two pixels), each column
+    normalized to sum 1."""
+    inv_scale = 1.0 / (out_size / in_size)
+    sample_f = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(in_size, dtype=torch.float32, device=device)[:, None]
+         ).abs() / max(inv_scale, 1.0)
+    weights = (1.0 - x).clamp(min=0.0)
+    total = weights.sum(0, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, 0.0)
+
+
+def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """(..., h, w) -> (..., H, W) as jax.image.resize(method="linear")
+    resizes, up or down along each axis (an axis of equal size is kept)."""
+    h, w = x.shape[-2:]
+    if h != size[0]:
+        x = torch.einsum("...hw,hH->...Hw", x, _resize_weights(h, size[0], x.device))
+    if w != size[1]:
+        x = torch.einsum("...hw,wW->...hW", x, _resize_weights(w, size[1], x.device))
+    return x
+
+
+def _mask_losses(outputs, targets, pred_idx, num_boxes,
+                 cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
+    """Mask focal and dice losses of the final level. outputs["pred_masks"]
+    (B, M, h, w) logits; targets["masks"] (B, N, H, W) 0/1 in the boxes'
+    slot layout. Each slot's matched prediction is resized to the target's
+    size (`resize_linear`); unmatched and inactive slots count in neither
+    loss."""
+    src = outputs["pred_masks"].float()
+    tgt = targets["masks"].float()
+    B, M = src.shape[:2]
+    N = tgt.shape[1]
+    matched = targets["active"] & (pred_idx < M)  # (B, N)
+    gather_idx = pred_idx.clamp(0, M - 1)
+    src = torch.gather(src, 1, gather_idx[:, :, None, None].expand(-1, -1, *src.shape[2:]))
+    src = resize_linear(src, tuple(tgt.shape[-2:])).reshape(B, N, -1)
+    tgt = tgt.reshape(B, N, -1)
+
+    prob = torch.sigmoid(src)
+    ce = sigmoid_binary_cross_entropy(src, tgt)
+    p_t = prob * tgt + (1.0 - prob) * (1.0 - tgt)
+    alpha_t = cfg.focal_alpha * tgt + (1.0 - cfg.focal_alpha) * (1.0 - tgt)
+    focal = (alpha_t * ce * (1.0 - p_t) ** 2).mean(-1)  # one a slot
+    loss_mask = torch.where(matched, focal, 0.0).sum() / num_boxes
+    dice = 1.0 - (2.0 * (prob * tgt).sum(-1) + 1.0) / (prob.sum(-1) + tgt.sum(-1) + 1.0)
+    loss_dice = torch.where(matched, dice, 0.0).sum() / num_boxes
+    return {"loss_mask": loss_mask, "loss_dice": loss_dice}
 
 
 def matching_costs_all(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
@@ -155,6 +218,8 @@ def set_criterion(outputs: Dict[str, Any], targets: Dict[str, torch.Tensor],
                    else [pred_idx] * len(aux))
 
     losses = _level_losses(outputs, targets, pred_idx, num_boxes, cfg, log=True)
+    if cfg.masks and "pred_masks" in outputs:  # the final level only, as in DETR
+        losses.update(_mask_losses(outputs, targets, pred_idx, num_boxes, cfg))
     for i, lvl in enumerate(aux):
         aux_losses = _level_losses(lvl, targets, aux_idx[i], num_boxes, cfg, log=False)
         losses.update({f"{k}_{i}": v for k, v in aux_losses.items()})
@@ -171,6 +236,9 @@ def weighted_total(losses: Dict[str, torch.Tensor], cfg: CriterionConfig, num_au
     base = {"loss_ce": cfg.cls_loss_coef, "loss_bbox": cfg.bbox_loss_coef,
             "loss_giou": cfg.giou_loss_coef}
     weights = dict(base)
+    if cfg.masks:
+        weights["loss_mask"] = cfg.mask_loss_coef
+        weights["loss_dice"] = cfg.dice_loss_coef
     for i in range(num_aux):
         weights.update({f"{k}_{i}": v for k, v in base.items()})
     total = sum(losses[k] * w for k, w in weights.items() if k in losses)

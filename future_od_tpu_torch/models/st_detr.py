@@ -194,6 +194,14 @@ def compute_loss(annotated_output: Dict[str, Any], data: Dict[str, torch.Tensor]
     output against the batch's dense xyxy pixel targets."""
     H, W = video_hw(data["video"])
     targets = to_detr_targets(H, W, data["active"], data["boxes"], data["classes"])
+    if criterion_cfg.masks:
+        # mask targets do not follow from the boxes: the batch carries them
+        if "masks" not in data:
+            raise ValueError(
+                "criterion_cfg.masks=True requires dense mask targets in the batch: "
+                "data['masks'] with shape (B, N, H, W) aligned to the boxes/classes slots "
+                "(no bundled dataset emits them)")
+        targets = {**targets, "masks": data["masks"]}
     losses = set_criterion(annotated_output, targets, criterion_cfg, pred_idx_all, num_boxes)
     num_aux = len(annotated_output.get("aux_outputs", []))
     total, weights = weighted_total(losses, criterion_cfg, num_aux)

@@ -4,10 +4,8 @@ future_od_tpu/models/tracker.py): host-side numpy.
 Detections of two neighbouring frames are assigned by the exact linear sum
 assignment of a center-distance + class-disparity cost, and the matched box
 centers (and optionally dimensions) are extrapolated to the future frame.
-The assignment is scipy's (`scipy.optimize.linear_sum_assignment`), which is
-what the JAX module computes when its native solver (`native/lap.cpp`) is
-not built; the port's loader of that solver is ROADMAP.md Queue 1 item
-1d.
+The assignment is the exact Jonker-Volgenant solver of `ops/native_lap.py`,
+as in the JAX module.
 """
 from __future__ import annotations
 
@@ -15,17 +13,11 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from future_od_tpu_torch.ops import native_lap
+
 
 def _sigmoid(x):
     return 1.0 / (1.0 + np.exp(-x))
-
-
-def linear_sum_assignment(cost: np.ndarray):
-    """(row_ind, col_ind) of the min-cost assignment of an (M, N) matrix,
-    solved in float64 (scipy's contract)."""
-    import scipy.optimize
-
-    return scipy.optimize.linear_sum_assignment(np.ascontiguousarray(cost, dtype=np.float64))
 
 
 class TrackerFuturePredictor:
@@ -57,7 +49,7 @@ class TrackerFuturePredictor:
 
         mapping = np.full((B, M), -1, np.int64)
         for b in range(B):
-            rows, cols = linear_sum_assignment(cost[b])
+            rows, cols = native_lap.linear_sum_assignment(cost[b])
             mapping[b, rows] = cols
 
         if temporal_offsets is None:

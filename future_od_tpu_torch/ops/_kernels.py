@@ -16,9 +16,9 @@ increments where it launches the kernel and nowhere else; `chip_smoke.py`
 reads them to show the main path went through the kernels.
 
 The host libraries (`HOST_LIBRARIES`: the JPEG decoder, the resizes and the
-normalization)
-are plain C++ built with g++, which both the CPU-only test machines and the
-card's machine have, so they run and are tested everywhere.
+normalization; the exact assignment solver) are plain C++ built with g++,
+which both the CPU-only test machines and the card's machine have, so they
+run and are tested everywhere.
 
 Nothing here runs at import time: the CPU tests import every module, and
 a machine without a card has no nvcc.
@@ -128,6 +128,9 @@ HOST_LIBRARIES: Dict[str, Dict[str, tuple]] = {
         # src uint8, pixels, channels, mean, std, dst float32
         "fod_normalize_u8": ([_P, ctypes.c_int64, _I, _P, _P, _P], None),
     },
+    # the exact assignment solver (ops/native_lap.py): rows, cols, cost
+    # (rows, cols) float64, int32 column of each row out
+    "lap": {"lap_solve": ([_I, _I, _P, _P], _I)},
 }
 # entry points that launch no kernel, so have no launch counter
 QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info", "fod_flash_train_info",

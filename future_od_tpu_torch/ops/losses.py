@@ -1,6 +1,6 @@
 """Loss primitives (port of future_od_tpu/ops/losses.py): the DETR sigmoid
-focal loss and the class error of matched predictions. The mask (dice)
-losses are not ported yet."""
+focal loss, the dice loss of masks and the class error of matched
+predictions."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +22,15 @@ def sigmoid_focal_loss(logits, targets, num_boxes, alpha: float = 0.25,
     if alpha >= 0:
         loss = (alpha * targets + (1.0 - alpha) * (1.0 - targets)) * loss
     return loss.mean(dim=1).sum() / num_boxes
+
+
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor, num_boxes) -> torch.Tensor:
+    """DICE/F-1 loss of (N, HW) flattened mask logits against 0/1 targets,
+    summed over the masks and divided by num_boxes."""
+    probs = torch.sigmoid(logits)
+    numerator = 2.0 * (probs * targets).sum(dim=1)
+    denominator = probs.sum(dim=1) + targets.sum(dim=1)
+    return (1.0 - (numerator + 1.0) / (denominator + 1.0)).sum() / num_boxes
 
 
 def class_error(matched_logits, matched_classes, valid) -> torch.Tensor:

@@ -11,8 +11,8 @@
   every tie goes to the lowest index (JAX's argmax and top_k order), so the
   indices equal JAX's. The loop is Python, with one host read per round for
   its stop test.
-- `hungarian_assignment` is the exact arm: scipy's linear_sum_assignment per
-  image over its active columns.
+- `hungarian_assignment` is the exact arm: the Jonker-Volgenant solver of
+  `ops/native_lap.py` (C++ on the host) per image over its active columns.
 
 Contract of both solvers: (B, N) int64 query index per target slot, M for
 unmatched or inactive slots.
@@ -23,8 +23,8 @@ from typing import Dict
 
 import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
+from future_od_tpu_torch.ops import native_lap
 from future_od_tpu_torch.ops.boxes import box_cxcywh_to_xyxy, generalized_box_iou
 
 NEG_INF = -1e30
@@ -107,20 +107,27 @@ def auction_assignment(cost: torch.Tensor, active: torch.Tensor, max_iters: int 
     return (idx, rounds) if return_rounds else idx
 
 
-def hungarian_assignment(cost: torch.Tensor, active: torch.Tensor, return_rounds: bool = False):
-    """Exact assignment on the host, per image over its active columns
-    (scipy). Same contract as `auction_assignment`; rounds are 0."""
+def hungarian_host(cost: np.ndarray, active: np.ndarray) -> np.ndarray:
+    """The exact assignment of (B, M, N) f32 costs over each image's active
+    columns ((B, N) bool): (B, N) int64 query index per slot, M where
+    unmatched or inactive (the JAX package's `_hungarian_host`)."""
     B, M, N = cost.shape
-    cost_np = cost.detach().float().cpu().numpy()
-    active_np = active.bool().cpu().numpy()
     out = np.full((B, N), M, dtype=np.int64)
     for b in range(B):
-        cols = np.nonzero(active_np[b])[0]
+        cols = np.nonzero(active[b])[0]
         if len(cols) == 0:
             continue
-        rows, sub_cols = linear_sum_assignment(cost_np[b][:, cols])
+        rows, sub_cols = native_lap.linear_sum_assignment(cost[b][:, cols])
         out[b, cols[sub_cols]] = rows
-    idx = torch.from_numpy(out).to(cost.device)
+    return out
+
+
+def hungarian_assignment(cost: torch.Tensor, active: torch.Tensor, return_rounds: bool = False):
+    """Exact assignment on the host (`hungarian_host`). Same contract as
+    `auction_assignment`; rounds are 0."""
+    B = cost.shape[0]
+    idx = torch.from_numpy(hungarian_host(cost.detach().float().cpu().numpy(),
+                                          active.bool().cpu().numpy())).to(cost.device)
     if return_rounds:
         return idx, torch.zeros((B,), dtype=torch.int32, device=cost.device)
     return idx

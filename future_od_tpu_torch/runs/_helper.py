@@ -198,7 +198,7 @@ def add_tpu_args(parser):
     parser.add_argument(
         "--matcher", default="auction", choices=["auction", "hungarian"],
         help="set-matching solver (auction = on the device, hungarian = exact, "
-        "scipy on the host)",
+        "the C++ Jonker-Volgenant solver on the host)",
     )
     parser.add_argument(
         "--cost_slots", default=128, type=int,

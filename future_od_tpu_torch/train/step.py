@@ -1,6 +1,7 @@
 """Train, eval and inference steps (port of future_od_tpu/train/step.py:
-`make_train_step`, `make_eval_step`, `make_tracker_eval_step`,
-`make_grad_report` with `dead_param_names`, and `make_inference_fn`).
+`make_train_step`, `make_eval_step`, `make_host_matched_steps`,
+`make_tracker_eval_step`, `make_grad_report` with `dead_param_names`, and
+`make_inference_fn`).
 
 One train step: forward in training mode -> matching + set loss -> backward
 -> global-norm clip -> AdamW -> post-processing -> mAP intermediaries. The
@@ -8,8 +9,9 @@ non-finite guard keeps the old parameters and optimizer state when the
 global gradient norm is not finite. An eval step is the forward in eval mode,
 the loss over every decoder level (the JAX model returns the aux levels in
 eval too) and the same post-processing. The train step takes the JAX
-package's mixed precision and exact gradient accumulation; the host-matched
-steps are not ported yet.
+package's mixed precision and exact gradient accumulation. The host-matched
+steps are these steps with the criterion's exact matcher, which solves every
+level on the host (`ops/matching.py::hungarian_assignment`).
 
 Data parallelism (`mesh=`, a `parallel/mesh.py` mesh whose data axis is the
 ranks of a process group): the JAX package runs one program over the global
@@ -26,6 +28,7 @@ rows. Each rank draws its own dropout (the rank is folded into the seed).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -71,17 +74,19 @@ def forward_and_loss(model: torch.nn.Module, criterion_cfg: CriterionConfig,
 
 
 def half_forward_and_loss(model: torch.nn.Module, criterion_cfg: CriterionConfig,
-                          data: Dict[str, torch.Tensor], pred_idx_all=None, num_boxes=None):
-    """forward_and_loss in training mode under the JAX package's mixed
-    precision: the forward on bf16 copies of every f32 parameter and buffer
-    under jnp's type promotion (`models/precision.py`), f32 video cast to
-    bf16 and uint8 video left uint8 (the JAX `_to_half` and `_cast_data`).
-    The criterion, which casts its inputs to f32, runs as in f32; the
-    gradients land in f32 on the master parameters."""
+                          data: Dict[str, torch.Tensor], pred_idx_all=None, num_boxes=None,
+                          aux_levels: bool = False):
+    """forward_and_loss under the JAX package's mixed precision: the forward
+    on bf16 copies of every f32 parameter and buffer under jnp's type
+    promotion (`models/precision.py`), f32 video cast to bf16 and uint8 video
+    left uint8 (the JAX `_to_half` and `_cast_data`). The criterion, which
+    casts its inputs to f32, runs as in f32; the gradients land in f32 on
+    the master parameters."""
     if data["video"].dtype == torch.float32:
         data = dict(data, video=data["video"].to(torch.bfloat16))
     with jax_promotion():
-        out = torch.func.functional_call(model, half_state(model), (data,))
+        out = torch.func.functional_call(model, half_state(model), (data,),
+                                         {"aux_levels": aux_levels})
     return loss_of_outputs(out, data, criterion_cfg, pred_idx_all, num_boxes)
 
 
@@ -380,6 +385,44 @@ def make_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     return eval_step
 
 
+def make_host_matched_steps(model: torch.nn.Module, criterion_cfg: CriterionConfig,
+                            optimizer: Optional[AdamWClipped], mixed_precision: bool = False,
+                            device: DeviceLike = None,
+                            mesh: Optional[Mesh] = None) -> Tuple[Optional[Callable], Callable]:
+    """Exact-matching train and eval steps (the JAX package's split around a
+    host solve, for backends without host callbacks): `make_train_step` and
+    an eval step with the criterion's matcher set to "hungarian", whatever
+    `criterion_cfg.matcher` says, so every level is solved by the exact
+    solver on the host between the forward and the loss. Eager torch calls
+    the host inline, so one forward serves the costs and the loss (the JAX
+    package runs it twice on one dropout stream).
+
+    Returns (train_step, or None when `optimizer` is None, eval_step), with
+    `make_train_step`'s and `make_eval_step`'s signatures and products. The
+    train step keeps the non-finite guard on; `mixed_precision` runs both
+    steps' forwards in bf16, as the JAX pair does. `mesh`: data parallelism
+    over the ranks, as `make_eval_step`'s; each rank solves its own rows
+    (the matching is per image, so the indices are the global solve's)."""
+    device = resolve_device(device)
+    mesh = data_parallel(mesh)
+    exact = dataclasses.replace(criterion_cfg, matcher="hungarian")
+    train_step = None if optimizer is None else make_train_step(
+        model, exact, optimizer, skip_nonfinite=True, device=device,
+        mixed_precision=mixed_precision, mesh=mesh)
+
+    def loss_fn(batch, num_boxes):
+        fn = half_forward_and_loss if mixed_precision else forward_and_loss
+        return fn(model, exact, batch, num_boxes=num_boxes, aux_levels=True)
+
+    def eval_step(data: Optional[Dict[str, Any]]):
+        model.eval()
+        with torch.no_grad():
+            return _eval_result(None if data is None else to_device_batch(data, device), mesh,
+                                device, loss_fn)
+
+    return train_step, eval_step
+
+
 def make_tracker_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfig, tracker,
                            host_matched: bool = False, device: DeviceLike = None,
                            mesh: Optional[Mesh] = None) -> Callable:
@@ -390,14 +433,13 @@ def make_tracker_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfi
     `tracker` (models/tracker.py) on the last two of them as numpy, then the
     loss, post-processing and mAP intermediaries of its extrapolated future
     prediction back on the device. `host_matched=True` (the JAX package's
-    split around a host matcher, for backends without host callbacks) is
-    not ported and raises NotImplementedError. `mesh`: as `make_eval_step`'s."""
-    if host_matched:
-        raise NotImplementedError(
-            "make_tracker_eval_step(host_matched=True), the host-matched split of the step, "
-            "is not ported (ROADMAP.md Queue 1 item 1c)")
+    split for backends without host callbacks) matches the prediction by
+    the criterion's exact matcher on the host, whatever
+    `criterion_cfg.matcher` says. `mesh`: as `make_eval_step`'s."""
     device = resolve_device(device)
     mesh = data_parallel(mesh)
+    if host_matched:
+        criterion_cfg = dataclasses.replace(criterion_cfg, matcher="hungarian")
 
     def loss_fn(batch, num_boxes):
         preds = model(batch)["per_frame_preds"]

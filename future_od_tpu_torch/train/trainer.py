@@ -151,6 +151,7 @@ class Trainer:
             )
         self._grad_report = None  # built by the first _grad_audit
         self._dropped_warned = False  # one-shot cost_slots overflow warning
+        self._last_ap = None  # the AP of the latest epoch of any mode
         # the AP of each mode's latest epoch; a mode that never aggregated
         # gives a KeyError naming it
         self._ap_by_mode: Dict[str, Any] = {}
@@ -429,6 +430,7 @@ class Trainer:
             np.concatenate(size_cats, axis=2),
             np.stack(num_annos, axis=2),
         )
+        self._last_ap = ap
         self._ap_by_mode[mode] = ap
         self._print("AP50 for epoch is:", " ".join(f"{v:.3f}" for v in ap["all"][0, :, 0]))
         self._print("MAP for epoch is:", " ".join(f"{v:.3f}" for v in ap["threshavg"][:, 0]))

@@ -833,3 +833,89 @@ def test_int8_flagship_trunk_equals_plain(cuda, np_rng, monkeypatch, static):
     infer(batch)
     assert not any(_kernels.launch_counts[n] for n in ("int8_conv", k9.RANGE, k9.QUANTIZE))
     assert torch.equal(trunk[0], trunk[1])
+
+
+def drift_base_trunk_convs():
+    """Every distinct convolution of the single-frame trunk on the drift_base
+    path (quant_ap_check: 16 images at 128x192): (B, H, W, Cin, KH, KW,
+    Cout, stride, padding, dilation, pad value), in trunk order."""
+    from future_od_tpu_torch.models.resnet import ResNet
+
+    with torch.device("meta"):
+        body = ResNet()
+    B, h, w = 16, 128 // 4, 192 // 4
+    convs = [(B, 128, 192, 3, 7, 7, 64, 2, ((3, 3), (3, 3)), 1, 0)]
+    for s in range(1, body.num_stages + 1):
+        for blk in getattr(body, f"layer{s}"):
+            d, st = blk.dilation, blk.stride
+            h2, w2 = (h - 1) // st + 1, (w - 1) // st + 1
+            for conv, hh, ww, stride, pad, dil in (
+                    (blk.conv1, h, w, 1, ((0, 0), (0, 0)), 1),
+                    (blk.conv2, h, w, st, ((d, d), (d, d)), d),
+                    (blk.conv3, h2, w2, 1, ((0, 0), (0, 0)), 1),
+                    (blk.downsample[0] if blk.downsample is not None else None, h, w, st,
+                     ((0, 0), (0, 0)), 1)):
+                if conv is not None:
+                    convs.append((B, hh, ww, conv.in_channels, *conv.kernel_size,
+                                  conv.out_channels, stride, pad, dil, -128))
+            h, w = h2, w2
+    return list(dict.fromkeys(convs))
+
+
+DRIFT_BASE_CONVS = drift_base_trunk_convs()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DRIFT_BASE_CONVS, ids=str)
+def test_int8_conv_drift_base_shapes(cuda, dtype, shape):
+    """K8 at every distinct convolution of the 128x192 batch-16 trunk, bit
+    for bit: the TMA 1x1s of layer4 with far fewer tiles than SMs (4x6 maps,
+    384 pixels), the gathered 3x3s whose padding covers most of a 4x6
+    window, the stem on 16x128x192x3."""
+    from future_od_tpu_torch.ops import int8_conv as k8
+
+    B, H, W, C, KH, KW, Co, s, p, d, pad = shape
+    g = torch.Generator(device=cuda).manual_seed(B * H * W + C * Co + KH)
+    q = torch.randint(-128, 128, (B, H, W, C), dtype=torch.int8, device=cuda, generator=g)
+    wq = torch.randint(-127, 128, (KH, KW, C, Co), dtype=torch.int8, device=cuda, generator=g)
+    w = k8.pack_int8_weights(wq)
+    block = pad == -128
+    zp = k8.zero_point_correction(wq) if block else None
+    sw = torch.rand(Co, device=cuda, generator=g) * 1e-4
+    bias = torch.randn(Co, device=cuda, generator=g)
+    out = k8.int8_conv_codes(q, w, zp, sw, bias, (s, s), p, (d, d), pad, block, dtype)
+    ref = k8.int8_conv_plain(q, w.wt, zp, sw, bias, (KH, KW), (s, s), p, (d, d), pad, block,
+                             dtype)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted({(c[0], c[1], c[2], c[3], c[10] == -128)
+                                          for c in DRIFT_BASE_CONVS}), ids=str)
+def test_int8_quantize_drift_base_ranges(cuda, dtype, shape):
+    """K9 at every distinct convolution input of the same trunk, at the
+    ranges of the JAX package's trained drift_base checkpoint (activations
+    up to about 1e15, channels 10-60x apart): the range (of |x| and of x)
+    and the codes, with the dynamic path's m and scale, bit-equal to their
+    plain versions."""
+    from future_od_tpu_torch.ops import int8_quantize as k9
+
+    B, H, W, C, zero_point = shape
+    g = torch.Generator(device=cuda).manual_seed(B * H * W + C)
+    spread = torch.where(torch.rand(C, device=cuda, generator=g) < 0.05,
+                         10.0 + 50.0 * torch.rand(C, device=cuda, generator=g),
+                         torch.rand(C, device=cuda, generator=g) + 0.1)
+    x = torch.randn((B, H, W, C), device=cuda, generator=g) * spread
+    if zero_point:
+        x = torch.relu(x)
+    x = (x * (1e15 / x.abs().amax())).to(dtype)  # the largest |x| at 1e15
+    for absolute in (True, False):
+        assert torch.equal(k9.channel_range(x, absolute), k9.channel_range_plain(x, absolute))
+    amax = k9.channel_range(x)
+    assert 0.99e15 < amax.max().item() < 1.01e15
+    m = torch.sqrt(amax.clamp_min(1e-5))  # a smoothing factor a channel, as the path's
+    scale = ((amax / m).max() / (255.0 if zero_point else 127.0)).reshape(())
+    for mm in (m, None):
+        sc = scale if mm is not None else (amax.max() / (255.0 if zero_point else 127.0)).reshape(())
+        assert torch.equal(k9.quantize_codes(x, mm, sc, zero_point),
+                           k9.quantize_codes_plain(x, mm, sc, zero_point))

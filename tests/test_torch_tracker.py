@@ -4,7 +4,7 @@ at L=1 and L=3, `build_tracker_baseline` at L=1 (one detection) and L=3
 (`per_frame_preds`), their parameter trees against JAX's key for key,
 `TrackerFuturePredictor` for each box-size mode with and without temporal
 offsets, `make_tracker_eval_step`'s loss, stats, AP intermediaries and
-output against JAX's on a synthetic batch, the refusal of its host-matched
+output against JAX's on a synthetic batch, with and without its host-matched
 split, and `models/shared_modules.py`'s modules with weights.
 
 The models are tests/test_torch_variants.py's tiny ones (its helpers and
@@ -126,13 +126,25 @@ def tracker_step_case():
 
 
 def test_tracker_eval_step_equals_jax(tracker_step_case):
+    check_tracker_eval_step(tracker_step_case, host_matched=False)
+
+
+def test_tracker_eval_step_host_matched_equals_jax(tracker_step_case):
+    """The host-matched split: the exact solver on the host between the
+    tracker and the loss, as JAX's make_tracker_eval_step(host_matched=True)."""
+    check_tracker_eval_step(tracker_step_case, host_matched=True)
+
+
+def check_tracker_eval_step(tracker_step_case, host_matched):
     port, jmodel, variables, data, args = tracker_step_case
     cfg = JaxArgs(**args).criterion_config()
     state = TrainState(variables["params"], variables["frozen"], None, jnp.int32(0))
-    ref = jax.tree.map(np.asarray, jax_make_tracker_eval_step(jmodel, cfg, JaxTracker("linear"))(
-        state, {k: jnp.asarray(v) for k, v in data.items()}))
+    ref = jax.tree.map(np.asarray, jax_make_tracker_eval_step(
+        jmodel, cfg, JaxTracker("linear"), host_matched=host_matched)(
+            state, {k: jnp.asarray(v) for k, v in data.items()}))
     out = make_tracker_eval_step(port, SpatioTemporalDETRArgs(**args).criterion_config(),
-                                 TrackerFuturePredictor("linear"), device="cpu")(data)
+                                 TrackerFuturePredictor("linear"), host_matched=host_matched,
+                                 device="cpu")(data)
     (loss, stats, od_map, output), (jloss, jstats, jmap, jout) = out, ref
     np.testing.assert_allclose(float(loss), float(jloss), rtol=STEP_RTOL)
     assert set(stats) == set(jstats)
@@ -148,13 +160,6 @@ def test_tracker_eval_step_equals_jax(tracker_step_case):
         assert output[key].shape == jout[key].shape
         np.testing.assert_allclose(output[key].numpy(), jout[key],
                                    atol=CONF_ATOL if key == "class_scores" else BOX_ATOL)
-
-
-def test_tracker_eval_step_refuses_the_host_matched_split(tracker_step_case):
-    port, *_, args = tracker_step_case
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 1c"):
-        make_tracker_eval_step(port, SpatioTemporalDETRArgs(**args).criterion_config(),
-                               TrackerFuturePredictor(), host_matched=True, device="cpu")
 
 
 def linear_from(kernel, bias=None):
