@@ -214,6 +214,22 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    10c. the session and the server over a mesh of two devices (both cards,
    or the one card listed twice) at phase 9's sizes, fused gates, against
    the unsharded ones within phase 3's tolerances; clips/s of each.
+   10d. tensor parallelism: torchrun starts 2 ranks of this file's
+   `--phase10d-rank` role, a (1, 2) mesh (gloo with both ranks on one
+   card), the flagship at full width cut over the model axis (4 of 8 heads
+   and half of every FFN a rank, `parallel/mesh.py::shard_model`), each rank
+   on all TP_BATCH clips at stage 1 (448x800). One step at dropout 0 and
+   one at TP_DROPOUT with K4-K6 (their dropout hashing the global heads),
+   each against one process's step on the same weights, batch and seed
+   (rank 0), the one process on the TP step's assignment: the loss within
+   DIST_LOSS_RTOL, each group's largest gradient gap within TP_GRAD_RTOL
+   (10a's form), which a step with a planted fault (copy_to_model's
+   backward without its sum) must exceed; both ranks' assignments equal,
+   and the one process's own recorded beside them. Then an eval at stage 2's size (1400
+   tokens: K1 on 4 heads a rank) against one process's within phase 3's
+   tolerances. K4-K6 and K1 must launch on both ranks; each rank's step ms,
+   its sums over the model group a step (count and MB) and its peak GB
+   beside one process's.
 11. the int8 PTQ backbone (ops/quant.py; every trunk convolution on K8,
    csrc/int8_conv.cu, an implicit GEMM on wgmma m64nNk32 s8 with int32 sums,
    the stride-1 1x1s fed by TMA; each input's range and codes by K9,
@@ -577,7 +593,33 @@ DIST_GRAD_RTOL = {"separate_encoder": 9.4e-5, "detector": 2.8e-4}
 # the 2-rank eval's AP dict against one process's on the same checkpoint
 # (measured equal on the H100; the CPU tests' AP tolerance)
 DIST_AP_ATOL = 1e-6
-RANK_ROLES = ("--phase10a-rank", "--phase10b-rank")
+# Phase 10d: two ranks of a (1, 2) mesh, each on all TP_BATCH clips at stage
+# 1; the eval at stage 2's size on TP_EVAL_BATCH clips
+TP_RANKS, TP_BATCH, TP_EVAL_BATCH, TP_DROPOUT = 2, 8, 2, 0.1
+TP_TIMEOUT_S = 420
+# 10d's gradients against one process's, on the TP step's assignment: the
+# auction's answer moves with a last-bit change of the costs where bids
+# nearly tie (at dropout 0 the one process's own assignment differs from
+# the TP step's in 14 slots, at 0.1 in none), and a slot given to another
+# query moves that query's gradients by their own size. Each group's
+# largest gap over its largest gradient (10a's form), 10x the larger of the
+# two steps' gaps measured on an H100 (encoder 7.4e-5 at dropout 0.1,
+# detector 7.5e-6 at 0). The encoder's is above 10a's: the cut sums every
+# row-parallel projection in two parts where 10a's cut sums only the
+# gradients of two halves of the batch. A step with a planted fault
+# (copy_to_model's backward without its sum) measured 0.92 / 0.35, and 10d
+# requires it to exceed these bounds.
+TP_GRAD_RTOL = {"separate_encoder": 7.4e-4, "detector": 7.5e-5}
+# a 10d rank's launches: a train step's (K4-K6 on the 6 encoder and 12
+# decoder attentions, as one process's) and the stage-2 eval's (K1 on the 6
+# encoder self-attentions)
+TP_STEP_LAUNCHES = {name: 18 for name in ("flash_train_fwd", "flash_train_dq", "flash_train_dkv")}
+TP_EVAL_LAUNCHES = {"flash_attention": 6}
+# 10d's head-share check in phase 1b, at 10d's attentions (label, clips x
+# frames of the encoder or clips of the decoder, Nq, Nk, d, dv)
+TP_ATTENTIONS = (("encoder", TP_BATCH * 2, TRAIN_TOKENS, TRAIN_TOKENS, 32, 32),
+                 ("decoder", TP_BATCH, 128, TRAIN_TOKENS, 64, 32))
+RANK_ROLES = ("--phase10a-rank", "--phase10b-rank", "--phase10d-rank")
 
 
 def log(phase: str, **fields) -> None:
@@ -1002,7 +1044,8 @@ def kernel_phase(torch, dev):
 
 def train_kernel_phase(torch, dev):
     """Phase 1b on device `dev`: K4-K7 against their plain versions at the
-    stage-1 training shapes. Returns per-kernel records."""
+    stage-1 training shapes, and K4-K6 over a share of the heads against the
+    all-heads call (`head_share_check`). Returns per-kernel records."""
     from future_od_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1074,6 +1117,9 @@ def train_kernel_phase(torch, dev):
                     records[name].append(rec)
         log("kernel-saturated-logits", attention=label,
             **saturated_logits_check(torch, fa, gen, BH, Nq, Nk, d, dv, seed))
+    for label, B, Nq, Nk, d, dv in TP_ATTENTIONS:
+        log("kernel-head-share", attention=label,
+            **head_share_check(torch, fa, gen, B, Nq, Nk, d, dv, seed))
         paths[label] = autograd_paths(torch, fa, q32, k32, v32, do32, scale,
                                       (seed, scale, 0.1, nq_pad, nk_pad))
 
@@ -1231,6 +1277,56 @@ def head_dims_phase(torch, dev):
     torch.cuda.empty_cache()
     return {"max_abs_err": errs, "narrow_flagship": {"launches": counts, **gaps,
                                                      "tolerances": NARROW_TOLS}}
+
+
+def head_share_check(torch, fa, gen, B, Nq, Nk, d, dv, seed, rate=0.1):
+    """K4-K6 over heads h0..h0+4 of 8 (`heads=(4, 8, h0)`, a tensor-parallel
+    rank's call) against the all-heads call on (B, 8, N, w) operands, f32
+    and bf16, rate 0.1 and 0: each kernel's outputs bit for bit where both
+    calls take the same split, within phase 1b's tolerance where they do
+    not; and the defaults (no `heads`) bit-equal to heads=(8, 8, 0).
+    Returns the splits and, per output, whether it was bit-equal."""
+    H, share = 8, 4
+    nq_pad, nk_pad = fa.train_shapes(Nq, Nk, 256, 512)
+    q32, k32, v32, do32 = (torch.randn(B, H, n, w, generator=gen, device=gen.device)
+                           for n, w in ((Nq, d), (Nk, d), (Nk, dv), (Nq, dv)))
+    splits = {name: [fa.flash_train_info(name, d, dv, torch.float32, bh, Nq, Nk)["split"]
+                     for bh in (B * H, B * share)] for name in TRAIN_KERNELS}
+    outputs = (("out", "flash_train_fwd"), ("lse", "flash_train_fwd"), ("dq", "flash_train_dq"),
+               ("dk", "flash_train_dkv"), ("dv", "flash_train_dkv"))
+    bit_equal = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+        for r in (rate, 0.0):
+            args = (seed, 1.0 / math.sqrt(d), r, nq_pad, nk_pad)
+
+            def calls(heads, part):
+                qs, ks, vs, dos = (t[:, part] for t in (q, k, v, do))
+                out, lse = fa.flash_train_fwd(qs, ks, vs, *args, heads=heads)
+                delta = (dos.float() * out.float()).sum(-1)
+                dq = fa.flash_dq(qs, ks, vs, dos, lse, delta, *args, heads=heads)
+                dk, dvv = fa.flash_dkv(qs, ks, vs, dos, lse, delta, *args, heads=heads)
+                return out, lse, dq, dk, dvv
+
+            full = calls(None, slice(None))
+            if not all(torch.equal(a, b) for a, b in zip(full, calls((H, H, 0), slice(None)))):
+                raise AssertionError(f"head share: the defaults differ from heads=(8, 8, 0), "
+                                     f"{dtype} rate {r}")
+            for h0 in (0, share):
+                got = calls((share, H, h0), slice(h0, h0 + share))
+                for (name, kernel), a, b in zip(outputs, got, full):
+                    b = b[:, h0:h0 + share]
+                    tag = f"head share {name} h0 {h0} {str(dtype).split('.')[1]} rate {r}"
+                    equal = torch.equal(a, b)
+                    if splits[kernel][0] == splits[kernel][1] and not equal:
+                        raise AssertionError(f"{tag}: differs from the all-heads call's slice "
+                                             f"at one split {splits[kernel]}")
+                    if not equal:
+                        check_close(tag, a, b, "float32" if a.dtype == torch.float32
+                                    else "bfloat16")
+                    bit_equal[name] = bit_equal.get(name, True) and equal
+    return {"shape": [B, H, Nq, Nk, d, dv], "splits_full_vs_share": splits,
+            "bit_equal": bit_equal}
 
 
 def saturated_logits_check(torch, fa, gen, BH, Nq, Nk, d, dv, seed, rate=0.1):
@@ -1486,11 +1582,12 @@ def make_batch(seed: int):
     return batch
 
 
-def make_train_batch(seed: int, batch: int = TRAIN_BATCH):
-    """bench_train.py's fabricated stage-1 batch of `batch` clips: centers
-    scattered over the image, log-normal sizes, 10% of the 256 slots
-    active, 8 classes."""
-    B, L, H, W, N = batch, FRAMES, TRAIN_HEIGHT, TRAIN_WIDTH, TRAIN_SLOTS
+def make_train_batch(seed: int, batch: int = TRAIN_BATCH,
+                     size: tuple = (TRAIN_HEIGHT, TRAIN_WIDTH)):
+    """bench_train.py's fabricated stage-1 batch of `batch` clips (at `size`):
+    centers scattered over the image, log-normal sizes, 10% of the 256
+    slots active, 8 classes."""
+    B, L, (H, W), N = batch, FRAMES, size, TRAIN_SLOTS
     rng = np.random.default_rng(seed)
     cxy = rng.uniform(0.05, 0.95, size=(B, N, 2)).astype(np.float32) * [W, H]
     wh = np.exp(rng.normal(4.0, 0.6, size=(B, N, 2))).astype(np.float32)
@@ -3283,14 +3380,14 @@ def write_rank_record(out: str, rank: int, record: dict) -> None:
         json.dump(record, f)
 
 
-def dist_model(torch, args):
+def dist_model(torch, args, dropout: float = 0.0):
     """Phase 5's full-width flagship (seed 0, heads randomized by seed 1) on
-    this rank's card, at dropout 0."""
+    this rank's card, at `dropout`."""
     from future_od_tpu_torch.models.build import build_flagship
 
     model = build_flagship(args, generator=torch.Generator().manual_seed(0))
     randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
-    set_dropout(torch, model, 0.0)
+    set_dropout(torch, model, dropout)
     return model
 
 
@@ -3313,19 +3410,20 @@ def dist_step_grads(torch, args, data, mesh=None):
     return loss.item(), grads, launches, step, model
 
 
-def check_dist_grads(what: str, loss, grads, ref_loss, ref_grads) -> dict:
+def check_dist_grads(what: str, loss, grads, ref_loss, ref_grads, grad_rtol=None) -> dict:
     """The loss and the gradients of a data-parallel step against one
     process's on the same global batch and weights, within DIST_LOSS_RTOL
-    and DIST_GRAD_RTOL."""
+    and `grad_rtol` (default DIST_GRAD_RTOL)."""
+    grad_rtol = grad_rtol or DIST_GRAD_RTOL
     if set(grads) != set(ref_grads):
         raise AssertionError(f"{what}: gradients of {sorted(set(grads) ^ set(ref_grads))[:5]} "
                              "on one side only")
     loss_gap = abs(loss - ref_loss) / abs(ref_loss)
     group_gap = grad_gap_by_group(grads, ref_grads)
     record = {"loss": [loss, ref_loss], "loss_gap": loss_gap, "loss_rtol": DIST_LOSS_RTOL,
-              "grad_gap_by_group": group_gap, "grad_rtol": DIST_GRAD_RTOL,
+              "grad_gap_by_group": group_gap, "grad_rtol": grad_rtol,
               "grad_gap_per_parameter": worst_per_group(gradient_gaps(grads, ref_grads))}
-    if loss_gap > DIST_LOSS_RTOL or any(v > DIST_GRAD_RTOL[k] for k, v in group_gap.items()):
+    if loss_gap > DIST_LOSS_RTOL or any(v > grad_rtol[k] for k, v in group_gap.items()):
         raise AssertionError(f"{what}: {record}")
     return record
 
@@ -3546,6 +3644,195 @@ def dist_train_rank(torch, out: str) -> dict:
     return record
 
 
+def tp_step(torch, args, data, dropout: float, mesh=None):
+    """One f32 train step of `dist_model` at `dropout` on `data`, seed 0,
+    without the clip, the model cut over the model axis of `mesh` (or not):
+    (loss, {name: its full gradient on the host}, the launches, the step,
+    the model, its peak GB)."""
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.parallel.mesh import gather_state_dict, shard_model
+    from future_od_tpu_torch.train.optimizer import build_optimizer
+    from future_od_tpu_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = dist_model(torch, args, dropout)
+    if mesh is not None:
+        shard_model(model, mesh)
+    optimizer = build_optimizer(model, args.lr, args.lr_backbone, max_norm=0.0)
+    step = make_train_step(model, args.criterion_config(), optimizer, mesh=mesh)
+    _kernels.reset_launch_counts()
+    loss, _, _, _ = step(data, 0)
+    torch.cuda.synchronize()
+    launches = launched(_kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    grads = gather_state_dict(model, {n: p.grad for n, p in model.named_parameters()
+                                      if p.grad is not None})
+    return (loss.item(), {n: g.detach().cpu() for n, g in grads.items()}, launches, step,
+            model, peak)
+
+
+@contextlib.contextmanager
+def solver_tap(name: str, forced=None):
+    """Each solve of the matcher `name` appended, on the host, to the list
+    it yields; with `forced` (such a list), its indices returned in place
+    of the solve's, call for call, so the step trains on that assignment."""
+    from future_od_tpu_torch.ops.matching import SOLVERS
+
+    solve = SOLVERS[name]
+    solved = []
+
+    def tapped(costs, active, **kwargs):
+        out = solve(costs, active, **kwargs)
+        idx, rest = (out[0], out[1:]) if isinstance(out, tuple) else (out, None)
+        solved.append(idx.cpu())
+        if forced is not None:
+            idx = forced[len(solved) - 1].to(idx.device)
+        return idx if rest is None else (idx, *rest)
+
+    SOLVERS[name] = tapped
+    try:
+        yield solved
+    finally:
+        SOLVERS[name] = solve
+
+
+def assignment_digest(solved) -> str:
+    import hashlib
+
+    return hashlib.sha256(b"".join(idx.numpy().tobytes() for idx in solved)).hexdigest()
+
+
+@contextlib.contextmanager
+def planted_copy_fault(distributed):
+    """Megatron's f without its backward sum: each rank keeps its own share
+    of the gradient of a column-parallel projection's input."""
+    backward = distributed._CopyToModel.backward
+    distributed._CopyToModel.backward = staticmethod(lambda ctx, grad: (grad, None))
+    try:
+        yield
+    finally:
+        distributed._CopyToModel.backward = backward
+
+
+def local_heads(model) -> int:
+    """The heads of the encoder's first self-attention this rank holds."""
+    attn = model._model.separate_encoder.transformer.layers[0].self_attn.attn
+    return attn.in_proj_weight.shape[0] // (3 * (attn.dim // attn.num_heads))
+
+
+def tp_train_rank(torch, out: str) -> dict:
+    """Phase 10d in one rank of a (1, 2) mesh: the flagship cut over the
+    model axis, one step at dropout 0 and one at TP_DROPOUT against one
+    process's (rank 0), two more steps timed with the sums over the model
+    group counted, then a stage-2 eval (K1) against one process's."""
+    import torch.distributed as dist
+
+    from future_od_tpu_torch.data.loader import ARRAY_KEYS
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.parallel import distributed
+    from future_od_tpu_torch.parallel.mesh import make_mesh, shard_model
+    from future_od_tpu_torch.runs import _helper
+    from future_od_tpu_torch.train.step import make_eval_step
+
+    t_start = time.perf_counter()
+    if not distributed.maybe_initialize_distributed():
+        raise AssertionError("10d: no process group (not started by torchrun?)")
+    rank = distributed.rank()
+    _kernels.build_all()
+    mesh = make_mesh(1, TP_RANKS)
+    record = {"rank": rank, "backend": dist.get_backend(), "cards": torch.cuda.device_count(),
+              "mesh": [mesh.shape, mesh.rank, mesh.model_rank], "batch": TP_BATCH}
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4,
+                                  freeze_stem=True, matcher="auction", cost_slots=128)
+    data = {k: v for k, v in make_train_batch(seed=0, batch=TP_BATCH).items() if k in ARRAY_KEYS}
+    set_gates(FUTURE_OD_TRAIN_FLASH="1")
+    for rate in (0.0, TP_DROPOUT):
+        label = f"dropout {rate}"
+        with solver_tap(args.matcher) as solved:
+            loss, grads, launches, step, model, peak = tp_step(torch, args, data, rate, mesh)
+        if launches != TP_STEP_LAUNCHES:
+            raise AssertionError(f"10d rank {rank} {label}: a step launched {launches}")
+        timed, reduces = [], []
+        for _ in range(2):
+            distributed.MODEL_REDUCES.update(count=0, bytes=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(data, 0)
+            torch.cuda.synchronize()
+            timed.append(1e3 * (time.perf_counter() - t0))
+            reduces.append(dict(distributed.MODEL_REDUCES))
+        record[label] = {"loss": loss, "launches": launches, "step_ms": timed,
+                         "model_reduces_a_step": {"count": reduces[-1]["count"],
+                                                  "mb": reduces[-1]["bytes"] / 1e6},
+                         "peak_mem_gb": peak, "local_heads": local_heads(model),
+                         "assignment_sha256": assignment_digest(solved)}
+        del step, model
+        distributed.barrier()
+        if rank == 0:
+            with solver_tap(args.matcher, forced=solved) as own:
+                ref_loss, ref_grads, ref_launches, ref_step, _, ref_peak = tp_step(
+                    torch, args, data, rate)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref_step(data, 0)
+            torch.cuda.synchronize()
+            ref_ms = 1e3 * (time.perf_counter() - t0)
+            del ref_step
+            record[label]["one_process"] = {
+                "step_ms": ref_ms, "peak_mem_gb": ref_peak, "launches": ref_launches,
+                "own_assignment_slots_differing": sum(
+                    int((a != b).sum()) for a, b in zip(own, solved)),
+                "vs": check_dist_grads(f"10d: the (1, 2) step at {label} against one process",
+                                       loss, grads, ref_loss, ref_grads, TP_GRAD_RTOL)}
+        if rate == 0.0:  # the bounds catch a fault of the cut
+            with planted_copy_fault(distributed), solver_tap(args.matcher, forced=solved):
+                _, bad_grads, _, _, _, _ = tp_step(torch, args, data, rate, mesh)
+            if rank == 0:
+                gaps = grad_gap_by_group(bad_grads, ref_grads)
+                record[label]["planted_fault_grad_gap"] = gaps
+                if not any(v > TP_GRAD_RTOL[k] for k, v in gaps.items()):
+                    raise AssertionError(f"10d: a step without copy_to_model's backward sum "
+                                         f"is within TP_GRAD_RTOL: {gaps}")
+            del bad_grads
+        del grads
+        torch.cuda.empty_cache()
+        distributed.barrier()
+
+    # the eval at stage 2's size: K1 on the rank's 4 heads
+    (size2, _) = _helper.STAGES[1]
+    batch = {k: v for k, v in make_train_batch(seed=3, batch=TP_EVAL_BATCH, size=size2).items()
+             if k in ARRAY_KEYS}
+    set_gates()
+    model = shard_model(dist_model(torch, args), mesh)
+    _kernels.reset_launch_counts()
+    loss, _, _, output = make_eval_step(model, args.criterion_config(), mesh=mesh)(batch)
+    torch.cuda.synchronize()
+    record["eval"] = {"size": list(size2), "clips": TP_EVAL_BATCH, "loss": loss.item(),
+                      "launches": launched(_kernels)}
+    if record["eval"]["launches"] != TP_EVAL_LAUNCHES:
+        raise AssertionError(f"10d rank {rank}: the stage-2 eval launched "
+                             f"{record['eval']['launches']}, want {TP_EVAL_LAUNCHES}")
+    output = {k: v.float() for k, v in output.items() if k in ("class_scores", "boxes")}
+    del model
+    torch.cuda.empty_cache()
+    distributed.barrier()
+    if rank == 0:
+        ref_loss, _, _, ref_output = make_eval_step(
+            dist_model(torch, args).eval(), args.criterion_config())(batch)
+        gaps = serve_gaps(torch, output, ref_output)
+        check_serve_gaps("10d: the (1, 2) eval against one process", gaps)
+        record["eval"]["vs_one_process"] = {
+            **gaps, "loss_gap": abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()),
+            "tolerances": {"score_err": SCORE_TOL, "box_err_px": BOX_TOL_PX}}
+        torch.cuda.empty_cache()
+    distributed.barrier()
+    set_gates()
+    record["seconds"] = time.perf_counter() - t_start
+    return record
+
+
 def dist_nccl_rank(torch, out: str) -> dict:
     """Phase 10b in one rank of one: the NCCL init, an all-reduce of a CUDA
     tensor, and a train step through the mesh of this one rank beside the
@@ -3683,8 +3970,8 @@ def serving_mesh_phase(torch, phase9_records) -> tuple:
 
 def distributed_phase(torch, phase9_records) -> tuple:
     """Phase 10: 10a two ranks train under torchrun, 10b one rank over NCCL,
-    10c serving over a mesh. Returns (records, launches by kernel and
-    sub-phase)."""
+    10c serving over a mesh, 10d two ranks train the flagship cut over a
+    model axis. Returns (records, launches by kernel and sub-phase)."""
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase10")
     torch.cuda.empty_cache()
     records = {}
@@ -3709,17 +3996,34 @@ def distributed_phase(torch, phase9_records) -> tuple:
     records["10c"], serve_launches = serving_mesh_phase(torch, phase9_records)
     records["10c"]["seconds"] = time.perf_counter() - t0
     log("10c-serving-mesh", ok=True, card=gpu_name_and_power(), **records["10c"])
+    t0 = time.perf_counter()
+    tp_ranks = torchrun(torch, TP_RANKS, "--phase10d-rank", os.path.join(out, "10d"),
+                        TP_TIMEOUT_S)
+    records["10d"] = {"how": ("both ranks share the one card over gloo" if shared
+                              else "one card a rank"),
+                      "seconds": time.perf_counter() - t0, "ranks": tp_ranks}
+    log("10d-tensor-parallel", ok=True, card=gpu_name_and_power(), **records["10d"])
     launches = {}
     for name in MAIN_KERNELS:
         launches[name] = {
             **{f"10a rank {r['rank']}": r["script"]["launches"].get(name, 0)
                + r["eval"]["launches"].get(name, 0) + r["step"]["launches"].get(name, 0)
                for r in ranks},
-            "10b": records["10b"]["launches"].get(name, 0), "10c": serve_launches[name]}
+            "10b": records["10b"]["launches"].get(name, 0), "10c": serve_launches[name],
+            **{f"10d rank {r['rank']}": sum(r[f"dropout {rate}"]["launches"].get(name, 0)
+                                            for rate in (0.0, TP_DROPOUT))
+               + r["eval"]["launches"].get(name, 0) for r in tp_ranks}}
     for r in ranks:  # K1 on every rank with rows in the stage-2 eval (2 ranks: both)
         for name in TRAIN_KERNELS + (("flash_attention",) if r["eval"]["forwards"] else ()):
             if not launches[name][f"10a rank {r['rank']}"]:
                 raise AssertionError(f"10a: {name} never launched on rank {r['rank']}")
+    for rate in (0.0, TP_DROPOUT):  # the replicated matcher agrees across the model group
+        if len({r[f"dropout {rate}"]["assignment_sha256"] for r in tp_ranks}) != 1:
+            raise AssertionError(f"10d: the ranks' assignments differ at dropout {rate}")
+    for r in tp_ranks:  # K4-K6 in the steps and K1 in the eval, on both ranks
+        for name in TRAIN_KERNELS + ("flash_attention",):
+            if not launches[name][f"10d rank {r['rank']}"]:
+                raise AssertionError(f"10d: {name} never launched on rank {r['rank']}")
     return records, launches
 
 
@@ -3730,7 +4034,8 @@ def rank_main(role: str, out: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fn = {"--phase10a-rank": dist_train_rank, "--phase10b-rank": dist_nccl_rank}[role]
+    fn = {"--phase10a-rank": dist_train_rank, "--phase10b-rank": dist_nccl_rank,
+          "--phase10d-rank": tp_train_rank}[role]
     record = fn(torch, out)
     write_rank_record(out, record.get("rank", 0), record)
     from future_od_tpu_torch.parallel import distributed
@@ -4893,7 +5198,7 @@ def main() -> int:
     dist_records, phase10_launches = distributed_phase(torch, serving_records)
     log("10-data-parallel", ok=True, card=gpu_name_and_power(),
         seconds=time.perf_counter() - t0,
-        **{k: dist_records[k]["seconds"] for k in ("10a", "10b", "10c")})
+        **{k: dist_records[k]["seconds"] for k in ("10a", "10b", "10c", "10d")})
     int8_rows = int8_phase(torch, batch, seconds, bf16_s,
                         serving_records["9a"]["throughput f32 default"]["session_clips_per_s"])
     learning = learning_phase(torch)

@@ -118,9 +118,11 @@ struct TrainArgs {
   uint32_t seed, threshold;  // dropout: threshold 0 is none
   float keep;
   int nq_pad, nk_pad;  // the JAX kernels' padded geometry, which the mask hashes
+  int h_local, h_full, h0;  // the call's heads among the layer's (dropout_mask.cuh)
 };
 static_assert(offsetof(TrainArgs, nk_pad) == 312, "ops/flash_attention.py::_TRAIN_ARGS");
-static_assert(sizeof(TrainArgs) == 320, "ops/flash_attention.py::_TRAIN_ARGS");
+static_assert(offsetof(TrainArgs, h0) == 324, "ops/flash_attention.py::_TRAIN_ARGS");
+static_assert(sizeof(TrainArgs) == 328, "ops/flash_attention.py::_TRAIN_ARGS");
 
 template <typename T>
 __device__ __forceinline__ T* at(const Operand& o, int b, int h, int n) {
@@ -406,6 +408,7 @@ train_fwd_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
   float* qs = reinterpret_cast<float*>(smem + 2 * G::kStage);
   const Layout L(split);
   const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h;
+  const uint32_t gbh = dp.global_bh(bh);  // the mask's batch·head
   const T* kb = at<T>(a.k, b, h, 0);
   const T* vb = at<T>(a.v, b, h, 0);
 
@@ -466,7 +469,7 @@ train_fwd_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
           float p = x == -INFINITY ? 0.f : __expf(x - row_max[e >> 1]);
           row_sum[e >> 1] += p;  // the softmax denominator is taken before dropout
           if (dp.active())
-            p *= fod::dropout_value(bh, L.row0 + L.g + 8 * (e >> 1), key0 + 8 * jn + (e & 1), dp);
+            p *= fod::dropout_value(gbh, L.row0 + L.g + 8 * (e >> 1), key0 + 8 * jn + (e & 1), dp);
           s[jn][e] = p;
         }
       }
@@ -541,6 +544,7 @@ train_dq_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
   float* qs = reinterpret_cast<float*>(smem + 2 * G::kStage);
   const Layout L(split);
   const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h;
+  const uint32_t gbh = dp.global_bh(bh);  // the mask's batch·head
   const T* kb = at<T>(a.k, b, h, 0);
   const T* vb = at<T>(a.v, b, h, 0);
 
@@ -583,7 +587,7 @@ train_dq_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
         for (int e = 0; e < 4; ++e) {
           const int key = key0 + 8 * jn + (e & 1);
           float d = ds[jn][e];
-          if (dp.active()) d *= fod::dropout_value(bh, L.row0 + L.g + 8 * (e >> 1), key, dp);
+          if (dp.active()) d *= fod::dropout_value(gbh, L.row0 + L.g + 8 * (e >> 1), key, dp);
           const float p = expf(s[jn][e] - lse[e >> 1]);
           s[jn][e] = key < a.nk ? p * (d - delta[e >> 1]) : 0.f;  // dlogits
         }
@@ -804,6 +808,7 @@ train_dkv_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
   float* kf = reinterpret_cast<float*>(smem + 2 * G::kStage + G::kScaled);
   unsigned char* vs = reinterpret_cast<unsigned char*>(kf + rows * G::kRowS);
   const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h;
+  const uint32_t gbh = dp.global_bh(bh);  // the mask's batch·head
 
   // v's 64 rows from the block's first key (past its `rows` keys they go unread)
   stage_rows<T, DV, G::kRowV>(vs, at<T>(a.v, b, h, 0), a.v.sn, a.nk, L.row_base);
@@ -853,7 +858,7 @@ train_dkv_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
             float d = ds[jn][e];
             float pd = p;
             if (dp.active()) {
-              const float m = fod::dropout_value(bh, query, key, dp);
+              const float m = fod::dropout_value(gbh, query, key, dp);
               pd = p * m;
               d *= m;
             }
@@ -917,11 +922,12 @@ train_dkv_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
 
 __global__ void keep_mask_kernel(float* __restrict__ out, int nq, int nk, fod::Dropout dp) {
   const int bh = blockIdx.y;
+  const uint32_t gbh = dp.global_bh(bh);
   const size_t n = (size_t)nq * nk;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     const int row = static_cast<int>(i / nk), col = static_cast<int>(i % nk);
-    out[(size_t)bh * n + i] = dp.active() ? fod::dropout_value(bh, row, col, dp) : 1.f;
+    out[(size_t)bh * n + i] = dp.active() ? fod::dropout_value(gbh, row, col, dp) : 1.f;
   }
 }
 
@@ -1049,7 +1055,8 @@ int dispatch_dims(int d, int dv, const F& f) {
 
 template <typename T>
 int run(Which which, const TrainArgs& a) {
-  const fod::Dropout dp = fod::make_dropout(a.seed, a.threshold, a.keep, a.nq_pad, a.nk_pad);
+  const fod::Dropout dp = fod::make_dropout(a.seed, a.threshold, a.keep, a.nq_pad, a.nk_pad,
+                                           a.h_local, a.h_full, a.h0);
   return dispatch_dims<T>(a.d, a.dv, [&](auto d, auto dv) {
     return launch<T, decltype(d)::value, decltype(dv)::value>(which, a, dp);
   });
@@ -1057,6 +1064,8 @@ int run(Which which, const TrainArgs& a) {
 
 int train(Which which, const TrainArgs* a) {
   if (a->b <= 0 || a->h <= 0 || (long long)a->b * a->h > 65535 || a->nq <= 0 || a->nk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->h_local <= 0 || a->h0 < 0 || a->h0 + a->h_local > a->h_full)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a->dtype == fod::kFloat32) return run<float>(which, *a);
   if (a->dtype == fod::kBFloat16) return run<__nv_bfloat16>(which, *a);
@@ -1067,8 +1076,9 @@ int train(Which which, const TrainArgs* a) {
 
 // One TrainArgs each (see the struct): q, k, v and do read, out/dq/dk/dv written, by
 // strides; lse (K4 writes it) and delta by strides, f32; the dropout seed, threshold
-// (0: none), keep value and the JAX geometry nq_pad / nk_pad. Each returns the
-// launch's CUDA status.
+// (0: none), keep value, the JAX geometry nq_pad / nk_pad and the heads the call
+// holds of the layer's (h_local from h0 of h_full). Each returns the launch's CUDA
+// status.
 // (A TrainArgs pointer: a type of this file's unnamed namespace in the signature would
 // keep the symbols out of the library.)
 extern "C" int fod_flash_train_fwd(const void* a) {
@@ -1098,14 +1108,18 @@ extern "C" int fod_flash_train_info(int which, int d, int dv, int dtype, int bh,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out (bh, nq, nk) f32: K7's mask value of every element (1 where threshold is 0).
+// out (bh, nq, nk) f32: K7's mask value of every element (1 where threshold is 0), the
+// call's batch·heads being h_local from h0 of h_full a batch.
 extern "C" int fod_dropout_keep_mask(void* out, int bh, int nq, int nk, uint32_t seed,
                                      uint32_t threshold, float keep, int nq_pad, int nk_pad,
-                                     void* stream) {
+                                     int h_local, int h_full, int h0, void* stream) {
   if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (h_local <= 0 || h0 < 0 || h0 + h_local > h_full)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t want = ((size_t)nq * nk + 255) / 256;
   const int blocks = static_cast<int>(want < 1024 ? want : 1024);
   keep_mask_kernel<<<dim3(blocks, bh), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), nq, nk, fod::make_dropout(seed, threshold, keep, nq_pad, nk_pad));
+      static_cast<float*>(out), nq, nk,
+      fod::make_dropout(seed, threshold, keep, nq_pad, nk_pad, h_local, h_full, h0));
   return static_cast<int>(cudaGetLastError());
 }

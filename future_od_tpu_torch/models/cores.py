@@ -24,19 +24,29 @@ from torch import nn
 
 from future_od_tpu_torch.models.decoder import TransformerDecoder
 from future_od_tpu_torch.models.encoder import TransformerEncoder
-from future_od_tpu_torch.models.layers import MLP
+from future_od_tpu_torch.models.layers import MLP, row_parallel
 from future_od_tpu_torch.models.precision import cast_like
 from future_od_tpu_torch.models.resnet import CDetrBackbone
 from future_od_tpu_torch.ops.misc import inverse_sigmoid
 from future_od_tpu_torch.ops.posenc import spatial_encoding, spatio_temporal_encoding
+from future_od_tpu_torch.parallel.distributed import ModelAxis, copy_to_model
 
 
 class ImuEncoder(nn.Sequential):
     """IMU embedding MLP: Linear(imu_dim -> width) -> ReLU -> Linear(-> dim)
-    (keys `0` and `2`)."""
+    (keys `0` and `2`; the JAX `fc1`, column-parallel, and `fc2`,
+    row-parallel, over a model axis: models/layers.py)."""
 
     def __init__(self, imu_dim: int, dim: int, width: int = 128):
         super().__init__(nn.Linear(imu_dim, width), nn.ReLU(), nn.Linear(width, dim))
+        self.model_axis: Optional[ModelAxis] = None
+
+    def splits_over(self, size: int) -> bool:
+        return self[0].out_features % size == 0
+
+    def forward(self, x):
+        axis = self.model_axis
+        return row_parallel(F.relu(self[0](copy_to_model(x, axis))), self[2], axis)
 
 
 class SeparateEncoder(nn.Module):

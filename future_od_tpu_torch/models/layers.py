@@ -21,6 +21,19 @@ head-averaged softmax weights (B, Nq, Nk) to the module's `captured` list,
 and takes the plain path, as the JAX gate does. FUTURE_OD_PACKED_PROJ=1
 runs the projections that share an input as one matmul over their
 concatenated weights (the JAX `_packed`); the parameters stay the same.
+
+Tensor parallelism (`parallel/mesh.py::shard_model`): a tensor-parallel
+block is a module with `splits_over(size)` and a `model_axis` (the
+attentions, `FeedForward`, `models/cores.py::ImuEncoder`); each that splits
+over the model axis gets the axis and holds its rank's share. Its
+column-parallel projections then take their input through `copy_to_model`
+and give H/M local heads (a packed projection is cut per linear, never per
+packed matrix), and its row-parallel output sums the ranks' partial
+products (`reduce_from_model`) before adding the bias. Dropout on a
+sharded tensor (the attention weights' heads, the FFN's hidden units) draws
+the full-width mask, as one process draws it, and keeps the rank's slice,
+so the generator advances as one process's does; the in-kernel dropout of
+K4-K6 hashes the global heads.
 """
 from __future__ import annotations
 
@@ -33,6 +46,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from future_od_tpu_torch.ops.flash_attention import flash_attention, flash_attention_train
+from future_od_tpu_torch.parallel.distributed import (
+    ModelAxis,
+    copy_to_model,
+    reduce_from_model,
+)
 
 LN_EPS = 1e-6
 TRAIN_FLASH_MIN_KEYS = 256
@@ -67,7 +85,7 @@ def packed_linear(x: torch.Tensor, linears: Sequence[nn.Linear]) -> List[torch.T
     concatenated weights and biases; the per-projection outputs, in order."""
     weight = torch.cat([lin.weight for lin in linears])
     bias = torch.cat([lin.bias for lin in linears])
-    return list(F.linear(x, weight, bias).split([lin.out_features for lin in linears], dim=-1))
+    return list(F.linear(x, weight, bias).split([lin.weight.shape[0] for lin in linears], dim=-1))
 
 
 def flash_gate(num_queries: int, num_keys: int) -> bool:
@@ -98,25 +116,69 @@ def draw_dropout_seed(rate: float) -> int:
     return int(torch.randint(0, 2**31 - 1, ()))
 
 
+def sharded_dropout(x: torch.Tensor, dropout: nn.Dropout, axis: Optional[ModelAxis],
+                    dim: int) -> torch.Tensor:
+    """`dropout(x)` of the tensor whose dim `dim` is this rank's share of a
+    model-sharded one (rank `axis.index` of `axis.size`): the full-width mask
+    drawn as one process draws it, this rank's slice kept. Without a model
+    axis, `dropout(x)`."""
+    if axis is None or not dropout.training or dropout.p == 0.0:
+        return dropout(x)
+    shape = list(x.shape)
+    n = shape[dim]
+    shape[dim] = n * axis.size
+    mask = dropout(x.new_ones(shape))
+    return x * mask.narrow(dim, axis.index * n, n)
+
+
+def row_parallel(x: torch.Tensor, linear: nn.Linear, axis: Optional[ModelAxis]) -> torch.Tensor:
+    """`linear(x)`; over a model axis, x and the weight hold this rank's
+    share of the inputs, and the partial products are summed over the
+    model group before the (replicated) bias is added."""
+    if axis is None:
+        return linear(x)
+    return reduce_from_model(F.linear(x, linear.weight), axis) + linear.bias
+
+
+def to_model(axis: Optional[ModelAxis], *xs):
+    """Each input of column-parallel projections through `copy_to_model`,
+    once an input: an input given twice comes back as one tensor, so the
+    packed projections' `is` tests hold."""
+    if axis is None:
+        return xs
+    done = {}
+    return tuple(done.setdefault(id(x), copy_to_model(x, axis)) if x is not None else None
+                 for x in xs)
+
+
+def local_heads(num_heads: int, axis: Optional[ModelAxis]) -> int:
+    return num_heads if axis is None else num_heads // axis.size
+
+
 def attention_core(scale: float, logits, v, dropout: nn.Dropout,
-                   capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                   capture: Optional[List[torch.Tensor]] = None,
+                   axis: Optional[ModelAxis] = None) -> torch.Tensor:
     """softmax(logits * scale) @ v with attention-weight dropout.
     logits (B, H, Nq, Nk); v (B, Nk, H, dv) -> (B, Nq, H*dv). `capture`
-    receives the head-averaged weights (B, Nq, Nk), before the dropout."""
+    receives the head-averaged weights (B, Nq, Nk), before the dropout.
+    `axis`: the H heads are this rank's share (`sharded_dropout`)."""
     weights = torch.softmax(logits * scale, dim=-1)
     if capture is not None:
         capture.append(weights.detach().mean(dim=1))
-    weights = dropout(weights)
+    weights = sharded_dropout(weights, dropout, axis, 1)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
     return out.reshape(*out.shape[:2], -1)
 
 
 def attend_heads(qh, kh, vh, scale: float, dropout: nn.Dropout,
-                 capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                 capture: Optional[List[torch.Tensor]] = None,
+                 axis: Optional[ModelAxis] = None) -> torch.Tensor:
     """Multi-head attention core: qh, kh (B, N, H, d); vh (B, Nk, H, dv)
     -> (B, Nq, H*dv). Operands of mixed dtypes (the JAX package's mixed
     precision, `models/precision.py`) promote as jnp's do. With `capture`
-    (a list that receives the head-averaged weights) the plain path runs."""
+    (a list that receives the head-averaged weights) the plain path runs.
+    `axis`: the H heads are model rank `axis.index`'s share of H·size, and
+    the dropout, in the kernels or not, is that share of the full heads'."""
     dtype = torch.promote_types(torch.promote_types(qh.dtype, kh.dtype), vh.dtype)
     qh, kh, vh = qh.to(dtype), kh.to(dtype), vh.to(dtype)
     q, k, v = qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2)  # (B, H, N, d)
@@ -124,15 +186,17 @@ def attend_heads(qh, kh, vh, scale: float, dropout: nn.Dropout,
     if capture is None and dropout.training:
         if train_flash_gate(kh.shape[1]):
             rate = float(dropout.p)
+            H = qh.shape[2]  # the rank's share of the heads, hashed at the global ones
+            share = () if axis is None else ((H, H * axis.size, H * axis.index),)
             out = flash_attention_train(q, k, v, draw_dropout_seed(rate), scale, rate,
-                                        *TRAIN_FLASH_BLOCKS)
+                                        *TRAIN_FLASH_BLOCKS, *share)
     elif capture is None and flash_gate(qh.shape[1], kh.shape[1]):
         out = flash_attention(q, k, v, scale)
     if out is not None:  # (B, H, Nq, dv)
         out = out.transpose(1, 2)
         return out.reshape(*out.shape[:2], -1)
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
-    return attention_core(scale, logits, vh, dropout, capture)
+    return attention_core(scale, logits, vh, dropout, capture, axis)
 
 
 class MLP(nn.Module):
@@ -154,7 +218,8 @@ class MLP(nn.Module):
 
 
 class FeedForward(nn.Sequential):
-    """Linear -> ReLU -> Dropout -> Linear (-> Dropout): keys `0` and `3`."""
+    """Linear -> ReLU -> Dropout -> Linear (-> Dropout): keys `0` and `3`
+    (the JAX `fc1`, column-parallel, and `fc2`, row-parallel)."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.1,
                  dropout_after: bool = False):
@@ -163,6 +228,16 @@ class FeedForward(nn.Sequential):
         if dropout_after:
             layers.append(nn.Dropout(dropout))
         super().__init__(*layers)
+        self.model_axis: Optional[ModelAxis] = None
+
+    def splits_over(self, size: int) -> bool:
+        return self[0].out_features % size == 0
+
+    def forward(self, x):
+        axis = self.model_axis
+        hidden = sharded_dropout(F.relu(self[0](copy_to_model(x, axis))), self[2], axis, -1)
+        out = row_parallel(hidden, self[3], axis)
+        return self[4](out) if len(self) > 4 else out
 
 
 class HeadOutput(nn.Module):
@@ -185,9 +260,17 @@ class SlotToSlotAttention(nn.Module):
             setattr(self, name, nn.Linear(dim, dim))
         self.fun = HeadOutput(dim)
         self.attn_drop = nn.Dropout(dropout)
+        self.model_axis: Optional[ModelAxis] = None
+
+    def splits_over(self, size: int) -> bool:
+        return self.num_heads % size == 0
 
     def forward(self, query_content, query_pos, key_content, key_pos):
-        D, H = self.dim, self.num_heads
+        D, axis = self.dim, self.model_axis
+        H = local_heads(self.num_heads, axis)
+        hd = D // self.num_heads
+        query_content, query_pos, key_content, key_pos = to_model(
+            axis, query_content, query_pos, key_content, key_pos)
         if packed_proj_enabled() and query_content is key_content and query_pos is key_pos:
             # the self-attention: 5 projections -> 2 matmuls
             qc, kc, v = packed_linear(query_content,
@@ -201,12 +284,12 @@ class SlotToSlotAttention(nn.Module):
         B, Nq, _ = q.shape
         Nk = k.shape[1]
         logits = torch.einsum(
-            "bqhd,bkhd->bhqk", q.reshape(B, Nq, H, D // H), k.reshape(B, Nk, H, D // H)
+            "bqhd,bkhd->bhqk", q.reshape(B, Nq, H, hd), k.reshape(B, Nk, H, hd)
         )
         out = attention_core(
-            1.0 / math.sqrt(D // H), logits, v.reshape(B, Nk, H, D // H), self.attn_drop
+            1.0 / math.sqrt(hd), logits, v.reshape(B, Nk, H, hd), self.attn_drop, axis=axis
         )
-        return self.fun.out_proj(out)
+        return row_parallel(out, self.fun.out_proj, axis)
 
 
 class EgodeepAttention(nn.Module):
@@ -228,9 +311,16 @@ class EgodeepAttention(nn.Module):
             self.norm1 = layer_norm(dim)
             self.norm2 = layer_norm(dim)
             self.mlp = FeedForward(dim, ff_dim, dropout, dropout_after=True)
+        self.model_axis: Optional[ModelAxis] = None
+
+    def splits_over(self, size: int) -> bool:
+        return self.num_heads % size == 0
 
     def forward(self, query_content, query_pos, key):
-        D, H = self.dim, self.num_heads
+        D, axis = self.dim, self.model_axis
+        H = local_heads(self.num_heads, axis)
+        hd = D // self.num_heads
+        query_content, query_pos, key = to_model(axis, query_content, query_pos, key)
         q = self.query_content(query_content) + self.query_pos(query_pos)
         if packed_proj_enabled():
             k, v = packed_linear(key, (self.key, self.value))
@@ -239,12 +329,12 @@ class EgodeepAttention(nn.Module):
         B, Nq, _ = q.shape
         Nk = k.shape[1]
         logits = torch.einsum(
-            "bqhd,bkhd->bhqk", q.reshape(B, Nq, H, D // H), k.reshape(B, Nk, H, D // H)
+            "bqhd,bkhd->bhqk", q.reshape(B, Nq, H, hd), k.reshape(B, Nk, H, hd)
         )
         out = attention_core(
-            1.0 / math.sqrt(D // H), logits, v.reshape(B, Nk, H, D // H), self.attn_drop
+            1.0 / math.sqrt(hd), logits, v.reshape(B, Nk, H, hd), self.attn_drop, axis=axis
         )
-        out = self.fun.out_proj(out)
+        out = row_parallel(out, self.fun.out_proj, axis)
         if self.ff_dim is not None:
             out = self.norm1(out + self.drop(out))
             out = self.norm2(out + self.mlp(out))
@@ -274,12 +364,20 @@ class SlotToImageAttention(nn.Module):
             setattr(self, name, nn.Linear(dim, dim))
         self.fun = HeadOutput(dim)
         self.attn_drop = nn.Dropout(dropout)
+        self.model_axis: Optional[ModelAxis] = None
+
+    def splits_over(self, size: int) -> bool:
+        """A captured attention averages every head: it runs replicated."""
+        return self.num_heads % size == 0 and not self.store_attention
 
     def forward(self, query_content, query_pos, query_sine, key_content,
                 key_pos_flag: bool, key_sine):
         """key_pos_flag: add the projected key sine into the key content
         (the first layer's `key_pos is not None` switch)."""
-        D, H = self.dim, self.num_heads
+        D, axis = self.dim, self.model_axis
+        H = local_heads(self.num_heads, axis)
+        query_content, query_pos, query_sine, key_content, key_sine = to_model(
+            axis, query_content, query_pos, query_sine, key_content, key_sine)
         if packed_proj_enabled():
             v, k_content = packed_linear(key_content, (self.value, self.key_content))
         else:
@@ -294,7 +392,7 @@ class SlotToImageAttention(nn.Module):
             k_content = k_content + k_sine
         B, Nq, _ = q_content.shape
         Nk = k_content.shape[1]
-        hd = D // H
+        hd = D // self.num_heads
         qh = torch.cat(
             [q_content.reshape(B, Nq, H, hd), q_sine.reshape(B, Nq, H, hd)], dim=-1
         )
@@ -302,10 +400,10 @@ class SlotToImageAttention(nn.Module):
             [k_content.reshape(B, Nk, H, hd), k_sine.reshape(B, Nk, H, hd)], dim=-1
         )
         out = attend_heads(
-            qh, kh, v.reshape(B, Nk, H, hd), 1.0 / math.sqrt(2 * D // H), self.attn_drop,
-            self.captured if self.store_attention else None,
+            qh, kh, v.reshape(B, Nk, H, hd), 1.0 / math.sqrt(2 * hd), self.attn_drop,
+            self.captured if self.store_attention else None, axis,
         )
-        return self.fun.out_proj(out)
+        return row_parallel(out, self.fun.out_proj, axis)
 
 
 class SelfAttention(nn.Module):
@@ -320,6 +418,10 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(dim, dim)
         self.attn_drop = nn.Dropout(dropout)
         self.reset_parameters(None)
+        self.model_axis: Optional[ModelAxis] = None
+
+    def splits_over(self, size: int) -> bool:
+        return self.num_heads % size == 0
 
     def reset_parameters(self, generator) -> None:
         """Each of q/k/v is its own (D, D) TorchLinear in the JAX package."""
@@ -332,7 +434,11 @@ class SelfAttention(nn.Module):
             )
 
     def forward(self, query, key, value):
-        D, H = self.dim, self.num_heads
+        axis = self.model_axis
+        H = local_heads(self.num_heads, axis)
+        hd = self.dim // self.num_heads
+        D = H * hd  # the rank's share of q, k and v (each cut alike)
+        query, key, value = to_model(axis, query, key, value)
         w, b = self.in_proj_weight, self.in_proj_bias
         if packed_proj_enabled() and query is key:
             # the encoder's self-attention: q and k share src + pos
@@ -344,13 +450,14 @@ class SelfAttention(nn.Module):
         B, Nq, _ = q.shape
         Nk = k.shape[1]
         out = attend_heads(
-            q.reshape(B, Nq, H, D // H),
-            k.reshape(B, Nk, H, D // H),
-            v.reshape(B, Nk, H, D // H),
-            1.0 / math.sqrt(D // H),
+            q.reshape(B, Nq, H, hd),
+            k.reshape(B, Nk, H, hd),
+            v.reshape(B, Nk, H, hd),
+            1.0 / math.sqrt(hd),
             self.attn_drop,
+            axis=axis,
         )
-        return self.out_proj(out)
+        return row_parallel(out, self.out_proj, axis)
 
 
 class EncoderAttention(nn.Module):

@@ -75,8 +75,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "fod_flash_train_dkv": [ctypes.c_char_p],
         # which (0 K4, 1 K5, 2 K6), d, dv, dtype, bh, nq, nk, int[9] out (launches nothing)
         "fod_flash_train_info": [_I] * 7 + [_P],
-        # out, bh, nq, nk, dropout..., stream
-        "fod_dropout_keep_mask": [_P, _I, _I, _I] + _DROPOUT + [_P],
+        # out, bh, nq, nk, dropout..., h_local, h_full, h0, stream
+        "fod_dropout_keep_mask": [_P, _I, _I, _I] + _DROPOUT + [_I, _I, _I, _P],
     },
     # q, k, v, out, bh, nq, nk, nk_pad, block_k, scale*log2(e), mode, dtype, stream
     "attention_floor": {

@@ -20,7 +20,10 @@ all three regenerate one dropout mask, a hash of each element's flat index
 in the JAX kernels' padded (nq_pad, nk_pad) geometry and of the seed
 (`dropout_keep_mask`, `csrc/dropout_mask.cuh`). The geometry comes from the
 JAX block sizes (`train_shapes`), never from the CUDA tiles, so the mask is
-the TPU kernels' bit for bit. All three run their products on the tensor
+the TPU kernels' bit for bit. A call over a share of a layer's heads (tensor
+parallelism: `heads=(H_local, H, h0)`) hashes each element at its global
+batch·head, (bh // H_local)·H + h0 + bh % H_local, so a share draws the
+same mask as the call over every head. All three run their products on the tensor
 cores and compute the logits on the CUDA cores, each the same sequential
 f32 chain, bit for bit. The kernels read q, k, v and do by strides, so
 attend_heads' transposed (B, N, H, d) views go in without a copy, and write
@@ -34,7 +37,7 @@ import ctypes
 import functools
 import math
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -167,10 +170,20 @@ def dropout_keep_scale(rate: float) -> float:
     return float(np.float32(1.0) / np.float32(1.0 - rate))
 
 
+def global_heads(bh, heads: Optional[Tuple[int, int, int]]):
+    """The global batch·head of a call's batch·head `bh` (an int or an
+    integer tensor) when the call holds `heads` = (H_local, H, h0): H_local
+    of a layer's H heads a batch, from head h0 (None: all of them)."""
+    if heads is None:
+        return bh
+    h_local, h_full, h0 = heads
+    return (bh // h_local) * h_full + h0 + bh % h_local
+
+
 def dropout_keep_mask(seed: int, bh, row, col, rate: float, nq_pad: int, nk_pad: int):
     """Plain K7: the dropout mask value (0 or 1/(1-rate), f32) of the
-    elements at batch·head `bh`, query `row`, key `col` (integer tensors that
-    broadcast together). A PCG-style hash of the flat index
+    elements at (global) batch·head `bh`, query `row`, key `col` (integer
+    tensors that broadcast together). A PCG-style hash of the flat index
     (bh·nq_pad + row)·nk_pad + col XOR seed·0x9E3779B9 in wrapping uint32,
     emulated in int64 masked to 32 bits (torch has no uint32 arithmetic)."""
     bh, row, col = (torch.as_tensor(x, dtype=torch.int64) for x in (bh, row, col))
@@ -191,38 +204,40 @@ def train_shapes(Nq: int, Nk: int, block_q: int, block_k: int) -> Tuple[int, int
     return -(-Nq // block_q) * block_q, -(-Nk // block_k) * block_k
 
 
-def _mask(seed, BH, Nq, Nk, rate, nq_pad, nk_pad, device):
-    bh = torch.arange(BH, device=device)[:, None, None]
+def _mask(seed, BH, Nq, Nk, rate, nq_pad, nk_pad, device, heads=None):
+    bh = global_heads(torch.arange(BH, device=device), heads)[:, None, None]
     row = torch.arange(Nq, device=device)[None, :, None]
     col = torch.arange(Nk, device=device)[None, None, :]
     return dropout_keep_mask(seed, bh, row, col, rate, nq_pad, nk_pad)
 
 
-def _mask_like(seed, logits, rate, nq_pad, nk_pad):
+def _mask_like(seed, logits, rate, nq_pad, nk_pad, heads=None):
     """The mask over logits (..., Nq, Nk), the leading dims flattened into
-    the batch·head index as the JAX kernels' grid flattens them."""
+    the batch·head index as the JAX kernels' grid flattens them, at the
+    global batch·heads of `heads` (`global_heads`)."""
     *lead, Nq, Nk = logits.shape
     return _mask(seed, math.prod(lead), Nq, Nk, rate, nq_pad, nk_pad,
-                 logits.device).reshape(logits.shape)
+                 logits.device, heads).reshape(logits.shape)
 
 
 def flash_train_fwd_plain(q, k, v, seed: int, scale: float, rate: float, nq_pad: int,
-                          nk_pad: int):
+                          nk_pad: int, heads=None):
     """Plain K4. q (..., Nq, d), k (..., Nk, d), v (..., Nk, dv), the leading
     dims (BH,) or (B, H) -> (out (..., Nq, dv) in q's dtype, lse (..., Nq)
     f32). The row sum is taken before the mask multiplies p, as in the TPU
-    kernel."""
+    kernel. `heads`: (H_local, H, h0) of a call over a share of the heads
+    (`global_heads`), None for all of them."""
     logits = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
     row_max = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - row_max)
     row_sum = p.sum(dim=-1, keepdim=True)
     if rate > 0.0:
-        p = p * _mask_like(seed, logits, rate, nq_pad, nk_pad)
+        p = p * _mask_like(seed, logits, rate, nq_pad, nk_pad, heads)
     out = torch.matmul(p, v.float()) / row_sum
     return out.to(q.dtype), (row_max + torch.log(row_sum))[..., 0]
 
 
-def _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad):
+def _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad, heads=None):
     """p = exp(scale·q·kᵀ - lse), the mask, and dlogits = p ⊙ (dS ⊙ mask - δ)
     with dS = do·vᵀ, in f32 — what K5 and K6 recompute per tile. The logits
     are rounded as the forward rounds them ((q·scale)·kᵀ), so p <= 1 however
@@ -232,23 +247,25 @@ def _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad):
     ds = torch.matmul(do.float(), v.float().transpose(-1, -2))
     mask = None
     if rate > 0.0:
-        mask = _mask_like(seed, logits, rate, nq_pad, nk_pad)
+        mask = _mask_like(seed, logits, rate, nq_pad, nk_pad, heads)
         ds = ds * mask
     return p, mask, p * (ds - delta[..., None])
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, seed: int, scale: float, rate: float,
-                   nq_pad: int, nk_pad: int):
+                   nq_pad: int, nk_pad: int, heads=None):
     """Plain K5: dq = Σ p ⊙ (dS ⊙ mask - δ) · k · scale, in q's dtype."""
-    _, _, dlogits = _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
+    _, _, dlogits = _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad,
+                               heads)
     return (torch.matmul(dlogits, k.float()) * scale).to(q.dtype)
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, seed: int, scale: float, rate: float,
-                    nq_pad: int, nk_pad: int):
+                    nq_pad: int, nk_pad: int, heads=None):
     """Plain K6: dk = (p ⊙ (dS ⊙ mask - δ))ᵀ · q · scale and
     dv = (p ⊙ mask)ᵀ · do, in k's and v's dtypes."""
-    p, mask, dlogits = _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
+    p, mask, dlogits = _recompute(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad,
+                                  heads)
     p_dropped = p if mask is None else p * mask
     dv = torch.matmul(p_dropped.transpose(-1, -2), do.float())
     dk = torch.matmul(dlogits.transpose(-1, -2), q.float()) * scale
@@ -258,11 +275,11 @@ def flash_dkv_plain(q, k, v, do, lse, delta, seed: int, scale: float, rate: floa
 # csrc/flash_attention_train.cu's TrainArgs, one a call: eight operands as
 # (pointer, batch, head and row strides in elements) — q, k, v, do, two
 # outputs, lse, delta — then the stream, b, h, nq, nk, d, dv, dtype, scale,
-# the dropout seed and threshold, the keep value, nq_pad and nk_pad, and the
-# struct's 4 bytes of tail padding (it is passed by value, so all of its
-# sizeof is read). One packed buffer costs the ctypes call far less than 30
-# converted arguments.
-_TRAIN_ARGS = struct.Struct("<" + "Qqqq" * 8 + "Q7if2If2i4x")
+# the dropout seed and threshold, the keep value, nq_pad and nk_pad, then the
+# heads the call holds of the layer's (H_local, H, h0). It is passed by
+# value, so all of its sizeof (328 bytes, no tail padding) is read. One packed
+# buffer costs the ctypes call far less than 33 converted arguments.
+_TRAIN_ARGS = struct.Struct("<" + "Qqqq" * 8 + "Q7if2If2i3i")
 _NO_OPERAND = (0, 0, 0, 0)
 
 
@@ -351,61 +368,65 @@ def _dropout_constants(rate: float) -> Tuple[int, float]:
     return dropout_threshold(rate), dropout_keep_scale(rate)
 
 
-def _dropout_args(seed: int, rate: float, nq_pad: int, nk_pad: int):
-    """(seed, threshold, keep value, nq_pad, nk_pad) as the kernels take
-    them. The threshold is computed here, exactly as the TPU kernel computes
-    it; threshold 0 (rate 0) keeps every element at value 1."""
+def _dropout_args(seed: int, rate: float, nq_pad: int, nk_pad: int, heads=None):
+    """(seed, threshold, keep value, nq_pad, nk_pad, H_local, H, h0) as the
+    kernels take them. The threshold is computed here, exactly as the TPU
+    kernel computes it; threshold 0 (rate 0) keeps every element at value 1.
+    `heads` None (every head) is (1, 1, 0), which leaves bh as it is."""
+    share = (1, 1, 0) if heads is None else tuple(int(h) for h in heads)
     if rate <= 0.0:
-        return 0, 0, 1.0, nq_pad, nk_pad
-    return (int(seed) & _MASK32, *_dropout_constants(rate), nq_pad, nk_pad)
+        return (0, 0, 1.0, nq_pad, nk_pad, *share)
+    return (int(seed) & _MASK32, *_dropout_constants(rate), nq_pad, nk_pad, *share)
 
 
-def flash_train_fwd(q, k, v, seed: int, scale: float, rate: float, nq_pad: int, nk_pad: int):
+def flash_train_fwd(q, k, v, seed: int, scale: float, rate: float, nq_pad: int, nk_pad: int,
+                    heads=None):
     """K4: (out, lse) of `flash_train_fwd_plain`, for (BH, N, w) or (B, H, N,
     w) operands of any strides; CPU tensors run the plain version, CUDA
-    tensors launch `fod_flash_train_fwd` or raise."""
+    tensors launch `fod_flash_train_fwd` or raise. `heads`: (H_local, H,
+    h0), the share of a layer's heads the call holds (`global_heads`)."""
     if q.is_cpu:
-        return flash_train_fwd_plain(q, k, v, seed, scale, rate, nq_pad, nk_pad)
+        return flash_train_fwd_plain(q, k, v, seed, scale, rate, nq_pad, nk_pad, heads)
     _, _, Nq, _, _, dv = _train_kernel_args(q, k, v, "flash_train_fwd")
     _check_devices("flash_train_fwd", q, k, v)
     out = _empty_rows(q, Nq, dv, q.dtype)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _train_call("fod_flash_train_fwd", q, k, v, None, out, None, lse, None, scale,
-                _dropout_args(seed, rate, nq_pad, nk_pad))
+                _dropout_args(seed, rate, nq_pad, nk_pad, heads))
     _kernels.launch_counts["flash_train_fwd"] += 1
     return out, lse
 
 
 def flash_dq(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_pad: int,
-             nk_pad: int):
+             nk_pad: int, heads=None):
     """K5: dq of `flash_dq_plain`, laid out as q's outputs are (see
     `flash_train_fwd`); CPU tensors run the plain version, CUDA tensors
     launch `fod_flash_train_dq` or raise."""
     if q.is_cpu:
-        return flash_dq_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
+        return flash_dq_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad, heads)
     _, _, Nq, _, d, _ = _train_kernel_args(q, k, v, "flash_dq")
     _check_grad_operands("flash_dq", q, v, do, lse, delta)
     _check_devices("flash_dq", q, k, v, do, lse, delta)
     dq = _empty_rows(q, Nq, d, q.dtype)
     _train_call("fod_flash_train_dq", q, k, v, do, dq, None, lse, delta, scale,
-                _dropout_args(seed, rate, nq_pad, nk_pad))
+                _dropout_args(seed, rate, nq_pad, nk_pad, heads))
     _kernels.launch_counts["flash_train_dq"] += 1
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_pad: int,
-              nk_pad: int):
+              nk_pad: int, heads=None):
     """K6: (dk, dv) of `flash_dkv_plain`, laid out as `flash_train_fwd`'s
     outputs are; CPU tensors run the plain version, CUDA tensors launch
     `fod_flash_train_dkv` or raise."""
     if q.is_cpu:
-        return flash_dkv_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad)
+        return flash_dkv_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad, heads)
     _, _, _, Nk, d, dv = _train_kernel_args(q, k, v, "flash_dkv")
     _check_grad_operands("flash_dkv", q, v, do, lse, delta)
     _check_devices("flash_dkv", q, k, v, do, lse, delta)
     dk, dvv = _empty_rows(k, Nk, d, k.dtype), _empty_rows(v, Nk, dv, v.dtype)
     _train_call("fod_flash_train_dkv", q, k, v, do, dk, dvv, lse, delta, scale,
-                _dropout_args(seed, rate, nq_pad, nk_pad))
+                _dropout_args(seed, rate, nq_pad, nk_pad, heads))
     _kernels.launch_counts["flash_train_dkv"] += 1
     return dk, dvv
 
@@ -436,15 +457,15 @@ def flash_train_info(kernel: str, d: int, dv: int, dtype: torch.dtype, BH: int, 
 
 
 def dropout_keep_mask_kernel(seed: int, BH: int, Nq: int, Nk: int, rate: float, nq_pad: int,
-                             nk_pad: int, device) -> torch.Tensor:
+                             nk_pad: int, device, heads=None) -> torch.Tensor:
     """K7 on the card: the (BH, Nq, Nk) f32 keep-mask the kernels apply,
     written by `fod_dropout_keep_mask` (only to hold the device hash
-    against `dropout_keep_mask` bit for bit)."""
+    against `dropout_keep_mask` bit for bit); `heads` as K4's."""
     out = torch.empty((BH, Nq, Nk), dtype=torch.float32, device=device)
     _kernels.check_cuda_operands("dropout_keep_mask", out)
     _kernels.call(
         TRAIN_NAME, "fod_dropout_keep_mask", out.data_ptr(), BH, Nq, Nk,
-        *_dropout_args(seed, rate, nq_pad, nk_pad), _kernels.stream_of(out),
+        *_dropout_args(seed, rate, nq_pad, nk_pad, heads), _kernels.stream_of(out),
         device=out.device,
     )
     _kernels.launch_counts["dropout_keep_mask"] += 1
@@ -459,10 +480,11 @@ class FlashAttentionTrain(torch.autograd.Function):
     the (B, N, H, w) layout."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed: int, scale: float, rate: float, nq_pad: int, nk_pad: int):
-        out, lse = flash_train_fwd(q, k, v, seed, scale, rate, nq_pad, nk_pad)
+    def forward(ctx, q, k, v, seed: int, scale: float, rate: float, nq_pad: int, nk_pad: int,
+                heads=None):
+        out, lse = flash_train_fwd(q, k, v, seed, scale, rate, nq_pad, nk_pad, heads)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (seed, scale, rate, nq_pad, nk_pad)
+        ctx.args = (seed, scale, rate, nq_pad, nk_pad, heads)
         return out
 
     @staticmethod
@@ -471,20 +493,28 @@ class FlashAttentionTrain(torch.autograd.Function):
         delta = (do.float() * out.float()).sum(dim=-1)
         dq = flash_dq(q, k, v, do, lse, delta, *ctx.args)
         dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_train(q, k, v, seed: int, scale: float, dropout_rate: float = 0.0,
-                          block_q: int = 256, block_k: int = 512) -> torch.Tensor:
+                          block_q: int = 256, block_k: int = 512,
+                          heads: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Differentiable fused attention with in-kernel attention-weight
     dropout. q, k (B, H, N, d); v (B, H, Nk, dv), any strides (attend_heads
     passes transposed (B, N, H, d) views, which the kernels read in place);
     seed an int in [0, 2^31) (unused at rate 0). block_q/block_k are the JAX
-    kernels' blocks, which set the dropout mask's geometry only. Returns
-    (B, H, Nq, dv), on the card a view of (B, Nq, H, dv) storage."""
+    kernels' blocks, which set the dropout mask's geometry only. `heads`:
+    (H_local, H, h0) when q holds H_local = q.shape[1] of a layer's H heads,
+    from head h0 (tensor parallelism): the dropout mask is then that slice
+    of the all-heads call's. Returns (B, H, Nq, dv), on the card a view of
+    (B, Nq, H, dv) storage."""
+    if heads is not None:
+        h_local, h_full, h0 = heads
+        if h_local != q.shape[1] or h0 < 0 or h0 + h_local > h_full:
+            raise ValueError(f"heads {heads}: q holds {q.shape[1]} heads")
     nq_pad, nk_pad = train_shapes(q.shape[2], k.shape[2], block_q, block_k)
     return FlashAttentionTrain.apply(q, k, v, int(seed), float(scale), float(dropout_rate),
-                                     nq_pad, nk_pad)
+                                     nq_pad, nk_pad, heads)
 
 
 def train_attention_cost(BH: int, Nq: int, Nk: int, d: int, dv: int, itemsize: int):

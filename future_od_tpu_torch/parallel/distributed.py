@@ -21,12 +21,21 @@ card (NCCL refuses two ranks on one device). The choice is printed. Host
 objects (AP accumulators, the batches a PNG draws, the exit flag) travel
 over a gloo group beside an NCCL one (`host_group`): gloo's gathers take no
 CUDA tensors.
+
+Tensor parallelism (a mesh's model axis above 1, `parallel/mesh.py`): the
+ranks of a model group each hold a share of the transformer's projections
+(`ModelAxis`), and two autograd operators place the collectives GSPMD
+places in the JAX program, Megatron's pair: `copy_to_model` (identity
+forward, the gradient summed over the model group backward) before a
+column-parallel projection, `reduce_from_model` (the partial products
+summed forward, identity backward) after a row-parallel one. Each sum over
+a model group counts in `MODEL_REDUCES`.
 """
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -196,6 +205,11 @@ def host_group():
     return _RUN.get("host_group")
 
 
+def run_state() -> Dict[str, Any]:
+    """This process's run: what lives until `destroy` (its groups)."""
+    return _RUN
+
+
 def local_device() -> torch.device:
     """This rank's device (the CPU when no process group was joined here)."""
     return _RUN.get("device", torch.device("cpu"))
@@ -228,6 +242,13 @@ def destroy() -> None:
     _RUN.clear()
 
 
+def local_world_size(env: Optional[Mapping[str, str]] = None) -> int:
+    """The ranks this host runs: LOCAL_WORLD_SIZE (torchrun),
+    SLURM_NTASKS_PER_NODE, else every rank of the run."""
+    env = os.environ if env is None else env
+    return int(env.get("LOCAL_WORLD_SIZE") or env.get("SLURM_NTASKS_PER_NODE") or world_size())
+
+
 def mesh_axes(total_devices: int, local_devices: int, num_model: int = 1):
     """Size the ("data", "model") mesh for a (possibly multi-host) run.
 
@@ -241,32 +262,142 @@ def mesh_axes(total_devices: int, local_devices: int, num_model: int = 1):
     return total_devices // num_model, num_model
 
 
+@dataclass(frozen=True)
+class Group:
+    """Some ranks of the run (global ranks, in order) and their torch
+    process group (None: the default group, when they are every rank)."""
+
+    ranks: Tuple[int, ...]
+    handle: Any = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def new_groups(rank_sets: Sequence[Sequence[int]]) -> Tuple[Group, ...]:
+    """A `Group` for each set of ranks. Every rank must call this with the
+    same sets in the same order (torch's new_group is collective); a set of
+    one rank or of every rank makes no torch group."""
+    world = world_size()
+    out = []
+    for ranks in rank_sets:
+        ranks = tuple(int(r) for r in ranks)
+        handle = None
+        if 1 < len(ranks) < world:
+            handle = dist.new_group(list(ranks))
+        out.append(Group(ranks, handle))
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class ModelAxis:
+    """A rank's place on a mesh's model axis: `size` ranks share each
+    tensor-parallel block, this one holds part `index` (heads and widths
+    index·n/size to (index+1)·n/size); `group` is the model group."""
+
+    size: int
+    index: int
+    group: Group
+
+
+# the sums over a model group since the last reset, and their bytes
+MODEL_REDUCES: Dict[str, int] = {"count": 0, "bytes": 0}
+
+
+def _staged(t: torch.Tensor, group: Optional[Group]) -> bool:
+    """Whether `t` goes through the host: a CUDA tensor under gloo (ranks
+    sharing a card)."""
+    return t.is_cuda and dist.get_backend(None if group is None else group.handle) == "gloo"
+
+
+def all_reduce_sum(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """A new tensor: `t` summed over `group`'s ranks (low-precision floats
+    summed in f32 and rounded once), through the host under gloo."""
+    if group.size == 1:
+        return t.detach().clone()
+    wide = t.detach().float() if t.dtype in (torch.bfloat16, torch.float16) else t.detach()
+    if _staged(wide, group):
+        out = wide.cpu().contiguous()
+    else:
+        out = wide.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group.handle)
+    MODEL_REDUCES["count"] += 1
+    MODEL_REDUCES["bytes"] += out.numel() * out.element_size()
+    return out.to(t.device, t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group: Group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The partial products summed over the model group forward; identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group: Group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: Optional[torch.Tensor], axis: Optional[ModelAxis]):
+    """The input of a column-parallel projection (Megatron's f): `x` itself
+    forward, its gradient summed over the model group backward. A no-op
+    without a model axis, and on a tensor that needs no gradient."""
+    if axis is None or x is None or not x.requires_grad:
+        return x
+    return _CopyToModel.apply(x, axis.group)
+
+
+def reduce_from_model(x: torch.Tensor, axis: Optional[ModelAxis]) -> torch.Tensor:
+    """The output of a row-parallel projection (Megatron's g): the ranks'
+    partial products summed forward, the gradient as it is backward."""
+    if axis is None:
+        return x
+    return _ReduceFromModel.apply(x, axis.group)
+
+
 # elements a bucket of `all_reduce_sum_` (64 MB of f32): the flat copy the
 # all-reduce works on is at most this large
 GRAD_BUCKET = 1 << 24
 
 
-def all_reduce_sum_(tensors) -> None:
-    """Sum each tensor over the ranks, in place: flattened into buckets of
-    up to GRAD_BUCKET elements (one dtype and device a bucket), one
-    all-reduce a bucket. CUDA tensors go over NCCL, or, when the ranks
-    share a card (gloo), through a copy on the host."""
-    if not is_initialized():
+def all_reduce_sum_(tensors, group: Optional[Group] = None) -> None:
+    """Sum each tensor over the ranks (of `group`; default every rank), in
+    place: flattened into buckets of up to GRAD_BUCKET elements (one dtype
+    and device a bucket), one all-reduce a bucket. CUDA tensors go over
+    NCCL, or, when the ranks share a card (gloo), through a copy on the
+    host. A group of one rank sums nothing."""
+    if not is_initialized() or (group is not None and group.size == 1):
         return
-    groups: Dict[Any, list] = {}
+    handle = None if group is None else group.handle
+    kinds: Dict[Any, list] = {}
     for t in tensors:
-        groups.setdefault((t.dtype, t.device), []).append(t)
-    for group in groups.values():
+        kinds.setdefault((t.dtype, t.device), []).append(t)
+    for same in kinds.values():
         bucket, size = [], 0
-        for t in group + [None]:
+        for t in same + [None]:
             if t is not None and (not bucket or size + t.numel() <= GRAD_BUCKET):
                 bucket.append(t)
                 size += t.numel()
                 continue
             flat = torch.cat([b.reshape(-1) for b in bucket])
-            if flat.is_cuda and dist.get_backend() == "gloo":  # ranks sharing a card
+            if _staged(flat, group):  # ranks sharing a card
                 flat = flat.cpu()
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=handle)
             for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
                 b.copy_(part.view_as(b))
             bucket, size = ([t], t.numel()) if t is not None else ([], 0)

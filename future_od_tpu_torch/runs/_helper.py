@@ -6,10 +6,10 @@ A run is one process on one card, or one process a card joined into a
 torch.distributed process group: by torchrun (`python -m torch.distributed.run
 --nproc_per_node N -m future_od_tpu_torch.runs.<script>`), by the `--dist_*`
 options, or by COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID or SLURM
-(`parallel/distributed.py`). Its ranks then train as one data-parallel
-global-batch step (`_build_mesh`). The one option the port cannot honour
-yet, `--mesh_model` > 1 (ROADMAP.md item 4b), raises NotImplementedError
-when a run uses it, never silently. `--bf16` and `--accum` reach the
+(`parallel/distributed.py`). Its ranks then train as one global-batch step
+over a (data, model) mesh (`_build_mesh`): `--mesh_model M` cuts the
+transformer's projections over M ranks of a host (tensor parallelism), the
+data axis takes the rest. `--bf16` and `--accum` reach the
 Trainer's train step; `--int8` builds the eval scripts' model with the int8
 PTQ backbone (runs/eval/_common.py), as in the JAX package, and training
 runs the float path.
@@ -25,7 +25,7 @@ import numpy as np
 
 from future_od_tpu_torch.data import nu_images, nu_scenes, synthetic
 from future_od_tpu_torch.parallel import distributed
-from future_od_tpu_torch.parallel.mesh import TENSOR_PARALLEL_ITEM, make_mesh
+from future_od_tpu_torch.parallel.mesh import make_mesh
 from future_od_tpu_torch.train.optimizer import get_lr_func  # noqa: F401  (re-export)
 from future_od_tpu_torch.train.trainer import Trainer
 from future_od_tpu_torch.utils.wandb import WandBConfig
@@ -40,31 +40,31 @@ def category_dict_for(train_loader):
     return nu_scenes.CATEGORY_DICT
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for a run option the port does not honour
-    yet."""
-    if int(getattr(args, "mesh_model", 1)) > 1:
-        raise NotImplementedError(f"--mesh_model > 1: {TENSOR_PARALLEL_ITEM}")
-
-
 def start_run(args) -> None:
-    """Refuse what the port does not honour, then join the run's process
-    group when there is one (before the model is built: each rank then
-    builds it on its own card)."""
-    refuse_unported(args)
+    """Join the run's process group when there is one (before the model is
+    built: each rank then builds it on its own card)."""
     distributed.maybe_initialize_distributed(args)
 
 
 def _build_mesh(args):
-    """The data-parallel mesh of this run's ranks (the data axis every rank,
-    the model axis 1), or None for one process. The JAX function clips the
-    data axis to a divisor of the global batch; here the ranks are fixed by
-    the launch, and the Trainer raises when the batch does not split."""
+    """The (data, model) mesh of this run's ranks, or None for one process:
+    the model axis `--mesh_model`, within a host (the ranks a host runs must
+    divide by it, `distributed.mesh_axes`), the data axis every rank it
+    leaves. The JAX function clips the data axis to a divisor of the global
+    batch; here the ranks are fixed by the launch, and the Trainer raises
+    when the batch does not split. `--mesh_model` above 1 in one process
+    raises ValueError: tensor parallelism runs one rank a device."""
+    num_model = int(getattr(args, "mesh_model", 1))
     if not distributed.is_initialized():
+        if num_model > 1:
+            raise ValueError(f"--mesh_model {num_model} needs {num_model} ranks a model "
+                             "replica: start one rank a device (torchrun, or --dist_*)")
         return None
-    mesh = make_mesh(num_model=int(getattr(args, "mesh_model", 1)))
+    num_data, num_model = distributed.mesh_axes(distributed.world_size(),
+                                                distributed.local_world_size(), num_model)
+    mesh = make_mesh(num_data, num_model)
     if distributed.is_main_process():
-        print(f"device mesh: data={mesh.shape['data']} model={mesh.shape['model']} "
+        print(f"device mesh: data={num_data} model={num_model} "
               f"({distributed.world_size()} ranks)")
     return mesh
 
@@ -193,7 +193,7 @@ def add_tpu_args(parser):
     the port does not honour yet say so in their help and raise when used."""
     parser.add_argument(
         "--mesh_model", default=1, type=int,
-        help="tensor-parallel axis size; > 1 is not ported yet (raises, ROADMAP.md item 4b)",
+        help="tensor-parallel axis size; data axis = ranks / mesh_model",
     )
     parser.add_argument(
         "--matcher", default="auction", choices=["auction", "hungarian"],

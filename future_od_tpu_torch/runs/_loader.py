@@ -8,7 +8,8 @@ validation clips under `--debug`), so the whole pipeline runs with no data
 mounted. `--device_normalize` has the datasets emit uint8 video, which the
 backbone normalizes on the device; `--loader grain` loads in worker
 processes (`data/loader.py::WorkerLoader`). In a multi-process run each rank
-loads only its block of every batch's rows (`Loader(shard=...)`).
+loads only its data place's block of every batch's rows (`Loader(shard=...)`;
+the `--mesh_model` ranks of a model group load the same block).
 """
 from __future__ import annotations
 
@@ -120,8 +121,9 @@ def _make_loader(args, dataset, **kw):
     sample's video 2x2 into 12 channels on the host."""
     if getattr(args, "s2d", False):
         kw["space_to_depth"] = True
-    if distributed.is_initialized():  # each rank loads its rows of every batch
-        kw["shard"] = (distributed.rank(), distributed.world_size())
+    if distributed.is_initialized():  # each data place loads its rows of every batch
+        num_model = int(getattr(args, "mesh_model", 1))
+        kw["shard"] = (distributed.rank() // num_model, distributed.world_size() // num_model)
     if getattr(args, "loader", "thread") == "grain":
         return WorkerLoader(dataset, **kw)
     return Loader(dataset, **kw)

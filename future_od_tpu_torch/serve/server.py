@@ -40,7 +40,11 @@ import numpy as np
 import torch
 
 from future_od_tpu_torch.models.st_detr import IMU_WIDTHS
-from future_od_tpu_torch.parallel.mesh import TENSOR_PARALLEL_ITEM, gather_rows, module_replicas
+from future_od_tpu_torch.parallel.mesh import (
+    SERVING_MODEL_AXIS,
+    gather_rows,
+    module_replicas,
+)
 from future_od_tpu_torch.serve.streaming import make_streaming_fns, streamable_core
 from future_od_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -113,7 +117,7 @@ class MultiStreamServer:
             devices = [resolve_device(device)]
         else:
             if mesh.shape["model"] != 1:
-                raise NotImplementedError(TENSOR_PARALLEL_ITEM)
+                raise ValueError(f"{SERVING_MODEL_AXIS}; got {mesh.shape}")
             devices = [resolve_device(d) for d in mesh.data_devices()]
             if self.max_batch % len(devices) or self.max_streams % len(devices):
                 raise ValueError(f"max_batch {self.max_batch} and max_streams "

@@ -33,7 +33,7 @@ from future_od_tpu_torch.models.cores import FuturePredCore, _positions
 from future_od_tpu_torch.models.st_detr import normalize_outputs, post_process
 from future_od_tpu_torch.ops.quant import assert_calibrated
 from future_od_tpu_torch.parallel.mesh import (
-    TENSOR_PARALLEL_ITEM,
+    SERVING_MODEL_AXIS,
     BatchSharding,
     gather_rows,
     module_replicas,
@@ -143,7 +143,7 @@ class StreamingSession:
                 raise TypeError(f"input_sharding: want parallel.mesh.batch_sharding(mesh), got "
                                 f"{input_sharding!r}")
             if input_sharding.mesh.shape["model"] != 1:
-                raise NotImplementedError(TENSOR_PARALLEL_ITEM)
+                raise ValueError(f"{SERVING_MODEL_AXIS}; got {input_sharding.mesh.shape}")
             devices = [resolve_device(d) for d in input_sharding.mesh.data_devices()]
         self.device = devices[0]
         self._devices = devices

@@ -6,11 +6,13 @@ AdamW with two groups: "main" at `lr` and "backbone" (every parameter under
 0.999), eps 1e-8 and `weight_decay` on every trained parameter, as optax's
 `adamw` applies them. The global-norm clip is `clip_by_global_norm_`, written
 out to equal optax's `clip_by_global_norm`; the train step applies it before
-`step()`.
+`step()`. Over a model axis each rank keeps AdamW's moments of its own share
+of a cut parameter (elementwise, so they are the one process's numbers),
+and `global_norm` sums the shares' squares over the model group.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -80,9 +82,22 @@ def build_optimizer(model: nn.Module, lr: float, lr_backbone: float, weight_deca
     )
 
 
-def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ g²) over every gradient, in f32 (optax.global_norm)."""
-    return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+def global_norm(grads: Iterable[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                axis=None) -> torch.Tensor:
+    """sqrt(Σ g²) over every gradient, in f32 (optax.global_norm). Over a
+    model axis (`parallel/distributed.py::ModelAxis`), `sharded[i]` says
+    whether grads[i] is this rank's share of a cut parameter: the shares'
+    squares are summed over the model group, and the replicated gradients,
+    alike on every rank of it, count once."""
+    grads = list(grads)
+    if axis is None or not any(sharded):
+        return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    from future_od_tpu_torch.parallel.distributed import all_reduce_sum
+
+    squares = [g.float().pow(2).sum() for g in grads]
+    cut = all_reduce_sum(torch.stack([s for s, c in zip(squares, sharded) if c]).sum(),
+                         axis.group)
+    return torch.sqrt(sum((s for s, c in zip(squares, sharded) if not c), cut))
 
 
 def clip_by_global_norm_(grads: Iterable[torch.Tensor], norm: torch.Tensor,

@@ -24,6 +24,16 @@ all-reduce, after the last micro-batch and before the clip), so the clip
 and AdamW see the whole batch's; the stats are reduced over the rows
 (`reduce_stats`). The mAP intermediaries and the output stay the rank's
 rows. Each rank draws its own dropout (the rank is folded into the seed).
+
+Tensor parallelism (a mesh whose model axis is above 1, the model cut by
+`parallel/mesh.py::shard_model`): the ranks of a model group hold the same
+rows and a share each of the transformer's projections, and the blocks
+reduce over the model group inside the forward and backward
+(`models/layers.py`). Every data-parallel reduction above runs over the
+data group only (the ranks of one model index), so no row counts twice;
+the global norm sums the shares' squares over the model group
+(`train/optimizer.py::global_norm`); the dropout seed folds in the data
+place, so a model group draws one stream, as one process would.
 """
 from __future__ import annotations
 
@@ -48,7 +58,7 @@ from future_od_tpu_torch.models.resnet import int8_calibration
 from future_od_tpu_torch.ops.misc import video_hw
 from future_od_tpu_torch.ops.quant import assert_calibrated
 from future_od_tpu_torch.parallel import distributed
-from future_od_tpu_torch.parallel.mesh import TENSOR_PARALLEL_ITEM, Mesh
+from future_od_tpu_torch.parallel.mesh import Mesh, sharded_params, tensor_parallel
 from future_od_tpu_torch.train.optimizer import AdamWClipped, clip_by_global_norm_, global_norm
 from future_od_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -136,21 +146,28 @@ def seeded(seed: int, step: int, device: torch.device, micro: Optional[int] = No
 
 
 def data_parallel(mesh: Optional[Mesh]) -> Optional[Mesh]:
-    """The mesh a step reduces over (its data axis the ranks of a process
-    group), or None for a step of one process. A model axis above 1 raises
-    NotImplementedError (item 4b); a mesh of several devices in one process
-    raises ValueError: a train or eval step runs one process a device."""
+    """The mesh a step reduces over (its grid the ranks of a process
+    group), or None for a step of one process. A mesh of several devices in
+    one process raises ValueError: a train or eval step runs one process a
+    device."""
     if mesh is None:
         return None
-    if mesh.shape["model"] != 1:
-        raise NotImplementedError(TENSOR_PARALLEL_ITEM)
     if not mesh.distributed:
-        if mesh.shape["data"] == 1:
+        if mesh.shape["data"] == 1 and mesh.shape["model"] == 1:
             return None
         raise ValueError(
             f"{mesh}: a train or eval step runs one process a device; start one rank a "
             "device (torchrun, or --dist_* / COORDINATOR_ADDRESS) and pass make_mesh()")
     return mesh
+
+
+def _check_cut(model: torch.nn.Module, mesh: Optional[Mesh]) -> None:
+    """A step over a model axis needs the model cut over it."""
+    if mesh is not None and mesh.shape["model"] > 1:
+        cut = tensor_parallel(model)
+        if cut is None or cut.shape != mesh.shape:
+            raise ValueError(f"{mesh}: cut the model over the mesh's model axis first "
+                             "(parallel/mesh.py::shard_model)")
 
 
 def _dropout_rank(mesh: Optional[Mesh]) -> Optional[int]:
@@ -164,7 +181,7 @@ def global_num_boxes(active: Optional[torch.Tensor], mesh: Optional[Mesh],
     count = (torch.zeros((), device=device) if active is None
              else active.sum().float())
     if mesh is not None:
-        distributed.all_reduce_sum_([count])
+        distributed.all_reduce_sum_([count], mesh.data_group)
     return count.clamp(min=1.0)
 
 
@@ -203,11 +220,12 @@ def reduce_stats(rows: torch.Tensor, keys) -> Tuple[torch.Tensor, Dict[str, torc
 
 
 def _gather_rows(row: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """(W, ...) of every rank's `row`, in rank order: an all-reduce of a
-    zero block holding this rank's row (gloo gathers no CUDA tensors)."""
+    """(W, ...) of every data place's `row`, in order: an all-reduce over
+    the data group of a zero block holding this rank's row (gloo gathers no
+    CUDA tensors)."""
     out = row.new_zeros((mesh.shape["data"],) + tuple(row.shape))
     out[mesh.rank] = row
-    distributed.all_reduce_sum_([out])
+    distributed.all_reduce_sum_([out], mesh.data_group)
     return out
 
 
@@ -263,17 +281,21 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     keeps the old parameters and optimizer state; stats["nonfinite_skipped"]
     is 1.0 then (else 0.0). The step counter advances either way.
 
-    mesh: data parallelism over the ranks (module docstring). `data` is then
-    this rank's contiguous block of the global batch, and the loss and
-    stats returned are the global batch's; the output and the mAP
-    intermediaries are the rank's rows. With accumulation, micro-batch k of
-    the global batch (rows k::K) is every rank's local rows k::K, which
-    needs the block's rows divisible by K (raises ValueError with the
-    sizes)."""
+    mesh: data and tensor parallelism over the ranks (module docstring).
+    `data` is then this rank's contiguous block of the global batch (its
+    data place's), and the loss and stats returned are the global batch's;
+    the output and the mAP intermediaries are the rank's rows. With
+    accumulation, micro-batch k of the global batch (rows k::K) is every
+    rank's local rows k::K, which needs the block's rows divisible by K
+    (raises ValueError with the sizes). Over a model axis the model must be
+    cut over it (`parallel/mesh.py::shard_model`; ValueError otherwise)."""
     device = resolve_device(device)
     mesh = data_parallel(mesh)
+    _check_cut(model, mesh)
     rank = _dropout_rank(mesh)
     params = list(optimizer.parameters())
+    cut = sharded_params(model)
+    axis = None if mesh is None else mesh.model_axis
     steps = [0]
     K = int(accum_steps)
 
@@ -310,15 +332,16 @@ def make_train_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
         # micro-batch k's row j is row j*K + k of the batch
         pred_logits, pred_boxes = (torch.stack(list(out), 1).flatten(0, 1)
                                    for out in zip(*outputs))
-        grads = [p.grad for p in params if p.grad is not None]
+        trained = [p for p in params if p.grad is not None]
+        grads = [p.grad for p in trained]
         if mesh is not None:
-            distributed.all_reduce_sum_(grads)
+            distributed.all_reduce_sum_(grads, mesh.data_group)
             gathered = _gather_rows(torch.stack(rows), mesh)  # (W, K, S)
             for k in range(K):
                 loss_k, stats_k = reduce_stats(gathered[:, k], stats_k.keys())
                 loss = loss + loss_k
                 stats = _combine_stats(stats, stats_k, K)
-        norm = global_norm(grads)
+        norm = global_norm(grads, [id(p) in cut for p in trained], axis)
         ok = bool(torch.isfinite(norm))  # the step's one decision on the host
         if ok or not skip_nonfinite:
             if optimizer.max_norm:
@@ -364,13 +387,14 @@ def make_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     package's batch dict, moved to `device` (default CUDA; raises without a
     card), where the model must live.
 
-    mesh: data parallelism over the ranks, as `make_train_step`'s. `data` is
-    this rank's block of the batch, of any size (a ragged batch splits
-    unevenly), or None for a rank without rows, which then returns None for
-    the mAP intermediaries and the output; the loss and stats are the whole
-    batch's on every rank."""
+    mesh: data and tensor parallelism over the ranks, as
+    `make_train_step`'s. `data` is this rank's block of the batch, of any
+    size (a ragged batch splits unevenly), or None for a rank without rows,
+    which then returns None for the mAP intermediaries and the output; the
+    loss and stats are the whole batch's on every rank."""
     device = resolve_device(device)
     mesh = data_parallel(mesh)
+    _check_cut(model, mesh)
 
     def loss_fn(batch, num_boxes):
         return forward_and_loss(model, criterion_cfg, batch, num_boxes=num_boxes,
@@ -405,6 +429,7 @@ def make_host_matched_steps(model: torch.nn.Module, criterion_cfg: CriterionConf
     (the matching is per image, so the indices are the global solve's)."""
     device = resolve_device(device)
     mesh = data_parallel(mesh)
+    _check_cut(model, mesh)
     exact = dataclasses.replace(criterion_cfg, matcher="hungarian")
     train_step = None if optimizer is None else make_train_step(
         model, exact, optimizer, skip_nonfinite=True, device=device,
@@ -438,6 +463,7 @@ def make_tracker_eval_step(model: torch.nn.Module, criterion_cfg: CriterionConfi
     `criterion_cfg.matcher` says. `mesh`: as `make_eval_step`'s."""
     device = resolve_device(device)
     mesh = data_parallel(mesh)
+    _check_cut(model, mesh)
     if host_matched:
         criterion_cfg = dataclasses.replace(criterion_cfg, matcher="hungarian")
 
@@ -470,12 +496,15 @@ def make_grad_report(model: torch.nn.Module, criterion_cfg: CriterionConfig,
     0. The port of the JAX epoch-1 audit: under autograd a gradient that is
     identically zero on a real batch marks a dead branch or a mis-masked
     parameter, as the reference's `grad is None` check (trainer.py:181-185)
-    does. With `mesh` (data parallelism, as `make_train_step`'s), `data` is
-    the rank's block of the batch and the norms are those of the whole
-    batch's gradient, summed over the ranks."""
+    does. With `mesh` (as `make_train_step`'s), `data` is the rank's block
+    of the batch and the norms are those of the whole batch's gradient,
+    summed over the data group; a cut parameter's norm is the whole
+    parameter's (its shares' squares summed over the model group)."""
     device = resolve_device(device)
     mesh = data_parallel(mesh)
+    _check_cut(model, mesh)
     rank = _dropout_rank(mesh)
+    cut = sharded_params(model)
 
     def report(data: Dict[str, Any], seed: int, step: int) -> Dict[str, torch.Tensor]:
         batch = to_device_batch(data, device)
@@ -487,14 +516,19 @@ def make_grad_report(model: torch.nn.Module, criterion_cfg: CriterionConfig,
             loss, _ = forward_and_loss(model, criterion_cfg, batch, num_boxes=num_boxes)
             grads = list(torch.autograd.grad(loss, trainable, allow_unused=True))
         if mesh is not None:
-            distributed.all_reduce_sum_([g for g in grads if g is not None])
+            distributed.all_reduce_sum_([g for g in grads if g is not None], mesh.data_group)
         grads = iter(grads)
-        norms = {}
+        squares = {}
         for name, p in named:
             g = next(grads) if p.requires_grad else None
-            norms[name] = (torch.zeros((), device=device) if g is None
-                           else torch.sqrt(g.float().square().sum()))
-        return norms
+            squares[name] = (torch.zeros((), device=device) if g is None
+                             else g.float().square().sum())
+        shares = [name for name, p in named if id(p) in cut]
+        if shares:  # the cut parameters' squares, summed over the model group at once
+            summed = distributed.all_reduce_sum(torch.stack([squares[n] for n in shares]),
+                                                mesh.model_group)
+            squares.update(zip(shares, summed))
+        return {name: torch.sqrt(sq) for name, sq in squares.items()}
 
     return report
 

@@ -22,6 +22,17 @@ AP is the one-process run's. Rank 0 alone prints, logs to W&B, writes the
 checkpoints (a barrier after each write) and draws the PNGs, from the
 visualized batch and outputs gathered from every rank. A signal on any rank
 stops every rank at the same step (the exit flag is reduced each step).
+
+Tensor parallelism (a mesh whose model axis is above 1, `--mesh_model`):
+the Trainer cuts the model over the model axis once it is on its device
+(`parallel/mesh.py::shard_model`), before the optimizer is built, so each
+rank keeps AdamW's moments of its own share. The ranks of a model group
+load the same rows (their data place's, `shard=(data place, data size)`);
+the main process is data place 0, model place 0; the AP and the PNGs take
+the rows of model place 0 only, so each row counts once. A checkpoint holds
+the full tensors, the shares gathered over the model group, AdamW's
+moments too, in the one-process Trainer's format, and a load cuts them
+again, so a checkpoint moves between meshes and one process.
 """
 from __future__ import annotations
 
@@ -38,6 +49,14 @@ from future_od_tpu_torch.data.loader import ARRAY_KEYS
 from future_od_tpu_torch.metrics.od_map import aggregate_mean_average_precision
 from future_od_tpu_torch.models.st_detr import STAT_IDFS, SpatioTemporalDETRArgs
 from future_od_tpu_torch.parallel import distributed
+from future_od_tpu_torch.parallel.mesh import (
+    gather_optimizer_state,
+    gather_state_dict,
+    load_full_optimizer_state,
+    load_full_state_dict,
+    shard_model,
+    tensor_parallel,
+)
 from future_od_tpu_torch.train.optimizer import (
     build_optimizer,
     param_labels,
@@ -75,8 +94,8 @@ class Trainer:
     the train step (`train/step.py::make_train_step`); eval stays f32, as
     the JAX Trainer's does. With a `tracker` (models/tracker.py) the eval
     step is the tracker baseline's (`train/step.py::make_tracker_eval_step`).
-    `mesh`: data parallelism over the ranks (module docstring); `device`
-    then defaults to the rank's card."""
+    `mesh`: data and tensor parallelism over the ranks (module docstring);
+    `device` then defaults to the rank's card."""
 
     def __init__(
         self,
@@ -107,10 +126,12 @@ class Trainer:
         self._mesh = data_parallel(mesh)
         if self._mesh is not None and device is None:
             device = self._mesh.local_device
-        self._main = self._mesh is None or self._mesh.rank == 0
+        self._main = self._mesh is None or self._mesh.main
         self._device = resolve_device(device)
         install_signal_handlers()
         self._model = model.to(self._device)
+        if self._mesh is not None and tensor_parallel(self._model) is None:
+            shard_model(self._model, self._mesh)
         self._args = detr_args
         self._criterion_cfg = detr_args.criterion_config(matching_mode)
         self._train_loader = train_loader
@@ -211,8 +232,8 @@ class Trainer:
             distributed.barrier()
 
     def _check_sharded(self, data_loader, training: bool):
-        """Under a mesh, a loader must give this rank its rows, and a train
-        batch must split evenly over the ranks."""
+        """Under a mesh, a loader must give this rank its data place's rows,
+        and a train batch must split evenly over the data axis."""
         if self._mesh is None:
             return
         ranks = self._mesh.shape["data"]
@@ -414,11 +435,13 @@ class Trainer:
         self._print(f"[{mode}: {self._epoch}] Loss: {loss_str}  ({dt:.1f}s)")
 
         if self._mesh is not None:
-            # every rank's steps, each step's blocks in rank order: the rows
-            # in the order of the one-process run
+            # every data place's steps (model place 0's: a model group holds
+            # the same rows), each step's blocks in rank order: the rows in
+            # the order of the one-process run
+            mine = od_map_steps if self._mesh.model_rank == 0 else []
             od_map_steps = [entry for _, entry in sorted(
                 ((i, r), entry) for r, steps in enumerate(
-                    distributed.all_gather_objects(od_map_steps)) for i, entry in steps)]
+                    distributed.all_gather_objects(mine)) for i, entry in steps)]
         else:
             od_map_steps = [entry for _, entry in od_map_steps]
         if not od_map_steps:
@@ -468,20 +491,23 @@ class Trainer:
         net_type, net, optimizer, lr_schedule, stats, device; with the run's
         detr_args and train step) and, when is_final, <save_name>_final (the
         net with net_type and detr_args). Durable on return. Under a mesh,
-        rank 0 writes (every rank holds the same state) and every rank waits
-        for the write."""
+        the main rank writes (every data place holds the same state; a model
+        axis's shares are gathered first, by every rank) and every rank
+        waits for the write."""
+        net = gather_state_dict(self._model)
+        optimizer = gather_optimizer_state(self._optimizer, self._model)
         if self._main:
-            self._write_checkpoint(is_final)
+            self._write_checkpoint(is_final, net, optimizer)
         self._barrier()
 
-    def _write_checkpoint(self, is_final: bool):
+    def _write_checkpoint(self, is_final: bool, net, optimizer):
         net_type = type(self._model).__name__
         detr_args = dataclasses.asdict(self._args)
         save_checkpoint(self._checkpoint_path, self._save_name, {
             "epoch": self._epoch,
             "net_type": net_type,
-            "net": self._model.state_dict(),
-            "optimizer": self._optimizer.state_dict(),
+            "net": net,
+            "optimizer": optimizer,
             "lr_schedule": {"last_epoch": self._epoch,
                             "factor": self._lr_func(max(self._epoch - 1, 0))},
             "stats": {k: m.state_dict() for k, m in self._stats.items()},
@@ -491,7 +517,7 @@ class Trainer:
         })
         if is_final:
             save_checkpoint(self._checkpoint_path, self._save_name + "_final", {
-                "net": self._model.state_dict(), "net_type": net_type, "detr_args": detr_args,
+                "net": net, "net_type": net_type, "detr_args": detr_args,
             })
 
     def load_checkpoint(self, checkpoint: Optional[str] = None, load_only_net=False,
@@ -508,7 +534,7 @@ class Trainer:
             self._print(f"Loading reference checkpoint: {path}")
             blob = _load_reference(path, trust_pickle)
             state_dict = blob["net"] if isinstance(blob, dict) and "net" in blob else blob
-            self._model.load_state_dict(state_dict, strict=True)
+            load_full_state_dict(self._model, state_dict)
             self._print(f"Loaded: {path}")
             return
         if checkpoint is None:
@@ -542,9 +568,9 @@ class Trainer:
                         f"but this run uses {key}={ours.get(key)}: outputs "
                         "will be wrong unless this is intentional."
                     )
-        self._model.load_state_dict(blob["net"], strict=True)
+        load_full_state_dict(self._model, blob["net"])
         if not load_only_net:
-            self._optimizer.load_state_dict(blob["optimizer"])
+            load_full_optimizer_state(self._optimizer, self._model, blob["optimizer"])
             self._train_step.steps[0] = int(blob.get("step", 0))
             self._epoch = int(blob.get("epoch", 0))
             for key, meter_state in blob.get("stats", {}).items():
@@ -558,7 +584,7 @@ class Trainer:
         every rank calls it with its rows (None: none), and rank 0 draws
         the whole batch."""
         if self._mesh is not None:
-            batch, output = _gathered(batch, output)
+            batch, output = _gathered(batch, output, self._mesh.model_rank)
             if batch is None:
                 return
         scores = np.asarray(output["class_scores"])  # (B, L_out, 1, M, C+1)
@@ -609,10 +635,11 @@ class Trainer:
 _VISUALIZED_KEYS = ("video", "classes", "active", "boxes", "annotated_frame_idx", "ignore_boxes")
 
 
-def _gathered(batch, output):
-    """(batch, output) of every rank's rows, concatenated in rank order, on
-    rank 0; (None, None) on the other ranks. A rank without rows sends None."""
-    mine = None if batch is None else (
+def _gathered(batch, output, model_rank: int):
+    """(batch, output) of every data place's rows, concatenated in order, on
+    rank 0; (None, None) on the other ranks. A rank without rows sends None,
+    as does a rank off model place 0 (its model group's rows are place 0's)."""
+    mine = None if batch is None or model_rank else (
         {k: np.asarray(batch[k]) for k in _VISUALIZED_KEYS if k in batch},
         {k: np.asarray(v) for k, v in output.items()})
     parts = distributed.gather_objects_to_main(mine)

@@ -268,6 +268,41 @@ def load_jax_variables(model: torch.nn.Module, variables: Tree) -> torch.nn.Modu
     return model
 
 
+# the port's module names that the JAX tree spells otherwise, (port, JAX)
+_JAX_SPELLING = (
+    (r"^_model(?=\.)", "core"),
+    (r"\.(layers|image_attend|norm_ia|previmage_attn|convs)\.(\d+)(?=\.)",
+     lambda m: f".{dict(layers='layer', convs='conv').get(m[1], m[1])}{m[2]}"),
+    (r"\.(mlp|feedforward)\.0(?=\.)", r".\1.fc1"),
+    (r"\.(mlp|feedforward)\.3(?=\.)", r".\1.fc2"),
+    (r"\.imu_layers\.0(?=\.)", ".imu_layers.fc1"),
+    (r"\.imu_layers\.2(?=\.)", ".imu_layers.fc2"),
+    (r"\.fun\.out_proj(?=\.)", ".out_proj"),
+    (r"\.downsample\.0(?=\.)", ".downsample_conv"),
+    (r"\.layer(\d)\.(\d+)(?=\.)", r".layer\1_block\2"),
+    (r"\.query_embed\.weight$", ".query_embed.embedding"),
+)
+
+
+def jax_param_paths(name: str, ndim: int) -> List[str]:
+    """The JAX params leaves (as `jax.tree_util.keystr` spells their paths
+    under "params") that `state_arrays` makes the port's parameter `name`
+    (of `ndim` dims) from: one, or q_proj, k_proj and v_proj for a packed
+    `in_proj_weight` / `in_proj_bias`."""
+    path = name
+    for pattern, repl in _JAX_SPELLING:
+        path = re.sub(pattern, repl, path)
+    head, leaf = path.rsplit(".", 1)
+    if leaf == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    if leaf in ("in_proj_weight", "in_proj_bias"):
+        kind = "kernel" if leaf == "in_proj_weight" else "bias"
+        parts = [f"{head}.{p}.{kind}" for p in ("q_proj", "k_proj", "v_proj")]
+    else:
+        parts = [f"{head}.{leaf}"]
+    return ["".join(f"['{key}']" for key in p.split(".")) for p in parts]
+
+
 def _is_array(x) -> bool:
     return hasattr(x, "shape") and hasattr(x, "dtype")
 

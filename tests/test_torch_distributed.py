@@ -15,13 +15,20 @@ epoch on sharded synthetic loaders (8 train clips at batch 4: 2 steps; 5
 validation clips at batch 4: one batch of 4 and a ragged one of 1, which
 leaves rank 1 without rows), with its checkpoint and PNGs, then resume a
 fresh Trainer from the checkpoint; (5) stop a Trainer on both ranks by a
-signal's flag set on one.
+signal's flag set on one; (6) form a (1, 2) mesh in the same start and take
+(2)'s step with the tiny flagship cut over the model axis (tensor
+parallelism: 2 of its 4 heads and half its FFN a rank, on all 4 rows), at
+accumulation 1 and 2 and at dropout 0.1 (K4-K6's plain versions hashing the
+global heads), each rank writing the full parameters and gradients gathered
+over the model group.
 
 The JAX side: the JAX Trainer on `make_mesh(2, 1)`, its epoch on the same
 loaders and weights, whose first step is (2) at accumulation 1 (the batch
 of (2) is the train loader's first of epoch 1), and the jitted step of a
 JAX Trainer at accumulation 2. About 70 s alone (the JAX compiles: train
 at accumulation 1 and 2, eval at 4 and 1 rows; the ranks run meanwhile).
+The (1, 2) steps are held against the same JAX steps and against the port's
+one-process step (`one_process_steps`).
 """
 import argparse
 import json
@@ -59,18 +66,30 @@ STAT_ATOL = 1e-5
 # tolerance is 10x that.
 SAME_LOSS_RTOL = 1.1e-6
 SAME_PARAM_ATOL_LR = 5.5e-2
+# The (1, 2) tensor-parallel step against the port's one process: the
+# same products on half the heads and hidden units a rank, the partial
+# products summed over the ranks. Measured, over the three steps: the loss
+# 1.2e-7 relative, each clipped gradient within 3.3e-7 of the largest
+# gradient element, a parameter 7.9e-3 lr; each tolerance is 10x that.
+TP_GRAD_GAP = 3.3e-6
+TP_PARAM_ATOL_LR = 7.9e-2
+TP_DROPOUT = 0.1
+# the (1, 2) steps: (key, accumulation, dropout); the dropout step runs
+# with the packed projections (FUTURE_OD_PACKED_PROJ=1), each rank packing
+# its own shares
+TP_STEPS = (("tp1", 1, 0.0), ("tp2", 2, 0.0), ("tp_dropout_packed", 1, TP_DROPOUT))
 # the epoch's meters against the JAX Trainer's (test_torch_trainer.py's
 # DRIFT_METER_RTOL) and the AP dicts (AP_ATOL)
 DRIFT_METER_RTOL = 2.4e-3
 AP_ATOL = 1e-6
 
 
-def port_model(state=None, seed=0):
+def port_model(state=None, seed=0, dropout=0.0):
     """The tiny flagship on the CPU, from `state` (a state dict) or random."""
     from future_od_tpu_torch.models.build import build_flagship
     from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
 
-    model = build_flagship(SpatioTemporalDETRArgs(**TINY), device="cpu",
+    model = build_flagship(SpatioTemporalDETRArgs(**{**TINY, "dropout": dropout}), device="cpu",
                            generator=torch.Generator().manual_seed(seed))
     if state is not None:
         model.load_state_dict(state)
@@ -209,10 +228,54 @@ def worker(rank: int, world: int, port: int, out: str) -> None:
     stopped.train(1)
     EXIT.clear()
     record["steps_after_a_signal"] = stopped.step
+
+    tensor_parallel_steps(state, data, record, arrays)
     np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(record, f)
     distributed.destroy()
+
+
+def tensor_parallel_steps(state, data, record, arrays):
+    """(6): the steps on a (1, 2) mesh, every rank on the whole batch."""
+    from future_od_tpu_torch.parallel import distributed
+    from future_od_tpu_torch.parallel.mesh import gather_state_dict, make_mesh, shard_model
+
+    mesh = make_mesh(1, 2)
+    record["tp_mesh"] = [mesh.shape, mesh.rank, mesh.model_rank]
+    for key, K, dropout in TP_STEPS:
+        model = shard_model(port_model(state, dropout=dropout), mesh)
+        distributed.MODEL_REDUCES.update(count=0, bytes=0)
+        if key == "tp_dropout_packed":  # the packed projections, cut per projection
+            os.environ["FUTURE_OD_PACKED_PROJ"] = "1"
+        loss, stats, _, output = one_step(model, data, K, mesh, dropout)
+        os.environ.pop("FUTURE_OD_PACKED_PROJ", None)
+        record[key] = {"loss": float(loss), "stats": {k: float(v) for k, v in stats.items()},
+                       "output_rows": int(output["boxes"].shape[0]),
+                       "model_reduces": dict(distributed.MODEL_REDUCES),
+                       "local_heads": model._model.separate_encoder.transformer.layers[0]
+                       .self_attn.attn.in_proj_weight.shape[0] // 3}
+        params = dict(model.named_parameters())
+        weights = gather_state_dict(model, {n: p.detach() for n, p in params.items()})
+        for name, value in weights.items():
+            arrays[f"{key}/{name}"] = value.numpy()
+        grads = gather_state_dict(model, {n: p.grad for n, p in params.items() if p.grad is not None})
+        for name, value in grads.items():
+            arrays[f"{key}/grad/{name}"] = value.numpy()
+
+
+def one_step(model, data, K, mesh=None, dropout=0.0):
+    """One train step of `model` on `data` (seed 0) at accumulation K."""
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.train.optimizer import build_optimizer
+    from future_od_tpu_torch.train.step import make_train_step
+
+    args = SpatioTemporalDETRArgs(**{**TINY, "dropout": dropout})
+    optimizer = build_optimizer(model, args.lr, args.lr_backbone, args.weight_decay,
+                                args.max_norm)
+    step = make_train_step(model, args.criterion_config(), optimizer, device="cpu",
+                           accum_steps=K, mesh=mesh)
+    return step(data, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -396,35 +459,107 @@ def test_step_matches_the_jax_mesh_step(run, K):
                                    atol=2 * lr, err_msg=name)
 
 
-@pytest.mark.parametrize("K", ACCUMS)
-def test_step_equals_one_process_step(run, K):
-    """The two ranks against the port's one-process step on the global
-    batch and the same weights: the loss, every stat and every parameter."""
+@pytest.fixture(scope="module")
+def one_process_steps(run):
+    """The port's one-process step on the global batch and the same weights,
+    attention through the train flash kernels' plain versions as in the
+    ranks: {(K, dropout): (loss, stats, {name: parameter}, {name: its
+    clipped gradient})}."""
     from future_od_tpu_torch.models import layers
-    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
-    from future_od_tpu_torch.train.optimizer import build_optimizer
-    from future_od_tpu_torch.train.step import make_train_step
 
-    args = SpatioTemporalDETRArgs(**TINY)
-    model = port_model(run["model"].state_dict())
-    optimizer = build_optimizer(model, args.lr, args.lr_backbone, args.weight_decay,
-                                args.max_norm)
-    step = make_train_step(model, args.criterion_config(), optimizer, device="cpu",
-                           accum_steps=K)
+    out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("FUTURE_OD_TRAIN_FLASH", "1")
         mp.setattr(layers, "TRAIN_FLASH_MIN_KEYS", 1)
-        loss, stats, _, _ = step(run["data"], 0)
-    record, arrays = run["ranks"][0]
-    got = record[f"accum{K}"]
-    np.testing.assert_allclose(got["loss"], float(loss), rtol=SAME_LOSS_RTOL)
+        # one thread, as the ranks (a module fixture runs before the
+        # function-scoped `one_torch_thread`)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        for K, dropout in {(K, dropout) for _, K, dropout in TP_STEPS}:
+            model = port_model(run["model"].state_dict(), dropout=dropout)
+            loss, stats, _, _ = one_step(model, run["data"], K, dropout=dropout)
+            out[K, dropout] = (
+                float(loss), {k: float(v) for k, v in stats.items()},
+                {n: p.detach().numpy() for n, p in model.named_parameters()},
+                {n: p.grad.numpy() for n, p in model.named_parameters() if p.grad is not None})
+        torch.set_num_threads(threads)
+    return out
+
+
+def assert_step_equals(got, arrays, prefix, want, param_atol_lr):
+    """A rank's step record and parameters against a one-process step."""
+    loss, stats, params, _ = want
+    np.testing.assert_allclose(got["loss"], loss, rtol=SAME_LOSS_RTOL)
     for key, value in stats.items():
-        np.testing.assert_allclose(got["stats"][key], float(value), rtol=SAME_LOSS_RTOL,
+        np.testing.assert_allclose(got["stats"][key], value, rtol=SAME_LOSS_RTOL,
                                    atol=1e-7, err_msg=key)
-    for name, p in model.named_parameters():
-        lr = args.lr_backbone if "backbone" in name else args.lr
-        np.testing.assert_allclose(arrays[f"accum{K}/{name}"], p.detach().numpy(), rtol=0,
-                                   atol=SAME_PARAM_ATOL_LR * lr, err_msg=name)
+    for name, value in params.items():
+        lr = TINY["lr_backbone"] if "backbone" in name else TINY["lr"]
+        np.testing.assert_allclose(arrays[f"{prefix}/{name}"], value, rtol=0,
+                                   atol=param_atol_lr * lr, err_msg=name)
+
+
+@pytest.mark.parametrize("K", ACCUMS)
+def test_step_equals_one_process_step(run, one_process_steps, K):
+    """The two ranks against the port's one-process step on the global
+    batch and the same weights: the loss, every stat and every parameter."""
+    record, arrays = run["ranks"][0]
+    assert_step_equals(record[f"accum{K}"], arrays, f"accum{K}", one_process_steps[K, 0.0],
+                       SAME_PARAM_ATOL_LR)
+
+
+def test_tensor_parallel_mesh_cuts_the_model(run):
+    """The (1, 2) mesh of the two ranks: one data place, each rank its
+    model place, 2 of the 4 heads a rank; the blocks' sums over the model
+    group ran, each rank the same number and bytes."""
+    for r, (record, _) in enumerate(run["ranks"]):
+        assert record["tp_mesh"] == [{"data": 1, "model": RANKS}, 0, r]
+        assert record["tp1"]["local_heads"] == TINY["hidden_dim"] // RANKS
+        assert record["tp1"]["model_reduces"]["count"] > 0
+        assert record["tp1"]["model_reduces"] == run["ranks"][0][0]["tp1"]["model_reduces"]
+
+
+@pytest.mark.parametrize("K", ACCUMS)
+def test_tensor_parallel_step_matches_the_jax_mesh_step(run, K):
+    """The (1, 2) step at accumulation K against the JAX program's step
+    (the same function): the loss and stats at the JAX bounds, the gathered
+    parameters within 2 lr of JAX's and equal on both ranks."""
+    want = run["steps"][K]
+    (r0, a0), (r1, a1) = run["ranks"]
+    for record in (r0, r1):
+        got = record[f"tp{K}"]
+        assert got["output_rows"] == BATCH
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+        for key, value in want["stats"].items():
+            rtol = LOSS_RTOL if key in ("labels", "box_l1", "box_giou") else 0
+            np.testing.assert_allclose(got["stats"][key], value, rtol=rtol, atol=STAT_ATOL,
+                                       err_msg=key)
+    for name, value in want["params"].items():
+        if name.endswith(("running_mean", "running_var")) or f"tp{K}/{name}" not in a0:
+            continue
+        assert np.array_equal(a0[f"tp{K}/{name}"], a1[f"tp{K}/{name}"]), name
+        lr = TINY["lr_backbone"] if "backbone" in name else TINY["lr"]
+        np.testing.assert_allclose(a0[f"tp{K}/{name}"], value, rtol=0, atol=2 * lr, err_msg=name)
+
+
+@pytest.mark.parametrize("key,K,dropout", TP_STEPS)
+def test_tensor_parallel_step_equals_one_process_step(run, one_process_steps, key, K, dropout):
+    """The (1, 2) step against the port's one-process step of the same
+    seed: the loss and stats, every gradient and every parameter, at
+    TP_*'s bounds. At dropout 0.1 the ranks draw the one process's masks:
+    the in-kernel mask at the global heads (K4-K6's plain versions) and
+    the sharded dropouts' slices of the full masks; that step runs the
+    packed projections (one matmul over the projections an input feeds,
+    FUTURE_OD_PACKED_PROJ=1), each rank packing its own shares, against
+    the one process's unpacked step."""
+    want = one_process_steps[K, dropout]
+    grads = want[3]
+    largest = max(np.abs(g).max() for g in grads.values())
+    for record, arrays in run["ranks"]:
+        assert_step_equals(record[key], arrays, key, want, TP_PARAM_ATOL_LR)
+        for name, g in grads.items():
+            np.testing.assert_allclose(arrays[f"{key}/grad/{name}"], g, rtol=0,
+                                       atol=TP_GRAD_GAP * largest, err_msg=name)
 
 
 def test_ranks_draw_different_dropout(run):

@@ -130,15 +130,16 @@ def test_host_matched_train_and_eval_steps_equal_jax(single_frame_case, monkeypa
 
 
 def test_host_matched_eval_only_and_refusals(single_frame_case):
-    """Without an optimizer there is no train step (JAX's tx None); a model
-    axis above 1 is item 4b's refusal."""
+    """Without an optimizer there is no train step (JAX's tx None); a mesh
+    with a model axis of two devices in one process is refused, as any mesh
+    of several devices in one process (the steps run one rank a device)."""
     jmodel, variables, data = single_frame_case
     args = SpatioTemporalDETRArgs(**ARGS)
     model = load_jax_variables(build.build_single_frame(args, device="cpu"), variables)
     train, evaluate = port_step.make_host_matched_steps(model, args.criterion_config(), None,
                                                         device="cpu")
     assert train is None and np.isfinite(float(evaluate(data)[0]))
-    with pytest.raises(NotImplementedError, match="4b"):
+    with pytest.raises(ValueError, match="one process a device"):
         port_step.make_host_matched_steps(model, args.criterion_config(), None, device="cpu",
                                           mesh=make_mesh(1, 2, devices=["cpu", "cpu"]))
 

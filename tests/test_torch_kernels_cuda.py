@@ -438,6 +438,54 @@ def test_flash_train_bf16_autograd_at_step_shapes(cuda, np_rng, BH, Nq, Nk, d, d
         assert_close(got.to(torch.bfloat16), want.to(torch.bfloat16), torch.bfloat16)
 
 
+# (B, Nq, Nk, d, dv) at 8 heads: chip_smoke phase 10d's encoder and decoder
+# attentions (8 clips), and an encoder of 6 clips. On an H100 (132 SMs) a
+# call over 4 of the 8 heads takes the all-heads call's split at the first
+# (and in K4 and K5 at the second), not in K6 at the second nor at the third
+# (a smaller grid splits a slab's rows over more warps)
+HEAD_SHARE_SHAPES = [(16, 350, 350, 32, 32), (8, 128, 350, 64, 32), (6, 350, 350, 32, 32)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Nq,Nk,d,dv", HEAD_SHARE_SHAPES)
+def test_flash_train_head_share_is_the_full_call_slice(cuda, np_rng, dtype, rate, B, Nq, Nk, d,
+                                                       dv):
+    """K4, K5 and K6 over heads h0..h0+4 of 8 (`heads=(4, 8, h0)`, a
+    tensor-parallel rank's call) give the all-heads call's slice: bit for
+    bit where both calls take the same split, within the kernels'
+    tolerance where they do not; the dropout mask is the same either way
+    (hashed at the global heads). The defaults equal heads=(8, 8, 0)."""
+    H, share = 8, 4
+    q, k, v, do = on(cuda, dtype, *(np_rng.normal(size=(B, H, n, w))
+                                    for n, w in ((Nq, d), (Nk, d), (Nk, dv), (Nq, dv))))
+    args = (777, 1.0 / math.sqrt(d), rate, *fa.train_shapes(Nq, Nk, 256, 512))
+
+    def calls(heads, part):
+        qs, ks, vs, dos = (t[:, part] for t in (q, k, v, do))
+        out, lse = fa.flash_train_fwd(qs, ks, vs, *args, heads=heads)
+        delta = (dos.float() * out.float()).sum(-1)
+        return (out, lse, fa.flash_dq(qs, ks, vs, dos, lse, delta, *args, heads=heads),
+                *fa.flash_dkv(qs, ks, vs, dos, lse, delta, *args, heads=heads))
+
+    full = calls(None, slice(None))
+    assert all(torch.equal(a, b) for a, b in zip(full, calls((H, H, 0), slice(None))))
+    # the outputs each kernel writes: K4 out and lse, K5 dq, K6 dk and dv
+    kernels = ("flash_train_fwd",) * 2 + ("flash_train_dq",) + ("flash_train_dkv",) * 2
+    same = {name: fa.flash_train_info(name, d, dv, torch.float32, B * H, Nq, Nk)["split"]
+            == fa.flash_train_info(name, d, dv, torch.float32, B * share, Nq, Nk)["split"]
+            for name in set(kernels)}
+    for h0 in (0, share):
+        got = calls((share, H, h0), slice(h0, h0 + share))
+        for name, a, b in zip(kernels, got, (t[:, h0:h0 + share] for t in full)):
+            if same[name]:
+                assert torch.equal(a, b), name
+            elif a.dtype == dtype:
+                assert_close(a, b, dtype)
+            else:  # lse, f32 at either dtype
+                torch.testing.assert_close(a, b, rtol=0, atol=2e-5 * b.abs().max().item())
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES)
 def test_dropout_mask_kernel_bits(cuda, rate, BH, Nq, Nk, d, dv):
@@ -450,6 +498,10 @@ def test_dropout_mask_kernel_bits(cuda, rate, BH, Nq, Nk, d, dv):
         col = torch.arange(Nk, device=cuda)[None, None, :]
         ref = fa.dropout_keep_mask(seed, bh, row, col, rate, nq_pad, nk_pad)
         assert torch.equal(out, ref)
+        # a call over heads 4..8 of 8 hashes the global batch·heads
+        share = fa.dropout_keep_mask_kernel(seed, BH // 2, Nq, Nk, rate, nq_pad, nk_pad, cuda,
+                                            heads=(4, 8, 4))
+        assert torch.equal(share, ref.reshape(BH // 8, 8, Nq, Nk)[:, 4:].reshape(BH // 2, Nq, Nk))
 
 
 # (video shape, tile_p): the stem kernels tile 8x8 pool outputs (A, B, B16) and

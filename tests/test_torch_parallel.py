@@ -108,12 +108,28 @@ def test_batch_sharding_blocks_equal_jax(rows):
 
 
 def test_param_shardings_replicate_and_wait_for_tensor_parallelism():
+    """At a model axis of 1 every parameter is replicated; above 1 a module
+    outside the tensor-parallel blocks stays replicated too (its leaves
+    match no JAX rule); a dict of tensors, which has no blocks to say what
+    splits, is taken at a model axis of 1 only; and cutting a model needs
+    ranks: one process with a
+    model axis of 2 is refused (tests/test_torch_tensor_parallel.py holds
+    the rules against JAX's, tests/test_torch_distributed.py cuts over
+    ranks)."""
     model = torch.nn.Linear(3, 4)
     one = mesh.make_mesh(2, 1, devices=["cpu", "cpu"])
     assert mesh.param_shardings(model, one) == {"weight": mesh.replicate(one),
                                                 "bias": mesh.replicate(one)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        mesh.param_shardings(model, mesh.make_mesh(1, 2, devices=["cpu", "cpu"]))
+    two = mesh.make_mesh(1, 2, devices=["cpu", "cpu"])
+    assert mesh.param_shardings(model, two) == {"weight": mesh.replicate(two),
+                                                "bias": mesh.replicate(two)}
+    tensors = dict(model.named_parameters())
+    assert mesh.param_shardings(tensors, one) == {"weight": mesh.replicate(one),
+                                                  "bias": mesh.replicate(one)}
+    with pytest.raises(ValueError, match="pass the module"):  # a dict has no blocks
+        mesh.param_shardings(tensors, two)
+    with pytest.raises(ValueError, match="one process a device"):
+        mesh.shard_model(model, two)
 
 
 def test_split_rows_of_a_ragged_batch():
@@ -168,6 +184,15 @@ def test_one_process_group(monkeypatch):
                    ((3, torch.float32), (7, torch.float32), (2, torch.float64), (1, torch.float32))]
         want = [t.clone() for t in tensors]
         distributed.all_reduce_sum_(tensors)
+        assert all(torch.equal(t, w) for t, w in zip(tensors, want))
+        # over a group: each bucket asks whether to stage through the host
+        # with the group it reduces over (on the card, a CUDA tensor under
+        # a gloo group goes through the host)
+        seen = []
+        monkeypatch.setattr(distributed, "_staged", lambda t, g: seen.append(g) or False)
+        group = distributed.Group((0, 0))  # two places, one rank: the default group
+        distributed.all_reduce_sum_(tensors, group)
+        assert seen and all(g is group for g in seen)
         assert all(torch.equal(t, w) for t, w in zip(tensors, want))
         assert distributed.any_rank(True) and not distributed.any_rank(False)
         assert distributed.all_gather_objects({"a": 1}) == [{"a": 1}]

@@ -245,10 +245,11 @@ def test_server_equals_jax_server(twins):
 
 
 def test_mesh_waits_for_parallel(model):
-    """What the sharded server still refuses: a mesh with a model axis
-    (tensor parallelism, ROADMAP.md Queue 1 item 4b), and a batch or a ring
-    that does not divide by the data axis (the JAX server asserts)."""
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 4b"):
+    """What the sharded server refuses: a mesh with a model axis (serving
+    takes a model axis of 1, as the JAX server asserts; tensor parallelism
+    cuts the training steps only), and a batch or a ring that does not
+    divide by the data axis (the JAX server asserts)."""
+    with pytest.raises(ValueError, match=r"serving takes a model axis of 1"):
         MultiStreamServer(model, max_batch=2, clip_frames=L,
                           mesh=make_mesh(1, 2, devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="divide by the data axis 2"):

@@ -228,12 +228,12 @@ def test_joint_encoder_streaming_fault_is_pinned(twins):
 
 
 def test_input_sharding_waits_for_parallel(twins):
-    """What the sharded session still refuses: a mesh with a model axis
-    (tensor parallelism, ROADMAP.md Queue 1 item 4b), a sharding other than
-    `batch_sharding`, and a frame batch that does not split over the data
-    axis."""
+    """What the sharded session refuses: a mesh with a model axis (serving
+    takes a model axis of 1, as the JAX server asserts; tensor parallelism
+    cuts the training steps only), a sharding other than `batch_sharding`,
+    and a frame batch that does not split over the data axis."""
     _, _, port = twins("flagship")
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 4b"):
+    with pytest.raises(ValueError, match=r"serving takes a model axis of 1"):
         StreamingSession(port, clip_frames=L, input_sharding=batch_sharding(
             make_mesh(1, 2, devices=["cpu", "cpu"])))
     with pytest.raises(TypeError, match="batch_sharding"):

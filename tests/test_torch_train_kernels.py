@@ -58,6 +58,23 @@ class TestDropoutMask:
         kept = float((out > 0).float().mean())
         assert abs(kept - (1 - rate)) < 0.05
 
+    @pytest.mark.parametrize("H_local,H,h0", [(4, 8, 0), (4, 8, 4), (2, 8, 6), (1, 3, 2)])
+    def test_head_share_is_the_global_slice(self, H_local, H, h0):
+        """A call over heads h0..h0+H_local of H (tensor parallelism) draws
+        the head slice of the all-heads call's mask, and the hash at each
+        global batch·head is JAX's _dropout_mask there."""
+        B, Nq, Nk, nq_pad, nk_pad, seed, rate = 3, 20, 30, 256, 512, 77, 0.1
+        full = fa._mask(seed, B * H, Nq, Nk, rate, nq_pad, nk_pad, "cpu").reshape(B, H, Nq, Nk)
+        share = fa._mask(seed, B * H_local, Nq, Nk, rate, nq_pad, nk_pad, "cpu",
+                         (H_local, H, h0)).reshape(B, H_local, Nq, Nk)
+        assert torch.equal(share, full[:, h0:h0 + H_local])
+        for bh in (0, B * H_local - 1):
+            g = fa.global_heads(bh, (H_local, H, h0))
+            assert g == (bh // H_local) * H + h0 + bh % H_local
+            ref = jax_dropout_mask(jnp.asarray([seed], jnp.int32), jnp.int32(g), 0, 0, (Nq, Nk),
+                                   rate, nq_pad, nk_pad)
+            np.testing.assert_array_equal(share.reshape(-1, Nq, Nk)[bh].numpy(), np.asarray(ref))
+
     def test_geometry_is_the_jax_blocks(self):
         # the stage-1 train shapes at 350 tokens: encoder and decoder
         assert fa.train_shapes(350, 350, 256, 512) == (512, 350)
@@ -178,13 +195,34 @@ class TestWrappers:
         for got, want in zip(*results):
             torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * want.abs().max().item())
 
+    @pytest.mark.parametrize("h0", [0, 2])
+    def test_head_share_equals_the_full_call(self, h0):
+        """K4-K6's plain versions over heads h0..h0+2 of 4 (`heads`), as a
+        tensor-parallel rank calls them: the output and the gradients are
+        the all-heads call's slice, the dropout mask included."""
+        B, H, Hl, Nq, Nk, d = 2, 4, 2, 17, 40, 32
+        rng = np.random.default_rng(9)
+        q, k, v, do = (t(rng.normal(size=(B, H, n, d)).astype(np.float32))
+                       for n in (Nq, Nk, Nk, Nq))
+        results = []
+        for heads, part in ((None, slice(None)), ((Hl, H, h0), slice(h0, h0 + Hl))):
+            x = [a[:, part].clone().requires_grad_(True) for a in (q, k, v)]
+            out = fa.flash_attention_train(*x, 11, d**-0.5, 0.3, heads=heads)
+            out.backward(do[:, part])
+            results.append([out] + [a.grad for a in x])
+        for got, want in zip(results[1], results[0]):
+            want = want[:, h0:h0 + Hl]
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * want.abs().max().item())
+        with pytest.raises(ValueError, match="holds 2 heads"):
+            fa.flash_attention_train(q[:, :2], k[:, :2], v[:, :2], 1, 1.0, 0.1, heads=(2, 4, 3))
+
     def test_kernel_argument_layout(self):
-        """The packed TrainArgs is csrc/flash_attention_train.cu's struct up
-        with its tail padding (offsetof nk_pad == 312, sizeof 320, so the
-        by-value copy reads no byte past the buffer), and the outputs of a
-        (B, H, N, d) operand are laid out (B, N, H, w), as attend_heads
+        """The packed TrainArgs is csrc/flash_attention_train.cu's struct
+        whole (offsetof nk_pad == 312, the head share after it, sizeof 328,
+        so the by-value copy reads no byte past the buffer), and the outputs
+        of a (B, H, N, d) operand are laid out (B, N, H, w), as attend_heads
         reshapes them without a copy; a (BH, N, d) operand's are contiguous."""
-        assert fa._TRAIN_ARGS.size == 320
+        assert fa._TRAIN_ARGS.size == 328
         x = torch.empty((2, 4, 10, 32)).transpose(1, 2).transpose(1, 2)
         out = fa._empty_rows(x, 7, 16, torch.bfloat16)
         assert out.shape == (2, 4, 7, 16) and out.dtype == torch.bfloat16

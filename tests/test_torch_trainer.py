@@ -352,11 +352,11 @@ def test_missing_checkpoint_warns(tmp_path, capsys):
 
 @pytest.mark.parametrize("kw", [dict(mesh=make_mesh(1, 2, devices=["cpu", "cpu"]))])
 def test_trainer_refuses_unported_options(tmp_path, kw):
-    """A mesh with a model axis (tensor parallelism) waits for ROADMAP.md
-    item 4b; data parallelism runs one process a device, so a mesh of two
-    devices in this process is refused (tests/test_torch_distributed.py
-    trains over ranks)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item 4b"):
+    """Data and tensor parallelism run one process a device, so a mesh of
+    two devices in this process is refused, with a model axis (tensor
+    parallelism) or without (tests/test_torch_distributed.py and
+    tests/test_torch_tensor_parallel.py train over ranks)."""
+    with pytest.raises(ValueError, match="one process a device"):
         port_trainer(tmp_path, **kw)
     with pytest.raises(ValueError, match="one process a device"):
         port_trainer(tmp_path, mesh=make_mesh(2, 1, devices=["cpu", "cpu"]))
@@ -476,10 +476,13 @@ def script_args(**kw):
 @pytest.mark.parametrize("kw", [dict(mesh_model=2), dict(dist_coordinator="localhost:1"),
                                 dict(dist_process_id=0), dict(int8=True)])
 def test_get_trainer_refuses_unported_flags(kw):
-    """A run's start refuses --mesh_model > 1 (item 4b) by name, and partial
-    --dist_* flags with ValueError, as the JAX package's distributed_config
-    does; --int8 (ported: the eval scripts' int8 backbone) starts as the JAX
-    run does; without the flags it starts one process (no process group)."""
+    """A run's start refuses partial --dist_* flags with ValueError, as the
+    JAX package's distributed_config does; --int8 (the eval scripts' int8
+    backbone) starts as the JAX run does; --mesh_model 2 (tensor
+    parallelism) starts: two ranks join and build the run's (1, 2) mesh,
+    printed as the JAX run prints it, where one process refuses it (a model
+    axis needs a rank a device); without the flags a run starts one process
+    (no process group)."""
     if "dist_coordinator" in kw or "dist_process_id" in kw:
         with pytest.raises(ValueError, match="partial distributed flags"):
             _helper.start_run(script_args(**kw))
@@ -487,10 +490,42 @@ def test_get_trainer_refuses_unported_flags(kw):
         _helper.start_run(script_args(**kw))
         assert not torch.distributed.is_initialized()
     else:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1 item \d"):
-            _helper.start_run(script_args(**kw))
+        _helper.start_run(script_args(**kw))
+        with pytest.raises(ValueError, match="--mesh_model 2 needs 2 ranks"):
+            _helper._build_mesh(script_args(**kw))
+        logs = two_ranks_build_the_mesh(kw["mesh_model"])
+        assert "device mesh: data=1 model=2 (2 ranks)" in logs[0]
+        for rank, log in enumerate(logs):
+            assert f"mesh {{'data': 1, 'model': 2}} 0 {rank}" in log
     _helper.start_run(script_args())
     assert not torch.distributed.is_initialized()
+
+
+def two_ranks_build_the_mesh(num_model: int):
+    """The logs of two gloo ranks (processes of their own, no JAX) that
+    start a run with `--mesh_model num_model` and build its mesh."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("import sys; from future_od_tpu_torch.runs import _helper; "
+            "args = _helper.build_base_parser().parse_args(sys.argv[1:]); "
+            "_helper.start_run(args); mesh = _helper._build_mesh(args); "
+            "print('mesh', mesh.shape, mesh.rank, mesh.model_rank, flush=True)")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, "--synthetic", "--debug", "--mesh_model", str(num_model),
+         "--dist_coordinator", f"127.0.0.1:{port}", "--dist_num_processes", "2",
+         "--dist_process_id", str(rank)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=REPO, env=env) for rank in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), logs
+    return logs
 
 
 @pytest.mark.parametrize("kw", [dict(loader="grain"), dict(device_normalize=True),
