@@ -394,7 +394,22 @@ HEAD16_ATTENTIONS = (
     ("encoder 16/16", 2, 4, 1024, 1024, 16, 16),
     ("decoder 32/16", 2, 4, 300, 1024, 32, 16),
     ("encoder 64/64", 1, 8, 1024, 1024, 64, 64),
+    # hidden 512 over 8 heads: the decoder's concat heads at stage 1 (2 clips),
+    # and heads of 128
+    ("decoder 128/64", 2, 8, 128, 350, 128, 64),
+    ("heads of 128, 128/128", 1, 4, 350, 350, 128, 128),
+    # pairs no kernel is built for: the wrappers pad them onto a built pair
+    ("padded 24/40", 1, 4, 300, 1024, 24, 40),
+    ("padded 96/96", 1, 4, 350, 350, 96, 96),
+    ("padded 80/128", 1, 4, 300, 350, 80, 128),
 )
+# Phase 1e's wide flagship: hidden 512 over 8 heads, FFN 2048 (the encoder's
+# heads of 64, the decoder's conditional cross-attention at concat heads
+# 128/64), cut to 2 + 2 layers and 2 clips at 448x800; one loss and gradient
+# through K4-K6 against the same with the gates off, as phase 5a compares.
+WIDE_ARGS = dict(hidden_dim=512, nheads=8, enc_nheads=8, dim_feedforward=2048, enc_layers=2,
+                 dec_layers=2)
+WIDE_BATCH = 2
 # The narrow flagship's scores and boxes (px), through K1 vs all plain, f32:
 # tests/test_torch_kernels_cuda.py::test_small_flagship_kernels_vs_plain's.
 NARROW_TOLS = {"score_err": 1e-4, "box_err_px": 1e-2}
@@ -785,6 +800,28 @@ def k8_tensor_core_report():
                  for dt in ("float32", "bfloat16") for variant in k8.VARIANTS
                  for bn in (64, 128)}
     return tensor_core_report(k8.NAME, "int8_", 4 * len(k8.VARIANTS), resources, op="IGMMA")
+
+
+def t1_tensor_core_report():
+    """T1: every (dtype, rung) instantiation of K1's kernel in the ladder's
+    library."""
+    import torch
+
+    from future_od_tpu_torch.ops import attention_floor as af
+
+    resources = {f"{dt} {mode}": af.attention_floor_info(mode, getattr(torch, dt))
+                 for dt in ("float32", "bfloat16") for mode in af.MODES}
+    return tensor_core_report(af.NAME, "flash_attention_kernel", 2 * len(af.MODES), resources)
+
+
+def t3d_tensor_core_report():
+    """T3d: both storage types of xp."""
+    import torch
+
+    from future_od_tpu_torch.ops import stem_variants as sv
+
+    resources = {dt: sv.tap_conv_info(getattr(torch, dt)) for dt in ("float32", "bfloat16")}
+    return tensor_core_report(sv.LIB, "stem_d_kernel", 2, resources)
 
 
 def train_tensor_core_report():
@@ -1206,9 +1243,13 @@ def autograd_paths(torch, fa, q32, k32, v32, do32, scale, train_args):
 
 
 def head_dims_phase(torch, dev):
-    """Phase 1e on device `dev`: K1 and K4-K6 at the head dims of heads of
-    16 and 64 against their plain versions, then the narrow 4-heads-of-16 flagship
-    through `make_inference_fn`. Returns what it measured."""
+    """Phase 1e on device `dev`: K1 and K4-K6 against their plain versions
+    at the head dims of heads of 16, 64 and 128, hidden 512's concat heads
+    128/64, and at pairs no kernel is built for (padded onto a built one);
+    a pair above 128 refused; then the narrow 4-heads-of-16 flagship
+    through `make_inference_fn`, and the hidden-512 flagship's loss and
+    gradients through K4-K6 against the gates off (`wide_flagship_check`).
+    Returns what it measured."""
     from future_od_tpu_torch.models.build import build_flagship
     from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
     from future_od_tpu_torch.ops import _kernels
@@ -1243,7 +1284,24 @@ def head_dims_phase(torch, dev):
             ref_dk, ref_dv = fa.flash_dkv_plain(q, k, v, do, ref_lse, delta, *args)
             e["flash_train_dkv"] = max(check_close(f"flash_train_dkv dk {tag}", dk, ref_dk, dtype)[0],
                                        check_close(f"flash_train_dkv dv {tag}", dvv, ref_dv, dtype)[0])
+            e["kernel_pair"] = list(fa.kernel_head_dims(d, dv))
             errs[tag] = e
+
+    # above 128 no pair is built: every wrapper refuses before a launch
+    wide = torch.zeros(1, 2, 64, 256, device=dev)
+    before = dict(_kernels.launch_counts)
+    for name, call in (("flash_attention", lambda: fa.flash_attention(wide, wide, wide[..., :128], 1.0)),
+                       ("flash_train_fwd", lambda: fa.flash_train_fwd(
+                           wide[0], wide[0], wide[0, ..., :128], 7, 1.0, 0.0, 256, 512))):
+        try:
+            call()
+        except ValueError as err:
+            if "head dims" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{name} took head dims (256, 128)")
+    if _kernels.launch_counts != before:
+        raise AssertionError("a refused head-dim pair launched a kernel")
 
     # the narrow flagship: hidden 64 over 4 heads, 1024 tokens a frame
     args = SpatioTemporalDETRArgs(num_classes=4, hidden_dim=64, enc_nheads=4, nheads=4,
@@ -1275,8 +1333,78 @@ def head_dims_phase(torch, dev):
         raise AssertionError(f"4 heads of 16: kernels vs plain {gaps}, tolerances {NARROW_TOLS}")
     del model, infer
     torch.cuda.empty_cache()
-    return {"max_abs_err": errs, "narrow_flagship": {"launches": counts, **gaps,
-                                                     "tolerances": NARROW_TOLS}}
+    return {"max_abs_err": errs, "refused": "(256, 128): head dims",
+            "narrow_flagship": {"launches": counts, **gaps, "tolerances": NARROW_TOLS},
+            "wide_flagship": wide_flagship_check(torch, dev)}
+
+
+def wide_flagship_check(torch, dev):
+    """Phase 1e's hidden-512 flagship (WIDE_ARGS, WIDE_BATCH clips at
+    448x800): at dropout 0, on matcher indices injected from a gates-off
+    forward, one loss and its gradients with FUTURE_OD_TRAIN_FLASH=1 against
+    the same with every gate off, at phase 5a's LOSS_RTOL and GRAD_RTOL (the
+    torch dropout of the plain path draws other masks than K4-K6's hash, so
+    dropout 0 is what makes the comparison exact). Counts K4-K6's calls by
+    the head-dim pair attention asks for (and the built pair it runs on);
+    the decoder's cross-attention must reach K4-K6 at 128/64."""
+    from future_od_tpu_torch.models import layers
+    from future_od_tpu_torch.models.build import build_flagship
+    from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
+    from future_od_tpu_torch.ops import _kernels
+    from future_od_tpu_torch.ops import flash_attention as fa
+    from future_od_tpu_torch.train.step import to_device_batch
+
+    args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4,
+                                  freeze_stem=True, matcher="auction", cost_slots=128,
+                                  **WIDE_ARGS)
+    cfg = args.criterion_config()
+    model = build_flagship(args, generator=torch.Generator().manual_seed(0))
+    randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
+    batch = to_device_batch(make_train_batch(seed=0, batch=WIDE_BATCH), dev)
+    model.train()
+    set_dropout(torch, model, 0.0)
+    set_gates()
+    pred_idx_all = injected_indices(torch, model, cfg, batch)
+    _kernels.reset_launch_counts()
+    loss_off, grads_off = loss_and_grads(torch, model, cfg, batch, pred_idx_all)
+    if any(_kernels.launch_counts.values()):
+        raise AssertionError(f"wide flagship, gates off: launched {launched(_kernels)}")
+    pairs = {}
+    original = layers.flash_attention_train
+
+    def recording(q, k, v, *rest):
+        d, dv = q.shape[-1], v.shape[-1]
+        key = f"{d}/{dv} on {'/'.join(map(str, fa.kernel_head_dims(d, dv)))}"
+        pairs[key] = pairs.get(key, 0) + 1
+        return original(q, k, v, *rest)
+
+    layers.flash_attention_train = recording
+    set_gates(FUTURE_OD_TRAIN_FLASH="1")
+    _kernels.reset_launch_counts()
+    try:
+        loss_on, grads_on = loss_and_grads(torch, model, cfg, batch, pred_idx_all)
+        torch.cuda.synchronize()
+    finally:
+        layers.flash_attention_train = original
+        set_gates()
+    counts = {name: _kernels.launch_counts[name] for name in TRAIN_KERNELS}
+    calls = sum(pairs.values())
+    print(f"1e wide flagship: K4-K6 calls by head-dim pair {pairs}", flush=True)
+    if "128/64 on 128/64" not in pairs or counts != {name: calls for name in TRAIN_KERNELS}:
+        raise AssertionError(f"wide flagship: K4-K6 calls by pair {pairs}, launches {counts}")
+    if set(grads_on) != set(grads_off):
+        raise AssertionError("wide flagship: gates on and off give different gradients")
+    loss_gap = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
+    worst = worst_per_group(gradient_gaps(grads_on, grads_off))
+    record = {"args": WIDE_ARGS, "clips": WIDE_BATCH, "size": [TRAIN_HEIGHT, TRAIN_WIDTH],
+              "k4_k6_calls_by_pair": pairs, "launches": counts, "loss_on": loss_on.item(),
+              "loss_off": loss_off.item(), "loss_rel_gap": loss_gap, "max_grad_rel_gap": worst,
+              "tolerances": {"loss": LOSS_RTOL, "grad": GRAD_RTOL, "grad_floor": GRAD_FLOOR}}
+    if loss_gap > LOSS_RTOL or any(gap > GRAD_RTOL[g] for g, (gap, _) in worst.items()):
+        raise AssertionError(f"wide flagship through K4-K6 differs from plain autograd: {record}")
+    del model, grads_on, grads_off
+    torch.cuda.empty_cache()
+    return record
 
 
 def head_share_check(torch, fa, gen, B, Nq, Nk, d, dv, seed, rate=0.1):
@@ -1468,17 +1596,32 @@ def tools_phase(torch, dev):
             x = block_yardstick(torch, x, **bk)
         return x
 
+    # each rung's bound: its products, its exponentials (one a logit over the
+    # padded keys; none in dots) at the ex2 rate, or its bytes; full (K1) at
+    # its own keys
+    floor_ops, floor_bytes = af.floor_cost(B, H, T, T, t1.BLOCK_K, 2)
+    mode_bound = {}
+    for mode in af.MODES:
+        b_ms, _, b_is, _ = flash_bound(torch, floor_ops, floor_bytes,
+                                       af.floor_exponentials(B, H, T, T, t1.BLOCK_K, mode),
+                                       "bfloat16")
+        mode_bound[mode] = {"bound_ms": b_ms, "bound_is": b_is}
+    k1_ops, k1_bytes = fa.attention_cost(B, H, T, T, d, d, 2)
+    b_ms, _, b_is, _ = flash_bound(torch, k1_ops, k1_bytes, fa.attention_exponentials(B, H, T, T),
+                                   "bfloat16")
+    mode_bound["full"] = {"bound_ms": b_ms, "bound_is": b_is}
     timed = {
         "attention_floor": dict(
             per=f"one bf16sm call at {t1.SHAPE}, block_k {t1.BLOCK_K}; library: SDPA forward "
                 "(the full softmax, a yardstick: no library call computes the stripped rungs); "
-                "the top rung, full, is K1 on the tensor cores, the stripped rungs compute on "
-                "the CUDA cores",
-            ms=floor["bf16sm"], mode_ms=floor,
+                "every rung is K1's kernel (csrc/flash_forward.cuh) on the tensor cores, the "
+                "top rung, full, K1 itself",
+            ms=floor["bf16sm"], mode_ms=floor, mode_bound=mode_bound,
+            softmax_share_of_k1=(floor["full"] - floor["dots"]) / floor["full"],
             plain_ms=time_ms(torch, lambda: af.attention_floor_plain(q, k, v, scale, "bf16sm",
                                                                      t1.BLOCK_K)),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
-            cost=af.floor_cost(B, H, T, T, t1.BLOCK_K, 2)),
+            cost=(floor_ops, floor_bytes), bound_rule=mode_bound["bf16sm"]),
         "bottleneck_v2": dict(
             per=f"one call at layer1's inner block {tuple(x1.shape)} -> 256, tile 8, im2col",
             ms=time_ms(torch, lambda: fr.fused_bottleneck_v2(x1, **w1, tile_h=8, im2col=True)),
@@ -1498,6 +1641,11 @@ def tools_phase(torch, dev):
     for name, row in timed.items():
         ops, nbytes = row.pop("cost")
         row["bound_ms"], row["bound_by"] = bound(ops, nbytes, "bfloat16")
+        rule = row.pop("bound_rule", None)
+        if rule is not None:  # T1: the exponentials bind bf16sm, as K1's row gives its ex2
+            row["bound_ms"] = rule["bound_ms"]
+            row["bound_by"] = "bytes" if rule["bound_is"] == "bytes" else "operations"
+            row["bound_is"] = rule["bound_is"]
         row.update(ops=ops, bytes=nbytes)
         log("kernel", kernel=name, **row)
         records[name] = dict(row, calls=records[name])
@@ -1565,6 +1713,10 @@ def stem_phase(torch, dev):
             ms=time_ms(torch, lambda: kernel(*args)), plain_ms=time_ms(torch, lambda: plain(*args)),
             library_ms=lib[1], library_is=f"a yardstick: {lib[0]}",
             bound_ms=b_ms, bound_by=b_by, ops=sv.stem_ops(t3.BATCH, hp, wp), bytes=nbytes)
+        if name == "stem_d":  # its own products: 9 taps x 128 channels x 256, bf16
+            row["design_floor_ms"] = sv.tap_conv_ops(t3.BATCH, hp, wp) / PEAK_OPS["bfloat16"] * 1e3
+            row["design_floor_is"] = ("D's own products (9 x 128 padded channels x 256) at "
+                                      "989 TFLOP/s bf16 on the tensor cores")
         log("kernel", kernel=name, **row)
         records[name] = dict(row, calls=records[name])
         del args
@@ -1631,7 +1783,7 @@ def injected_indices(torch, model, cfg, batch):
         targets = to_detr_targets(H, W, batch["active"], batch["boxes"], batch["classes"])
         costs, active = matching_costs_all(annotated, targets, cfg)
         idx = SOLVERS[cfg.matcher](costs, active)
-    return idx.reshape(-1, TRAIN_BATCH, idx.shape[-1])
+    return idx.reshape(-1, batch["video"].shape[0], idx.shape[-1])
 
 
 def gradient_gaps(grads, ref):
@@ -2258,13 +2410,14 @@ def check_ap(ap, num_classes: int) -> None:
             raise AssertionError(f"AP {key} outside [0, 1]: {value}")
 
 
-def run_trainer_script(torch, argv, accum: int = 1):
+def run_trainer_script(torch, argv, accum: int = 1, resume_check: bool = True):
     """The flagship's script, `main(argv)` in this process with K1-K6 gated
     on, its paths in a temporary directory, instrumented by a TrainerProbe:
     the run's checks (`check_trainer_run`, K4-K6 18 times a micro-batch of
-    `accum`), and a fresh Trainer from the script's `get_trainer` (no
-    --restart) that loads the checkpoint bit for bit (weights, optimizer,
-    epoch, step, meters; `_final`'s net too) with every weight f32. Returns
+    `accum`), the checkpoints written and `_final`'s weights and the AdamW
+    state all f32, and with `resume_check` a fresh Trainer from the script's
+    `get_trainer` (no --restart) that loads the checkpoint bit for bit
+    (weights, optimizer, epoch, step, meters; `_final`'s net too). Returns
     (per-stage records, the probe, the trained Trainer)."""
     import importlib
     import tempfile
@@ -2302,19 +2455,22 @@ def run_trainer_script(torch, argv, accum: int = 1):
         names = sorted(os.listdir(os.path.join(tmp, "checkpoints")))
         if names != [args.experiment_idf, args.experiment_idf + "_final"]:
             raise AssertionError(f"checkpoints written: {names}")
-        config.update(checkpoint_path=os.path.join(tmp, "checkpoints"))
-        try:
-            fresh = _helper.get_trainer(args, config, trainer._args, _helper.get_lr_func(2),
-                                        build_model(args, trainer._args),
-                                        trainer._train_loader, trainer._val_loaders)
-        finally:
-            config.clear()
-            config.update(saved_config)
-        differ = equal_trees(torch, *({"net": t._model.state_dict(),
-                                       "optimizer": t._optimizer.state_dict(),
-                                       "epoch": t._epoch, "step": t.step,
-                                       "stats": {k: m.state_dict() for k, m in t._stats.items()}}
-                                      for t in (fresh, trainer)))
+        differ, fresh = [], None
+        if resume_check:
+            config.update(checkpoint_path=os.path.join(tmp, "checkpoints"))
+            try:
+                fresh = _helper.get_trainer(args, config, trainer._args, _helper.get_lr_func(2),
+                                            build_model(args, trainer._args),
+                                            trainer._train_loader, trainer._val_loaders)
+            finally:
+                config.clear()
+                config.update(saved_config)
+            differ = equal_trees(torch, *({"net": t._model.state_dict(),
+                                           "optimizer": t._optimizer.state_dict(),
+                                           "epoch": t._epoch, "step": t.step,
+                                           "stats": {k: m.state_dict()
+                                                     for k, m in t._stats.items()}}
+                                          for t in (fresh, trainer)))
         final = torch.load(os.path.join(tmp, "checkpoints", names[1]), weights_only=True,
                            map_location=next(trainer._model.parameters()).device)
         differ += equal_trees(torch, final["net"], trainer._model.state_dict(), "final.net")
@@ -2451,10 +2607,12 @@ def check_trainer_run(torch, probe, trainer, accum: int = 1):
 
 def precision_phase(torch, f32_first_loss: float):
     """Phase 6b: the script with --bf16, then --bf16 --accum 2, as phase 6
-    runs it (`run_trainer_script`); the first train step's loss against
+    runs it (`run_trainer_script`; the bit-equal resume, which phase 6 holds
+    on the same code, is left out); the first train step's loss against
     phase 6's f32 one (same weights, batch and dropout), the dtypes K4-K6
-    receive, per stage the numbers of phase 6 and one profiled train step.
-    Returns ({label: per-stage records}, {label: launch totals})."""
+    receive, per stage the numbers of phase 6 and, for --bf16, one profiled
+    train step. Returns ({label: per-stage records}, {label: launch
+    totals})."""
     from future_od_tpu_torch.models import layers
 
     runs, totals = {}, {}
@@ -2468,7 +2626,8 @@ def precision_phase(torch, f32_first_loss: float):
             return original(q, k, v, *rest)
         layers.flash_attention_train = recording
         try:
-            per_stage, probe, trainer = run_trainer_script(torch, TRAINER_ARGV + extra, accum)
+            per_stage, probe, trainer = run_trainer_script(torch, TRAINER_ARGV + extra, accum,
+                                                           resume_check=False)
         finally:
             layers.flash_attention_train = original
         first = per_stage[448]["losses"][0]
@@ -2476,7 +2635,8 @@ def precision_phase(torch, f32_first_loss: float):
         if gap > BF16_FIRST_LOSS_RTOL:
             raise AssertionError(f"{label}: first step's loss {first} against f32 "
                                  f"{f32_first_loss}: {gap} > {BF16_FIRST_LOSS_RTOL}")
-        profile_train_steps(torch, trainer, probe, per_stage)
+        if accum == 1:
+            profile_train_steps(torch, trainer, probe, per_stage)
         per_stage["first_loss_vs_f32"] = {"loss": first, "f32_loss": f32_first_loss,
                                           "relative_gap": gap, "tolerance": BF16_FIRST_LOSS_RTOL}
         per_stage["k4_k6_input_dtypes"] = dtypes
@@ -5062,6 +5222,8 @@ def main() -> int:
     log("0-k3-tensor-cores", **k3_tensor_core_report())
     log("0-k4-k6-tensor-cores", **train_tensor_core_report())
     log("0-k8-tensor-cores", **k8_tensor_core_report())
+    log("0-t1-tensor-cores", **t1_tensor_core_report())
+    log("0-t3d-tensor-cores", **t3d_tensor_core_report())
 
     t0 = time.perf_counter()
     records = kernel_phase(torch, torch.device("cuda"))
@@ -5303,8 +5465,9 @@ def main() -> int:
             "source": f"future_od_tpu_torch/csrc/{TOOL_SOURCES[name]}",
             "replaces": TOOL_KERNELS[name], "launches": tool_counts[name],
             "max_abs_err": max(c["max_abs_err"] for c in rec["calls"] if c["dtype"] == "bfloat16"),
-            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                   "library_is", "per") if k in rec},
+            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_is",
+                                   "library_ms", "library_is", "mode_ms", "mode_bound",
+                                   "softmax_share_of_k1", "per") if k in rec},
             "calls": rec["calls"],
         })
     for name, rec in stem_records.items():
@@ -5314,7 +5477,8 @@ def main() -> int:
             "replaces": STEM_KERNELS[name], "launches": stem_counts[name],
             "max_abs_err": max(c["max_abs_err"] for c in rec["calls"] if c["dtype"] == "bfloat16"),
             **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                   "library_is", "per")},
+                                   "library_is", "design_floor_ms", "design_floor_is", "per")
+               if k in rec},
             "calls": rec["calls"],
         })
     kernels.extend(int8_rows)

@@ -97,6 +97,7 @@ using fod::mma_3xtf32;
 using fod::mma_bf16;
 using fod::pack_bf16;
 using fod::smem_addr;
+using fod::split_bf16;
 using fod::split_tf32;
 using fod::store2;
 
@@ -149,6 +150,13 @@ struct Geometry {
   static constexpr int kRowQ = D + kPad / 4;                // floats a staged q row
   static constexpr int kSmem = 2 * kStage + kMaxRows * kRowQ * 4;
   static_assert(D % 16 == 0 && DV % 16 == 0, "head dims");
+  static_assert(kSmem <= 232448, "a block's shared memory");
+  // Past d + dv = 128 (d 128) the accumulators alone take 64-128 registers a thread: no
+  // resident-block floor is set there, and ptxas may take up to 255 (PERF.md lists the
+  // spills of those instantiations).
+  static constexpr bool kWide = D + DV > 128;
+  static constexpr int kMinBlocksFwd = kWide ? 1 : 3;
+  static constexpr int kMinBlocksGrad = kWide ? 1 : 2;
   // the split's merge reuses the two stages: a value a lane, kWarps x 32 lanes
   static constexpr int kMergeVals = (D > DV ? D : DV) / 2 + 4;
   static_assert(kWarps * 32 * kMergeVals * 4 <= 2 * kStage, "merge scratch");
@@ -225,13 +233,6 @@ __device__ __forceinline__ void logits(float (&s)[kPassN][4], const float* q0, c
       }
     }
   }
-}
-
-// (x0, x1) = hi + lo, each a pair of bf16 (the lower column in the low half).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  hi = pack_bf16(x0, x1);
-  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 // acc += A B over one pass, into a fresh accumulator added to acc on the CUDA cores. A
@@ -401,7 +402,7 @@ struct Layout {
 };
 
 template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, (Geometry<T, D, DV>::kMinBlocksFwd))
 train_fwd_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
   using G = Geometry<T, D, DV>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -537,7 +538,7 @@ train_fwd_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
 }
 
 template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, (Geometry<T, D, DV>::kMinBlocksGrad))
 train_dq_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
   using G = Geometry<T, D, DV>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -799,7 +800,7 @@ __device__ __forceinline__ void v_dot(float (&ds)[kPassN][4], uint32_t v_addr, i
 // one-thread-a-key kernel it replaced; its bound is 0.113 ms, its design's floor (the
 // logits' chains on the CUDA cores) 0.081.
 template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, (Geometry<T, D, DV>::kMinBlocksGrad))
 train_dkv_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
   using G = DkvGeometry<T, D, DV>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -980,6 +981,7 @@ Launch plan(Which which, int bh, int nq, int nk) {
 // The most dynamic shared memory a launch of the kernel takes (K6's shrinks with its split).
 template <typename T, int D, int DV>
 int max_smem(Which which) {
+  static_assert(DkvGeometry<T, D, DV>::smem(kMaxRows) <= 232448, "a block's shared memory");
   return which == kDkv ? DkvGeometry<T, D, DV>::smem(kMaxRows) : Geometry<T, D, DV>::kSmem;
 }
 
@@ -1042,7 +1044,10 @@ int info(Which which, int bh, int nq, int nk, int* out) {
   return 0;
 }
 
-// The head dims of ops/flash_attention.py's SUPPORTED_HEAD_DIMS, as K1 takes them.
+// The head dims of ops/flash_attention.py's SUPPORTED_HEAD_DIMS, as K1 takes them
+// (flash_attention.cu); the wrappers zero-pad any other pair up to 128 onto the
+// smallest of them that holds it. At (128, 128) in f32 K6 takes 203,776 bytes of shared
+// memory a block and K4/K5 168,960, of the 232,448 a block may have.
 template <typename T, typename F>
 int dispatch_dims(int d, int dv, const F& f) {
   if (d == 32 && dv == 32) return f(std::integral_constant<int, 32>{}, std::integral_constant<int, 32>{});
@@ -1050,6 +1055,8 @@ int dispatch_dims(int d, int dv, const F& f) {
   if (d == 16 && dv == 16) return f(std::integral_constant<int, 16>{}, std::integral_constant<int, 16>{});
   if (d == 32 && dv == 16) return f(std::integral_constant<int, 32>{}, std::integral_constant<int, 16>{});
   if (d == 64 && dv == 64) return f(std::integral_constant<int, 64>{}, std::integral_constant<int, 64>{});
+  if (d == 128 && dv == 64) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 64>{});
+  if (d == 128 && dv == 128) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 128>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

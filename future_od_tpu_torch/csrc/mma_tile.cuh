@@ -99,6 +99,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// (x0, x1) = hi + lo, each a pair of bf16 (the lower column in the low half): an f32
+// value as the A operand of two bf16 products.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
 // 8 consecutive elements of a staged row as f32 (16-byte aligned).
 template <typename T>
 __device__ __forceinline__ void load8(float (&x)[8], const unsigned char* p) {

@@ -16,18 +16,31 @@
 //
 // What bounds them: the stem's 2*147*64 operations per conv position against 12-16
 // input and 16 output elements per position (A reads a 16x larger patch matrix);
-// D's output is 2 bytes per operation-heavy position as well. These first versions
-// compute on the CUDA cores in f32 through the register-tiled block GEMM
-// (block_gemm.cuh), so the f32 rate bounds them. A, B and B16 share the GEMM and the
-// pool epilogue and differ only in where the patch matrix comes from: A stages
-// K-slices of it straight from device memory, B and B16 stage the 20x20 window of
-// padded s2d rows their 17x17 conv positions read in shared memory and gather the
-// patches from there. One block of 256 threads owns an 8x8 tile of pool outputs
-// (all 64 channels); the conv values are kept in shared memory, aliased over the
-// GEMM's staging, and never written to device memory. D: one block owns 128 output
-// pixels x 128 of the 256 output channels; its A operand rounds to bf16 as it is
-// staged (the TPU kernel rounds x to bf16 whatever the storage type), w9 is bf16.
+// D's output is 2 bytes per operation-heavy position as well. A, B and B16 compute
+// on the CUDA cores in f32 through the register-tiled block GEMM (block_gemm.cuh),
+// so the f32 rate bounds them. They share the GEMM and the pool epilogue and differ
+// only in where the patch matrix comes from: A stages K-slices of it straight from
+// device memory, B and B16 stage the 20x20 window of padded s2d rows their 17x17
+// conv positions read in shared memory and gather the patches from there. One block
+// of 256 threads owns an 8x8 tile of pool outputs (all 64 channels); the conv values
+// are kept in shared memory, aliased over the GEMM's staging, and never written to
+// device memory.
+//
+// D is an implicit GEMM on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
+// sums; mma_tile.cuh): M = the output pixels, N = 256, K = 9 taps x 128 channels in
+// (tap, channel) order. A block owns an 8 x 16 tile of output pixels and 128 of the
+// 256 channels. It stages the tile's 10 x 18 halo of xp (all 128 channels, rounded to
+// bf16: the TPU kernel rounds x to bf16 whatever the storage type) in shared memory
+// once and reads every tap's A fragments from it by ldmatrix at the tap's shift; the
+// weights stream through in 18 chunks of 64 rows (half a tap), double-buffered by
+// cp.async (bf16 xp's halo by cp.async too, with the first chunk). Each of the 8 warps
+// owns 2 rows x 16 pixels x 64 channels, its sums one f32 chain, relu in the
+// epilogue. Its own products, 2 * pixels * 1152 * 256, put a floor of 1.28 ms under
+// it at the tool's shape (989 TFLOP/s bf16), above cuDNN's 3x3 conv over the 48 real
+// channels: the padded channels are the TPU layout's, and the kernel may not assume
+// their zeros.
 #include "block_gemm.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -44,9 +57,18 @@ constexpr int kStage = kStageA + fod::gemm_stage_b<kTN>();
 constexpr int kPatchK = 16 * 12;          // A's patch columns: 16 taps x 12 channels
 
 constexpr int kDCin = 128, kDCout = 256;  // D's channels
-constexpr int kDK = 9 * kDCin;
-constexpr int kDTM = 8, kDTN = 8;         // D's block: 128 pixels x 128 channels
-constexpr int kDRows = 16 * kDTM, kDCols = 16 * kDTN;
+constexpr int kDTH = 8, kDTW = 16;        // D's block: 8 x 16 output pixels ...
+constexpr int kDCols = 128;               // ... x 128 output channels
+constexpr int kDHaloH = kDTH + 2, kDHaloW = kDTW + 2;
+constexpr int kDRow = kDCin * 2 + 16;     // bytes a staged halo pixel (bf16, padded)
+constexpr int kDHalo = kDHaloH * kDHaloW * kDRow;
+constexpr int kDChunkK = fod::kChunkBytes / 2;  // reduction rows a chunk: 64 channels of a tap
+constexpr int kDChunks = 9 * kDCin / kDChunkK;
+constexpr int kDBRow = kDCols * 2 + 16;   // bytes a staged weight row (bf16, padded)
+constexpr int kDBStage = kDChunkK * kDBRow;
+constexpr int kDSmem = kDHalo + 2 * kDBStage;
+static_assert(kDRow / 16 % 2 == 1 && kDBRow / 16 % 2 == 1, "ldmatrix rows on distinct banks");
+static_assert(kThreads == 256 && kDTH == 2 * 4 && kDCols == 2 * 64, "8 warps of 2 x 16 x 64");
 
 constexpr int max_i(int a, int b) { return a > b ? a : b; }
 
@@ -136,40 +158,122 @@ stem_b_kernel(const T* __restrict__ sp, const T* __restrict__ w,
 }
 
 // D: xp (B, Hp+2, Wp+2, 128), the s2d(4) input padded by 1 all round; w9
-// (9, 128, 256) bf16, tap-major; out (B, Hp, Wp, 256) = relu(sum over the 9 taps).
+// (9, 128, 256) bf16, tap-major; out (B, Hp, Wp, 256) = relu(sum over the 9 taps),
+// out[y][x] += xp[y + tap / 3][x + tap % 3] . w9[tap]. Block (tile * 2 + half, image):
+// output rows y0 .. y0 + 7, columns x0 .. x0 + 15, channels 128 half .. + 127. Warp w
+// owns tile rows 2 (w % 4) and 2 (w % 4) + 1 (its two m16 slabs, 16 pixels each) and
+// channels 64 (w / 4) .. + 63 of the block's.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 stem_d_kernel(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ w9,
               T* __restrict__ out, int Hp, int Wp) {
-  extern __shared__ float4 fod_smem[];
-  float* smem = reinterpret_cast<float*>(fod_smem);
-  __shared__ int pix[kDRows];  // offset in the image of each row's (0, 0) tap
-  const int img = blockIdx.z, n0 = blockIdx.y * kDCols, m0 = blockIdx.x * kDRows;
-  const int npix = Hp * Wp, M = min(kDRows, npix - m0);
-  const T* xb = xp + (size_t)img * (Hp + 2) * (Wp + 2) * kDCin;
-  for (int m = threadIdx.x; m < kDRows; m += kThreads) {
-    const int g = min(m0 + m, npix - 1);
-    pix[m] = ((g / Wp) * (Wp + 2) + g % Wp) * kDCin;
+  extern __shared__ __align__(16) unsigned char smem_d[];
+  unsigned char* halo = smem_d;  // [kDHaloH][kDHaloW][kDRow]
+  unsigned char* wbuf = smem_d + kDHalo;
+  const int tiles_w = (Wp + kDTW - 1) / kDTW;
+  const int tile = blockIdx.x >> 1, half = blockIdx.x & 1, img = blockIdx.y;
+  const int y0 = (tile / tiles_w) * kDTH, x0 = (tile % tiles_w) * kDTW, n0 = half * kDCols;
+  const int H2 = Hp + 2, W2 = Wp + 2;
+  const T* xb = xp + (size_t)img * H2 * W2 * kDCin;
+  constexpr int kPieces = kDCin * 2 / 16;  // 16-byte pieces of a staged halo pixel
+
+  // the halo, 8 channels a piece; pixels past the image zero (they feed no output)
+  if constexpr (std::is_same<T, float>::value) {  // rounded to bf16 on the way
+    for (int i = threadIdx.x; i < kDHaloH * kDHaloW * kPieces; i += kThreads) {
+      const int pos = i / kPieces, piece = i % kPieces;
+      const int gy = y0 + pos / kDHaloW, gx = x0 + pos % kDHaloW;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (gy < H2 && gx < W2) {
+        const float4* src =
+            reinterpret_cast<const float4*>(xb + ((size_t)gy * W2 + gx) * kDCin + 8 * piece);
+        const float4 lo = src[0], hi = src[1];
+        v = make_uint4(fod::pack_bf16(lo.x, lo.y), fod::pack_bf16(lo.z, lo.w),
+                       fod::pack_bf16(hi.x, hi.y), fod::pack_bf16(hi.z, hi.w));
+      }
+      *reinterpret_cast<uint4*>(halo + pos * kDRow + 16 * piece) = v;
+    }
   }
-  __syncthreads();
-  auto load_a = [&](int m, int k) -> float {
-    const int tap = k / kDCin;
-    const float x = fod::to_float(
-        xb[pix[m] + ((tap / 3) * (Wp + 2) + tap % 3) * kDCin + k % kDCin]);
-    return fod::round_to<__nv_bfloat16>(x);
+  auto stage = [&](int c, int buf) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (c == 0) {  // the halo, with the first chunk
+        for (int i = threadIdx.x; i < kDHaloH * kDHaloW * kPieces; i += kThreads) {
+          const int pos = i / kPieces, piece = i % kPieces;
+          const int gy = y0 + pos / kDHaloW, gx = x0 + pos % kDHaloW;
+          const bool real = gy < H2 && gx < W2;
+          const T* src = real ? xb + ((size_t)gy * W2 + gx) * kDCin + 8 * piece : xb;
+          fod::cp_async16(fod::smem_addr(halo + pos * kDRow + 16 * piece), src, real ? 16 : 0);
+        }
+      }
+    }
+    // chunk c: w9 rows 64 c .. 64 c + 63 (tap c / 2, channels 64 (c % 2) ..), the
+    // block's 128 columns: 16 pieces a row
+    const __nv_bfloat16* wc = w9 + (size_t)c * kDChunkK * kDCout + n0;
+    for (int i = threadIdx.x; i < kDChunkK * 16; i += kThreads) {
+      const int r = i / 16, piece = i % 16;
+      fod::cp_async16(fod::smem_addr(wbuf + buf * kDBStage + r * kDBRow + 16 * piece),
+                      wc + (size_t)r * kDCout + 8 * piece, 16);
+    }
   };
-  float acc[kDTM][kDTN] = {};
-  fod::block_gemm<kDTM, kDTN>(acc, load_a, M, kDK, w9, kDCout, n0, smem,
-                              smem + fod::gemm_stage_a<kDTM>());
-  const int tm = threadIdx.x / 16, tn = threadIdx.x % 16;
-  T* ob = out + ((size_t)img * npix + m0) * kDCout + n0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % 4, wn = warp / 4;
+  // slab i's ldmatrix rows: tile row 2 wm + i, pixel lane & 15 (plus 16 bytes for
+  // lanes 16-31), at tap c / 2's shift and channel half c % 2 for chunk c
+  const uint32_t halo_lane = fod::smem_addr(halo) + (lane & 15) * kDRow + (lane >> 4) * 16;
+  // B by ldmatrix.x4.trans: lanes 8m..8m+7 address k rows 8 (m & 1) + 0..7 at n
+  // columns 8 (m >> 1): b0, b1 of n-tile 2 jj and of 2 jj + 1
+  const uint32_t b_lane = fod::smem_addr(wbuf) + wn * 128 +
+                          ((lane & 7) + ((lane >> 3) & 1) * 8) * kDBRow + (lane >> 4) * 16;
+  // One f32 chain through all 72 k-steps: both operands are bf16 values, the
+  // products exact, and the truncating sums' bias stays far inside the f32
+  // tolerance (tests/test_torch_stem_d_tc_rounding.py), so no fresh accumulators.
+  float acc[2][8][4] = {};
+  stage(0, 0);
+  fod::cp_async_commit();
+  for (int c = 0; c < kDChunks; ++c) {
+    const int buf = c & 1;
+    if (c + 1 < kDChunks) stage(c + 1, buf ^ 1);
+    fod::cp_async_commit();  // possibly empty: the wait below then covers chunk c
+    fod::cp_async_wait_one();
+    __syncthreads();
+    const int tap = c >> 1;
+    uint32_t a[2];
 #pragma unroll
-  for (int i = 0; i < kDTM; ++i) {
-    const int m = tm + 16 * i;
-    if (m >= M) continue;
+    for (int i = 0; i < 2; ++i)
+      a[i] = halo_lane + ((2 * wm + i + tap / 3) * kDHaloW + tap % 3) * kDRow + (c & 1) * 128;
+    const uint32_t b = b_lane + buf * kDBStage;
 #pragma unroll
-    for (int j = 0; j < kDTN; ++j)
-      ob[(size_t)m * kDCout + tn + 16 * j] = fod::from_float<T>(fmaxf(acc[i][j], 0.f));
+    for (int ks = 0; ks < kDChunkK / 16; ++ks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) fod::ldmatrix_x4(af[i], a[i] + ks * 32);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t r[4];
+        fod::ldmatrix_x4_trans(r, b + ks * 16 * kDBRow + jj * 32);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          fod::mma_bf16(acc[i][2 * jj], af[i], r[0], r[1]);
+          fod::mma_bf16(acc[i][2 * jj + 1], af[i], r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next chunk but one refills this buffer
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int y = y0 + 2 * wm + i;
+    if (y >= Hp) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = x0 + g + 8 * h;
+      if (x >= Wp) continue;
+      T* orow = out + (((size_t)img * Hp + y) * Wp + x) * kDCout + n0 + wn * 64 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        fod::store2<T>(orow + 8 * j, fmaxf(acc[i][j][2 * h], 0.f),
+                       fmaxf(acc[i][j][2 * h + 1], 0.f));
+    }
   }
 }
 
@@ -211,14 +315,31 @@ template <typename T>
 int launch_d(const void* xp, const void* w9, void* out, int B, int Hp, int Wp,
              cudaStream_t stream) {
   auto kern = stem_d_kernel<T>;
-  const size_t smem =
-      (size_t)(fod::gemm_stage_a<kDTM>() + fod::gemm_stage_b<kDTN>()) * sizeof(float);
-  if (int err = prepare(kern, smem)) return err;
-  const dim3 grid((Hp * Wp + kDRows - 1) / kDRows, kDCout / kDCols, B);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(xp),
-                                         static_cast<const __nv_bfloat16*>(w9),
-                                         static_cast<T*>(out), Hp, Wp);
+  if (int err = prepare(kern, kDSmem)) return err;
+  const int tiles = ((Hp + kDTH - 1) / kDTH) * ((Wp + kDTW - 1) / kDTW);
+  const dim3 grid(2 * tiles, B);
+  kern<<<grid, kThreads, kDSmem, stream>>>(static_cast<const T*>(xp),
+                                           static_cast<const __nv_bfloat16*>(w9),
+                                           static_cast<T*>(out), Hp, Wp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D's registers a thread, static and dynamic shared bytes a block, local (spill) bytes
+// a thread, resident blocks an SM. Launches nothing.
+template <typename T>
+int info_d(int* out) {
+  auto kern = stem_d_kernel<T>;
+  cudaError_t err = static_cast<cudaError_t>(prepare(kern, kDSmem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, kDSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[5] = {attr.numRegs, (int)attr.sharedSizeBytes, kDSmem,
+                       (int)attr.localSizeBytes, blocks};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return 0;
 }
 
 bool bad_pool_shape(int B, int Hp, int Wp) { return B <= 0 || B > 65535 || Hp <= 0 || Wp <= 0; }
@@ -260,12 +381,20 @@ extern "C" int fod_stem_b16(const void* sp, const void* w, const void* bias, voi
   return stem_b_entry<16>(sp, w, bias, out, B, Hp, Wp, Js, dtype, stream);
 }
 
-// xp: (B, Hp+2, Wp+2, 128); w9: (9, 128, 256) bf16; out: (B, Hp, Wp, 256).
+// xp: (B, Hp+2, Wp+2, 128); w9: (9, 128, 256) bf16; out: (B, Hp, Wp, 256). All
+// contiguous and 16-byte aligned.
 extern "C" int fod_stem_d(const void* xp, const void* w9, void* out, int B, int Hp, int Wp,
                           int dtype, void* stream) {
   if (bad_pool_shape(B, Hp, Wp)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == fod::kFloat32) return launch_d<float>(xp, w9, out, B, Hp, Wp, s);
   if (dtype == fod::kBFloat16) return launch_d<__nv_bfloat16>(xp, w9, out, B, Hp, Wp, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out[5]: D's resources in xp's storage type (see info_d). Launches nothing.
+extern "C" int fod_stem_d_info(int dtype, int* out) {
+  if (dtype == fod::kFloat32) return info_d<float>(out);
+  if (dtype == fod::kBFloat16) return info_d<__nv_bfloat16>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -81,6 +81,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
     # q, k, v, out, bh, nq, nk, nk_pad, block_k, scale*log2(e), mode, dtype, stream
     "attention_floor": {
         "fod_attention_floor": [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P],
+        # mode, dtype, int[5] out (launches nothing)
+        "fod_attention_floor_info": [_I, _I, _P],
     },
     "bottleneck_variants": {
         # x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, cin, cmid, cout, tile_h,
@@ -111,6 +113,8 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "fod_stem_b16": [_P] * 4 + [_I] * 5 + [_P],
         # xp, w9, out, B, Hp, Wp, dtype, stream
         "fod_stem_d": [_P] * 3 + [_I] * 4 + [_P],
+        # dtype, int[5] out (launches nothing)
+        "fod_stem_d_info": [_I, _P],
     },
 }
 # host libraries (csrc/<name>.cpp, no CUDA): built with g++, here and on the
@@ -133,8 +137,9 @@ HOST_LIBRARIES: Dict[str, Dict[str, tuple]] = {
     "lap": {"lap_solve": ([_I, _I, _P, _P], _I)},
 }
 # entry points that launch no kernel, so have no launch counter
-QUERIES = ("fod_bottleneck_plan", "fod_flash_attention_info", "fod_flash_train_info",
-           "fod_fused_bottleneck_info", "fod_fused_stem_info", "fod_int8_conv_info")
+QUERIES = ("fod_attention_floor_info", "fod_bottleneck_plan", "fod_flash_attention_info",
+           "fod_flash_train_info", "fod_fused_bottleneck_info", "fod_fused_stem_info",
+           "fod_int8_conv_info", "fod_stem_d_info")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

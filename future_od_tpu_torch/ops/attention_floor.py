@@ -9,6 +9,10 @@ its softmax stripped, to measure what the softmax costs. Modes:
 - "unsafe": exp2 and the row sum, no running max and no corrections;
 - "bf16sm": the full online softmax with its per-element chain in bf16.
 
+The kernel is K1's own (`csrc/flash_forward.cuh`, shared with
+`csrc/flash_attention.cu`): the same tiles, staging and tensor-core products,
+the rung a compile-time mode, so the ladder's gaps are K1's.
+
 Each mode computes what the TPU kernel computes, rounding included (see
 `attention_floor_plain`), with the keys zero-padded to a multiple of
 `block_k` and the padded keys not masked, as the TPU wrapper pads them: with
@@ -17,6 +21,8 @@ CPU tensors the wrapper runs `attention_floor_plain`; on CUDA tensors it
 launches the kernel or raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -102,6 +108,8 @@ def attention_floor(q, k, v, scale: float, mode: str, block_k: int) -> torch.Ten
         raise ValueError(f"{NAME}: block_k {block_k}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _kernels.check_cuda_operands(NAME, q, k, v)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{NAME}: operands must be 16-byte aligned (16-byte async copies)")
     out = torch.empty_like(q)
     _kernels.call(
         NAME, "fod_attention_floor",
@@ -112,6 +120,25 @@ def attention_floor(q, k, v, scale: float, mode: str, block_k: int) -> torch.Ten
     )
     _kernels.launch_counts[NAME] += 1
     return out
+
+
+def attention_floor_info(mode: str, dtype: torch.dtype) -> dict:
+    """A rung's kernel resources on the current card: registers a thread,
+    static and dynamic shared bytes a block, local (spill) bytes a thread,
+    resident blocks an SM. Launches nothing."""
+    out = (ctypes.c_int * 5)()
+    _kernels.call(NAME, "fod_attention_floor_info", MODES[mode], _kernels.DTYPE_CODES[dtype],
+                  ctypes.addressof(out))
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+            "blocks_per_sm")
+    return dict(zip(keys, out))
+
+
+def floor_exponentials(B: int, H: int, Nq: int, Nk: int, block_k: int, mode: str) -> int:
+    """The exponentials a rung needs at least: one a logit over the padded
+    keys, none for dots (bf16sm's corrections, one a row and block, not
+    counted)."""
+    return 0 if mode == "dots" else B * H * Nq * padded_keys(Nk, block_k)
 
 
 def floor_cost(B: int, H: int, Nq: int, Nk: int, block_k: int, itemsize: int):

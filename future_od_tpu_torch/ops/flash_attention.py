@@ -30,6 +30,14 @@ attend_heads' transposed (B, N, H, d) views go in without a copy, and write
 their outputs in that layout; a call packs its arguments into one struct
 (`_TRAIN_ARGS`), since the host's time a call is part of the kernel's cost.
 On CPU tensors the plain versions run.
+
+Head dims: K1 and K4-K6 are built for the pairs of SUPPORTED_HEAD_DIMS; the
+wrappers run any other (d, dv) up to MAX_HEAD_DIM on the smallest built
+pair that holds it, its operands zero-padded and its outputs sliced back
+(`kernel_head_dims`, `pad_head_dim`: for K1 inside the op's CUDA
+implementation, so `fod::flash_attention`'s signature, fake and CPU arm are
+unchanged; for K4-K6 in `flash_train_fwd`, `flash_dq` and `flash_dkv`).
+Above MAX_HEAD_DIM they raise.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from future_od_tpu_torch.ops import _kernels
 
@@ -51,9 +60,34 @@ LOG2E = 1.4426950408889634
 # instantiated for: the flagship encoder's 32/32 and its conditional
 # cross-attention's concat heads 64/32, the same at heads of 16
 # (runs/nuim_single_frame.py --debug: hidden 64 over 4 heads) 16/16 and 32/16,
-# and an encoder's heads of 64 (hidden 512 over 8 heads) 64/64. The wrappers
-# raise on any other pair, on the card; they never take the plain version there.
-SUPPORTED_HEAD_DIMS = ((32, 32), (64, 32), (16, 16), (32, 16), (64, 64))
+# an encoder's heads of 64 (hidden 512 over 8 heads) 64/64 and that config's
+# concat heads 128/64, and heads of 128, 128/128. The wrappers take any pair
+# up to MAX_HEAD_DIM on the card by zero-padding it onto the smallest built
+# pair that holds it (`kernel_head_dims`); above it they raise. They never
+# take the plain version there.
+SUPPORTED_HEAD_DIMS = ((32, 32), (64, 32), (16, 16), (32, 16), (64, 64), (128, 64), (128, 128))
+MAX_HEAD_DIM = 128
+
+
+def kernel_head_dims(d: int, dv: int, name: str = NAME) -> Tuple[int, int]:
+    """The built pair (D, DV) a call at head dims (d, dv) runs: the smallest
+    of SUPPORTED_HEAD_DIMS (by D + DV) with D >= d and DV >= dv. The
+    wrappers zero-pad q and k along d and v (and do) along dv to it, and
+    slice the outputs back: zero columns add exact zeros to every logit and
+    to dq, dk and dv, and the caller's scale (of the true d) is kept. Raises
+    ValueError above MAX_HEAD_DIM (ROADMAP Queue 3: no kernel is built
+    there)."""
+    fits = [(D, DV) for D, DV in SUPPORTED_HEAD_DIMS if D >= d and DV >= dv]
+    if not fits:
+        raise ValueError(f"{name}: head dims (d={d}, dv={dv}) above {MAX_HEAD_DIM}: no kernel "
+                         f"is built for them (ROADMAP Queue 3); built {SUPPORTED_HEAD_DIMS}")
+    return min(fits, key=lambda p: (p[0] + p[1], p))
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t zero-padded along its last dim to `width` (t itself when it has
+    that width)."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
 
 
 def reference_attention(q, k, v, scale: float) -> torch.Tensor:
@@ -79,14 +113,13 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
 
 
 def _check_attention(q, k, v) -> None:
-    """Raise unless K1 takes these operands: matching shapes, a built
-    head-dim pair, f32 or bf16, one CUDA device."""
+    """Raise unless K1 takes these operands: matching shapes, head dims up
+    to MAX_HEAD_DIM, f32 or bf16, one CUDA device."""
     B, H, Nq, d = q.shape
     Nk, dv = k.shape[2], v.shape[3]
     if k.shape != (B, H, Nk, d) or v.shape[:3] != (B, H, Nk):
         raise ValueError(f"{NAME}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if (d, dv) not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dims (d={d}, dv={dv}) not in {SUPPORTED_HEAD_DIMS}")
+    kernel_head_dims(d, dv)
     if q.dtype not in _kernels.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{NAME}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; want one of f32, bf16")
     _kernels.check_cuda_device(NAME, q, k, v)
@@ -94,23 +127,28 @@ def _check_attention(q, k, v) -> None:
 
 def flash_attention_cuda(q, k, v, scale: float) -> torch.Tensor:
     """The op's CUDA implementation: check, launch K1, count the launch
-    (chip_smoke.py times it beside the op to give the dispatcher's cost)."""
+    (chip_smoke.py times it beside the op to give the dispatcher's cost).
+    Head dims that are not a built pair run on the pair `kernel_head_dims`
+    gives, q and k zero-padded along d and v along dv, the output sliced
+    back (a contiguous copy)."""
     _check_attention(q, k, v)
     B, H, Nq, d = q.shape
     Nk, dv = k.shape[2], v.shape[3]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    D, DV = kernel_head_dims(d, dv)
+    q, k = (pad_head_dim(t, D).contiguous() for t in (q, k))
+    v = pad_head_dim(v, DV).contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{NAME}: operands must be 16-byte aligned (16-byte async copies)")
-    out = torch.empty((B, H, Nq, dv), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, Nq, DV), dtype=q.dtype, device=q.device)
     _kernels.call(
         NAME, "fod_flash_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B * H, Nq, Nk, d, dv, float(scale) * LOG2E,
+        B * H, Nq, Nk, D, DV, float(scale) * LOG2E,
         _kernels.DTYPE_CODES[q.dtype], _kernels.stream_of(q),
         device=q.device,
     )
     _kernels.launch_counts[NAME] += 1
-    return out
+    return out if DV == dv else out[..., :dv].contiguous()
 
 
 def _attention_fake(q, k, v, scale):
@@ -342,15 +380,14 @@ def _train_call(fn: str, q, k, v, do, o0, o1, lse, delta, scale: float, dropout)
 
 def _train_kernel_args(q, k, v, name):
     """(B, H, Nq, Nk, d, dv) of (B, H, N, w) or (BH, N, w) operands; raises
-    on what the kernels do not take."""
+    on what the kernels do not take (head dims above MAX_HEAD_DIM among it)."""
     if not q.dim() == k.dim() == v.dim() or q.dim() not in (3, 4):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     B, H, Nq, d = _dims(q)
     Nk, dv = k.shape[-2], v.shape[-1]
     if _dims(k) != (B, H, Nk, d) or _dims(v)[:3] != (B, H, Nk):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if (d, dv) not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head dims (d={d}, dv={dv}) not in {SUPPORTED_HEAD_DIMS}")
+    kernel_head_dims(d, dv, name)
     if q.dtype not in _kernels.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; want one of f32, bf16")
     return B, H, Nq, Nk, d, dv
@@ -387,14 +424,16 @@ def flash_train_fwd(q, k, v, seed: int, scale: float, rate: float, nq_pad: int, 
     h0), the share of a layer's heads the call holds (`global_heads`)."""
     if q.is_cpu:
         return flash_train_fwd_plain(q, k, v, seed, scale, rate, nq_pad, nk_pad, heads)
-    _, _, Nq, _, _, dv = _train_kernel_args(q, k, v, "flash_train_fwd")
+    _, _, Nq, _, d, dv = _train_kernel_args(q, k, v, "flash_train_fwd")
     _check_devices("flash_train_fwd", q, k, v)
-    out = _empty_rows(q, Nq, dv, q.dtype)
+    D, DV = kernel_head_dims(d, dv)
+    q, k, v = pad_head_dim(q, D), pad_head_dim(k, D), pad_head_dim(v, DV)
+    out = _empty_rows(q, Nq, DV, q.dtype)
     lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     _train_call("fod_flash_train_fwd", q, k, v, None, out, None, lse, None, scale,
                 _dropout_args(seed, rate, nq_pad, nk_pad, heads))
     _kernels.launch_counts["flash_train_fwd"] += 1
-    return out, lse
+    return out[..., :dv], lse
 
 
 def flash_dq(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_pad: int,
@@ -404,14 +443,16 @@ def flash_dq(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_p
     launch `fod_flash_train_dq` or raise."""
     if q.is_cpu:
         return flash_dq_plain(q, k, v, do, lse, delta, seed, scale, rate, nq_pad, nk_pad, heads)
-    _, _, Nq, _, d, _ = _train_kernel_args(q, k, v, "flash_dq")
+    _, _, Nq, _, d, dv = _train_kernel_args(q, k, v, "flash_dq")
     _check_grad_operands("flash_dq", q, v, do, lse, delta)
     _check_devices("flash_dq", q, k, v, do, lse, delta)
-    dq = _empty_rows(q, Nq, d, q.dtype)
+    D, DV = kernel_head_dims(d, dv)
+    q, k, v, do = pad_head_dim(q, D), pad_head_dim(k, D), pad_head_dim(v, DV), pad_head_dim(do, DV)
+    dq = _empty_rows(q, Nq, D, q.dtype)
     _train_call("fod_flash_train_dq", q, k, v, do, dq, None, lse, delta, scale,
                 _dropout_args(seed, rate, nq_pad, nk_pad, heads))
     _kernels.launch_counts["flash_train_dq"] += 1
-    return dq
+    return dq[..., :d]
 
 
 def flash_dkv(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_pad: int,
@@ -424,11 +465,13 @@ def flash_dkv(q, k, v, do, lse, delta, seed: int, scale: float, rate: float, nq_
     _, _, _, Nk, d, dv = _train_kernel_args(q, k, v, "flash_dkv")
     _check_grad_operands("flash_dkv", q, v, do, lse, delta)
     _check_devices("flash_dkv", q, k, v, do, lse, delta)
-    dk, dvv = _empty_rows(k, Nk, d, k.dtype), _empty_rows(v, Nk, dv, v.dtype)
+    D, DV = kernel_head_dims(d, dv)
+    q, k, v, do = pad_head_dim(q, D), pad_head_dim(k, D), pad_head_dim(v, DV), pad_head_dim(do, DV)
+    dk, dvv = _empty_rows(k, Nk, D, k.dtype), _empty_rows(v, Nk, DV, v.dtype)
     _train_call("fod_flash_train_dkv", q, k, v, do, dk, dvv, lse, delta, scale,
                 _dropout_args(seed, rate, nq_pad, nk_pad, heads))
     _kernels.launch_counts["flash_train_dkv"] += 1
-    return dk, dvv
+    return dk[..., :d], dvv[..., :dv]
 
 
 def _check_grad_operands(name, q, v, do, lse, delta):

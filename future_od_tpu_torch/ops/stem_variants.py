@@ -11,6 +11,9 @@ and runs its plain PyTorch version on CPU tensors:
 - `tap_conv` (D, `_kernelD`): the s2d(4) stem conv as 9 tap products over
   (B, Hp+2, Wp+2, 128) with w9 (9, 128, 256), relu, the packed
   (B, Hp, Wp, 256) output (models/resnet.py::s2d4_stem_pool pools it).
+  D is an implicit GEMM on the tensor cores (bf16 `mma.sync`, one f32 sum
+  over the (tap, channel) reduction rows); A, B and B16 compute on the CUDA
+  cores in f32.
 
 The operand layouts are the TPU tool's (tools/bench_stem.py::pallasA etc.
 build them; so does future_od_tpu_torch/tools/bench_stem.py). Conv coordinate
@@ -25,6 +28,8 @@ every function here raises ValueError on such shapes instead. The CUDA
 kernels tile for the card, whatever tile_p is.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -176,6 +181,8 @@ def tap_conv(xp: torch.Tensor, w9: torch.Tensor, tile_p: int = 8) -> torch.Tenso
     xp = xp.contiguous()
     w9 = w9.to(torch.bfloat16).contiguous()
     _kernels.check_cuda_operands(name, xp, w9)
+    if xp.data_ptr() % 16 or w9.data_ptr() % 16:
+        raise ValueError(f"{name}: operands must be 16-byte aligned (16-byte async copies)")
     out = torch.empty((B, hp, wp, D_COUT), dtype=xp.dtype, device=xp.device)
     _kernels.call(
         LIB, "fod_stem_d", xp.data_ptr(), w9.data_ptr(), out.data_ptr(), B, hp, wp,
@@ -184,6 +191,24 @@ def tap_conv(xp: torch.Tensor, w9: torch.Tensor, tile_p: int = 8) -> torch.Tenso
     )
     _kernels.launch_counts[name] += 1
     return out
+
+
+def tap_conv_info(dtype: torch.dtype) -> dict:
+    """Kernel D's resources on the current card for xp's storage type:
+    registers a thread, static and dynamic shared bytes a block, local
+    (spill) bytes a thread, resident blocks an SM. Launches nothing."""
+    out = (ctypes.c_int * 5)()
+    _kernels.call(LIB, "fod_stem_d_info", _kernels.DTYPE_CODES[dtype], ctypes.addressof(out))
+    keys = ("registers", "static_smem_bytes", "dynamic_smem_bytes", "local_bytes",
+            "blocks_per_sm")
+    return dict(zip(keys, out))
+
+
+def tap_conv_ops(B: int, hp: int, wp: int) -> int:
+    """Operations of kernel D's own products at B x hp x wp output pixels:
+    all 9 x 128 reduction rows and 256 channels (its design floor; the
+    stem's real work is `stem_ops`)."""
+    return 2 * B * hp * wp * 9 * D_CIN * D_COUT
 
 
 def stem_ops(B: int, hp: int, wp: int) -> int:

@@ -3,18 +3,19 @@
 
 At the encoder's embedded shape (B=24, H=8, T=1400, d=32, bf16, the TPU
 tool's whole-row key blocks: block_k 1408) it times a ladder of stripped
-variants of the kernel (ops/attention_floor.py, which keeps the kernel's
-design) beside the kernel itself (ops/flash_attention.py, "full"):
+variants of the inference kernel K1 (ops/attention_floor.py: K1's own
+kernel, csrc/flash_forward.cuh, with the rung a compile-time mode) beside
+K1 itself (ops/flash_attention.py, "full"):
 
   dots     the products alone: q·kᵀ then P·V, no softmax (wrong numerics)
   unsafe   + exp2 and the row sum, no running max and no corrections
   bf16sm   the full online softmax with its per-element chain in bf16
-  full     the shipped kernel: online softmax, f32 chain, its products on
-           the tensor cores (the stripped rungs compute on the CUDA cores,
-           so the ladder's gaps below full mix the two)
+  full     the shipped kernel: online softmax, f32 chain, P as hi + lo
 
-then prints the gaps between the rungs in ms and as shares of full, and the
-bf16 softmax's max |Δ| against full. The TPU tool's `bf16dot` row (full with
+All four run the same tiles, staging and tensor-core products, so the gaps
+are K1's own. It prints the gaps between the rungs in ms and as shares of
+full (full - dots: what K1's softmax costs it, the hi + lo P included), and
+the bf16 softmax's max |Δ| against full. The TPU tool's `bf16dot` row (full with
 bf16 operands) has no counterpart: the port's kernel has no bf16-dot option.
 Times are device time per call (utils/timing.py); inputs are made on the card
 from seed 0.
@@ -69,6 +70,8 @@ def run(shape=SHAPE, block_k: int = BLOCK_K, device: DeviceLike = None,
                        ("full", "dots")):
             gap = ms[hi] - ms[lo]
             print(f"  {hi} - {lo}: {gap:.3f} ms = {gap / ms['full']:.1%} of full", flush=True)
+        print(f"K1's softmax (full - dots): {(ms['full'] - ms['dots']) / ms['full']:.1%} of "
+              "its time", flush=True)
     return {"ms": ms, "bf16sm_err": err}
 
 

@@ -37,6 +37,7 @@ from future_od_tpu_torch.ops.fused_resnet import (
     layer1_plain,
     stem_plain,
 )
+from future_od_tpu_torch.ops.stem_variants import tap_conv, tap_conv_plain
 from future_od_tpu_torch.tools import bench_stem
 from future_od_tpu_torch.train.step import make_inference_fn
 
@@ -93,7 +94,13 @@ def assert_close(out, ref, dtype, tol_dtype=None, atol=None):
      (2, 4, 1024, 1024, 16, 16), (1, 2, 70, 130, 16, 16), (1, 1, 17, 65, 32, 16),
      (2, 4, 300, 1024, 32, 16),
      # an encoder's heads of 64 (hidden 512 over 8 heads)
-     (1, 8, 1024, 1024, 64, 64), (1, 2, 70, 130, 64, 64)],
+     (1, 8, 1024, 1024, 64, 64), (1, 2, 70, 130, 64, 64),
+     # that config's concat heads and heads of 128, built
+     (1, 8, 1024, 1024, 128, 64), (1, 2, 70, 130, 128, 64), (1, 4, 300, 1024, 128, 128),
+     (1, 2, 70, 130, 128, 128),
+     # pairs that are not built: zero-padded onto the smallest built pair that holds them
+     (1, 2, 70, 130, 24, 40), (1, 2, 70, 130, 96, 96), (1, 2, 70, 130, 80, 128),
+     (1, 1, 17, 65, 8, 8), (2, 4, 300, 1024, 48, 16)],
 )
 def test_flash_attention(cuda, np_rng, dtype, B, H, Nq, Nk, d, dv):
     q, k, v = on(cuda, dtype, np_rng.normal(size=(B, H, Nq, d)),
@@ -104,6 +111,24 @@ def test_flash_attention(cuda, np_rng, dtype, B, H, Nq, Nk, d, dv):
     assert _kernels.launch_counts["flash_attention"] == before + 1
     assert out.dtype == dtype and out.shape == (B, H, Nq, dv)
     assert_close(out, reference_attention(q, k, v, 1.0 / math.sqrt(d)), dtype)
+
+
+@pytest.mark.parametrize("d,dv", [(256, 128), (136, 64), (64, 160)])
+def test_head_dims_above_the_widest_pair_raise(cuda, d, dv):
+    """Above 128 no pair is built: every wrapper raises before a launch."""
+    q, k, v = (torch.zeros((1, 2, 64, n), device=cuda) for n in (d, d, dv))
+    before = dict(_kernels.launch_counts)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, v, 1.0)
+    q3, k3, v3 = (t.reshape(2, 64, -1) for t in (q, k, v))
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_train_fwd(q3, k3, v3, 7, 1.0, 0.0, 256, 512)
+    lse, delta = torch.zeros(2, 64, device=cuda), torch.zeros(2, 64, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_dq(q3, k3, v3, v3, lse, delta, 7, 1.0, 0.0, 256, 512)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_dkv(q3, k3, v3, v3, lse, delta, 7, 1.0, 0.0, 256, 512)
+    assert _kernels.launch_counts == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -303,12 +328,19 @@ HEAD64_TRAIN_SHAPES = [(32, 350, 350, 64, 64)]
 # few batch*heads, where K4 and K5 split a slab's keys across warps
 RAGGED_TRAIN_SHAPES = [(BH, Nq, Nk, d, dv) for d, dv in fa.SUPPORTED_HEAD_DIMS
                        for BH, Nq, Nk in ((2, 17, 129), (3, 129, 17))]
+# hidden 512 over 8 heads at the stage-1 shapes (its decoder's concat heads
+# 128/64), heads of 128, and pairs that are not built (zero-padded onto the
+# smallest built pair that holds them)
+WIDE_TRAIN_SHAPES = [(16, 128, 350, 128, 64), (8, 350, 350, 128, 128)]
+PADDED_TRAIN_SHAPES = [(2, 17, 129, 24, 40), (3, 129, 17, 96, 96), (2, 70, 130, 80, 128),
+                       (4, 40, 72, 8, 8)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("BH,Nq,Nk,d,dv", TRAIN_SHAPES + SCRIPT_TRAIN_SHAPES + HEAD16_TRAIN_SHAPES
-                         + HEAD64_TRAIN_SHAPES + RAGGED_TRAIN_SHAPES)
+                         + HEAD64_TRAIN_SHAPES + RAGGED_TRAIN_SHAPES + WIDE_TRAIN_SHAPES
+                         + PADDED_TRAIN_SHAPES)
 def test_flash_train_kernels(cuda, np_rng, dtype, rate, BH, Nq, Nk, d, dv):
     """K4, K5 and K6 against their plain versions on the same inputs (K5 and
     K6 given the plain forward's lse and delta)."""
@@ -525,6 +557,21 @@ def test_stem_variants(cuda, np_rng, dtype, shape, tile_p, kernel):
     channels = 256 if kernel == "stem_d" else 64
     assert out.shape == (shape[0], shape[1] // 4, shape[2] // 4, channels)
     assert_close(out, plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hp,Wp", [(2, 16, 24), (1, 13, 37)])
+def test_stem_d_reads_every_channel(cuda, np_rng, dtype, B, Hp, Wp):
+    """T3d on xp whose 128 channels are all nonzero (it may not assume the
+    zero padding of the tool's 48 real channels), ragged 8x16 pixel tiles at
+    the bottom and right edges."""
+    (xp,) = on(cuda, dtype, np_rng.normal(size=(B, Hp + 2, Wp + 2, 128)))
+    (w9,) = on(cuda, torch.bfloat16, np_rng.normal(size=(9, 128, 256)) * 0.05)
+    before = _kernels.launch_counts["stem_d"]
+    out = tap_conv(xp, w9, tile_p=1)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["stem_d"] == before + 1
+    assert_close(out, tap_conv_plain(xp, w9), dtype)
 
 
 @pytest.mark.parametrize("kernel", ["stem_a", "stem_b", "stem_b16", "stem_d"])

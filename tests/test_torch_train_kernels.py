@@ -172,8 +172,12 @@ class TestWrappers:
             fa.flash_dq(q, q, q, q, row, row, *args)
         with pytest.raises(ValueError, match="CUDA"):
             fa.flash_dkv(q, q, q, q, row, row, *args)
-        with pytest.raises(ValueError, match="head dims"):
+        # head dims 8 are padded onto a built pair; above 128 none is built
+        with pytest.raises(ValueError, match="CUDA"):
             fa.flash_train_fwd(q[..., :8], q[..., :8], q[..., :8], *args)
+        wide = torch.empty((2, 8, 256), device="meta")
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_train_fwd(wide, wide, wide, *args)
 
     @pytest.mark.parametrize("rate", [0.0, 0.3])
     def test_transposed_views_equal_contiguous(self, rate):
