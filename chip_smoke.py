@@ -14,7 +14,8 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    gather, tiles of 64 and 128 channels, f32 and bf16 out) IGMMA, wgmma's
    int8 opcode, with its registers, shared memory and spills (ptxas's
    report in the build log, and the runtime's, with the resident blocks an
-   SM).
+   SM); the same HMMA check for T1, T3d and T2 v2 and v3
+   (csrc/bottleneck_variants.cu over K2's stages, csrc/bottleneck_tile.cuh).
 1. each kernel against its plain PyTorch version at the flagship's shapes,
    f32 (TF32 off for matmuls and cuDNN convs) and bf16: max abs error
    within the stated tolerance, the kernel's time, the plain version's, one
@@ -26,13 +27,17 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    K2's and K3's f32 products as three TF32 products each; K3's 147 taps,
    with its design's floor at the 192 it computes beside it).
 1e. the head dims added for heads of 16 (runs/nuim_single_frame.py --debug:
-   16/16 in the encoder, 32/16 in the conditional cross-attention) and 64
-   (64/64): K1 and K4-K6 against their plain versions at each, f32 and
-   bf16; then a narrow
+   16/16 in the encoder, 32/16 in the conditional cross-attention), 64
+   (64/64), 128 (128/128, concat 128/64) and 256 (256/256, concat 256/128),
+   and pairs padded onto a built one: K1 and K4-K6 against their plain
+   versions at each, f32 and bf16; a pair above 256 refused; then a narrow
    flagship with 4 heads of 16 (hidden 64) on a 1024x1024 clip, 1024
    tokens, through `make_inference_fn` with the default gates: K1 launches
    for every encoder self-attention and the scores and boxes equal the
-   all-plain forward's.
+   all-plain forward's; then flagships of hidden 512 and 1024 over 8 heads,
+   2 + 2 layers, 2 clips at 448x800: one loss and its gradients through
+   K4-K6 (at 64/64 and 128/64; at 128/128 and 256/128) against the gates
+   off, at phase 5a's tolerances.
 2. the flagship at full width (ResNet-50, D=256, 8 heads, ff 2048, 6+6
    layers, 128 queries, 8 classes; random weights from seed 0) answering
    requests of 2 clips x 3 frames at 896x1600 through `make_inference_fn`
@@ -73,7 +78,8 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    layer1 and at tile 8 at block 0, layer2 and layer3, v3 at tile 8 and 16;
    and each kernel's time at the tools' full bf16 shapes beside its plain
    version's and a yardstick (T1: SDPA's forward; T2 v2 and v3: K2's,
-   cuDNN's convolutions of the same blocks, channels-last).
+   cuDNN's convolutions of the same blocks, channels-last), T2's beside its
+   CUDA-core kernels' times (T2_CUDA_CORE_MS), v2 with im2col 0 too.
 1d. the stem study (future_od_tpu_torch/tools/bench_stem.py, the main path
    of its slice): `run()` whole at its full bf16 shape (24 x 896x1600) with
    the launch counts reset before and read after (T3 A, B, B16 and D must
@@ -206,7 +212,7 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    checkpoint's eval at stage 2's size (1400 tokens: K1 6 a forward) on
    both ranks against one process's eval (rank 0) within DIST_AP_ATOL, one
    step at dropout 0 (the reduced gradients and loss against one process's
-   on the same 32 clips and weights, within DIST_LOSS_RTOL and
+   on the same 16 clips and weights, within DIST_LOSS_RTOL and
    DIST_GRAD_RTOL); each rank's step ms, the all-reduce's ms (timed, and
    its events under torch.profiler), peak GB a rank.
    10b. torchrun with one rank: the NCCL init, an all-reduce, and a step
@@ -402,6 +408,11 @@ HEAD16_ATTENTIONS = (
     ("padded 24/40", 1, 4, 300, 1024, 24, 40),
     ("padded 96/96", 1, 4, 350, 350, 96, 96),
     ("padded 80/128", 1, 4, 300, 350, 80, 128),
+    # hidden 1024 over 8 heads: the decoder's concat heads 256/128 at stage 1
+    # (2 clips), and heads of 256; a pair above 128 padded onto 256/256
+    ("decoder 256/128", 2, 8, 128, 350, 256, 128),
+    ("heads of 256, 256/256", 1, 4, 350, 350, 256, 256),
+    ("padded 200/136", 1, 4, 300, 350, 200, 136),
 )
 # Phase 1e's wide flagship: hidden 512 over 8 heads, FFN 2048 (the encoder's
 # heads of 64, the decoder's conditional cross-attention at concat heads
@@ -409,6 +420,12 @@ HEAD16_ATTENTIONS = (
 # through K4-K6 against the same with the gates off, as phase 5a compares.
 WIDE_ARGS = dict(hidden_dim=512, nheads=8, enc_nheads=8, dim_feedforward=2048, enc_layers=2,
                  dec_layers=2)
+# and a wider member, hidden 1024 over 8 heads (the encoder's heads of 128,
+# the cross-attention's concat heads 256/128), cut and compared alike
+WIDER_ARGS = dict(WIDE_ARGS, hidden_dim=1024)
+# the head-dim pair (asked for on built) each must reach K4-K6 at
+WIDE_PAIRS = {"hidden 512": ("128/64 on 128/64",), "hidden 1024": ("128/128 on 128/128",
+                                                                    "256/128 on 256/128")}
 WIDE_BATCH = 2
 # The narrow flagship's scores and boxes (px), through K1 vs all plain, f32:
 # tests/test_torch_kernels_cuda.py::test_small_flagship_kernels_vs_plain's.
@@ -433,6 +450,10 @@ TOOL_SOURCES = {"attention_floor": "attention_floor.cu", "bottleneck_v2": "bottl
 # so, and the later blocks' identity residuals carry it on: 3 x 2^-8 (v3 at
 # tile 8 on an H100: 1.17e-2 absolute, past 2^-8 of max).
 BOTTLENECK_BF16_ATOL = {"bottleneck_v2": 2.0**-8, "fused_layer1": 3 * 2.0**-8}
+# T2's times at phase 1c's shapes before their tensor-core redesign (the f32
+# CUDA-core block GEMM; phase 1c on an H100 80GB HBM3 at 700 W), printed
+# beside this run's
+T2_CUDA_CORE_MS = {"bottleneck_v2": 12.305, "fused_layer1": 79.841}
 # Phase 1d: the stem study's kernels, with the TPU tool's file:line.
 STEM_KERNELS = {
     "stem_a": "tools/bench_stem.py:112",
@@ -594,15 +615,16 @@ INT8_TIME_S = 0.1
 INT8_EVAL_SCRIPT = "future_od_tpu_torch.runs.eval.nusc_500ms_attendprev_decoder_eval"
 DIST_RANKS = 2
 DIST_ARGV = ["--synthetic", "--debug", "--disable_wandb", "--epochs", "1"]
-DIST_BATCH = 32
+DIST_BATCH = 16  # 10a's step comparison: cut from 32 to pay for phase 1e's hidden-1024 check
 DIST_TIMEOUT_S = 480
-# The 2-rank step (16 rows a rank, the gradients summed over the ranks)
-# against one process's on the same 32 clips and weights, dropout 0: the
+# The 2-rank step (8 rows a rank, the gradients summed over the ranks)
+# against one process's on the same 16 clips and weights, dropout 0: the
 # loss, and each group's largest gradient difference over its largest
 # gradient (phase 6b's form); the half batch changes cuDNN's algorithms and
-# K4-K6's split as --accum 2 does. 10x the gaps measured on an H100 (two
-# ranks sharing the card over gloo: loss 1.33e-7; encoder 9.4e-6, detector
-# 2.8e-5); 10b's one-rank mesh step against no mesh is held to the same.
+# K4-K6's split as --accum 2 does. 10x the gaps measured on an H100 at 32
+# clips (two ranks sharing the card over gloo: loss 1.33e-7; encoder 9.4e-6,
+# detector 2.8e-5); 10b's one-rank mesh step against no mesh is held to the
+# same.
 DIST_LOSS_RTOL = 1.4e-6
 DIST_GRAD_RTOL = {"separate_encoder": 9.4e-5, "detector": 2.8e-4}
 # the 2-rank eval's AP dict against one process's on the same checkpoint
@@ -812,6 +834,28 @@ def t1_tensor_core_report():
     resources = {f"{dt} {mode}": af.attention_floor_info(mode, getattr(torch, dt))
                  for dt in ("float32", "bfloat16") for mode in af.MODES}
     return tensor_core_report(af.NAME, "flash_attention_kernel", 2 * len(af.MODES), resources)
+
+
+def t2_tensor_core_report():
+    """T2 v2 (dtype x cmid) and v3 (dtype): HMMA in every instantiation of
+    the study kernels' library; registers, spills and blocks an SM at the
+    tool's configurations (`bottleneck_plan`)."""
+    import torch
+
+    from future_od_tpu_torch.ops import fused_resnet as fr
+
+    resources = {}
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for cmid in fr.V2_CMIDS:
+            resources[f"v2 {dt} cmid{cmid} tile 8"] = fr.bottleneck_plan(False, 8, cmid, True, dtype)
+        for tile in (16, 32):
+            resources[f"v2 {dt} cmid64 tile {tile}"] = fr.bottleneck_plan(False, tile, 64, True,
+                                                                          dtype)
+        resources[f"v3 {dt} tile 8"] = fr.bottleneck_plan(True, 8, 64, True, dtype)
+    v2 = tensor_core_report(fr.VARIANTS, "bottleneck_v2_kernel", 2 * len(fr.V2_CMIDS), resources)
+    v3 = tensor_core_report(fr.VARIANTS, "fused_layer1_kernel", 2, {})
+    return {"bottleneck_v2": v2, "fused_layer1": v3}
 
 
 def t3d_tensor_core_report():
@@ -1287,8 +1331,8 @@ def head_dims_phase(torch, dev):
             e["kernel_pair"] = list(fa.kernel_head_dims(d, dv))
             errs[tag] = e
 
-    # above 128 no pair is built: every wrapper refuses before a launch
-    wide = torch.zeros(1, 2, 64, 256, device=dev)
+    # above 256 no pair is built: every wrapper refuses before a launch
+    wide = torch.zeros(1, 2, 64, 264, device=dev)
     before = dict(_kernels.launch_counts)
     for name, call in (("flash_attention", lambda: fa.flash_attention(wide, wide, wide[..., :128], 1.0)),
                        ("flash_train_fwd", lambda: fa.flash_train_fwd(
@@ -1299,7 +1343,7 @@ def head_dims_phase(torch, dev):
             if "head dims" not in str(err):
                 raise
         else:
-            raise AssertionError(f"{name} took head dims (256, 128)")
+            raise AssertionError(f"{name} took head dims (264, 128)")
     if _kernels.launch_counts != before:
         raise AssertionError("a refused head-dim pair launched a kernel")
 
@@ -1333,20 +1377,23 @@ def head_dims_phase(torch, dev):
         raise AssertionError(f"4 heads of 16: kernels vs plain {gaps}, tolerances {NARROW_TOLS}")
     del model, infer
     torch.cuda.empty_cache()
-    return {"max_abs_err": errs, "refused": "(256, 128): head dims",
+    return {"max_abs_err": errs, "refused": "(264, 128): head dims",
             "narrow_flagship": {"launches": counts, **gaps, "tolerances": NARROW_TOLS},
-            "wide_flagship": wide_flagship_check(torch, dev)}
+            "wide_flagship": wide_flagship_check(torch, dev, "hidden 512", WIDE_ARGS),
+            "wider_flagship": wide_flagship_check(torch, dev, "hidden 1024", WIDER_ARGS)}
 
 
-def wide_flagship_check(torch, dev):
-    """Phase 1e's hidden-512 flagship (WIDE_ARGS, WIDE_BATCH clips at
-    448x800): at dropout 0, on matcher indices injected from a gates-off
-    forward, one loss and its gradients with FUTURE_OD_TRAIN_FLASH=1 against
-    the same with every gate off, at phase 5a's LOSS_RTOL and GRAD_RTOL (the
-    torch dropout of the plain path draws other masks than K4-K6's hash, so
-    dropout 0 is what makes the comparison exact). Counts K4-K6's calls by
-    the head-dim pair attention asks for (and the built pair it runs on);
-    the decoder's cross-attention must reach K4-K6 at 128/64."""
+def wide_flagship_check(torch, dev, label, wide_args):
+    """Phase 1e's hidden-512 and hidden-1024 flagships (`wide_args`,
+    WIDE_BATCH clips at 448x800): at dropout 0, on matcher indices injected
+    from a gates-off forward, one loss and its gradients with
+    FUTURE_OD_TRAIN_FLASH=1 against the same with every gate off, at phase
+    5a's LOSS_RTOL and GRAD_RTOL (the torch dropout of the plain path draws
+    other masks than K4-K6's hash, so dropout 0 is what makes the comparison
+    exact). Counts K4-K6's calls by the head-dim pair attention asks for
+    (and the built pair it runs on); each of WIDE_PAIRS[label] must be
+    among them (hidden 512: the decoder's cross-attention at 128/64; hidden
+    1024: the encoder at 128/128 and the cross-attention at 256/128)."""
     from future_od_tpu_torch.models import layers
     from future_od_tpu_torch.models.build import build_flagship
     from future_od_tpu_torch.models.st_detr import SpatioTemporalDETRArgs
@@ -1356,7 +1403,7 @@ def wide_flagship_check(torch, dev):
 
     args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4,
                                   freeze_stem=True, matcher="auction", cost_slots=128,
-                                  **WIDE_ARGS)
+                                  **wide_args)
     cfg = args.criterion_config()
     model = build_flagship(args, generator=torch.Generator().manual_seed(0))
     randomize_heads_(torch, model._model.detector, torch.Generator().manual_seed(1))
@@ -1389,19 +1436,21 @@ def wide_flagship_check(torch, dev):
         set_gates()
     counts = {name: _kernels.launch_counts[name] for name in TRAIN_KERNELS}
     calls = sum(pairs.values())
-    print(f"1e wide flagship: K4-K6 calls by head-dim pair {pairs}", flush=True)
-    if "128/64 on 128/64" not in pairs or counts != {name: calls for name in TRAIN_KERNELS}:
-        raise AssertionError(f"wide flagship: K4-K6 calls by pair {pairs}, launches {counts}")
+    print(f"1e {label} flagship: K4-K6 calls by head-dim pair {pairs}", flush=True)
+    if (any(p not in pairs for p in WIDE_PAIRS[label])
+            or counts != {name: calls for name in TRAIN_KERNELS}):
+        raise AssertionError(f"{label} flagship: K4-K6 calls by pair {pairs}, launches {counts}")
     if set(grads_on) != set(grads_off):
-        raise AssertionError("wide flagship: gates on and off give different gradients")
+        raise AssertionError(f"{label} flagship: gates on and off give different gradients")
     loss_gap = abs(loss_on.item() - loss_off.item()) / abs(loss_off.item())
     worst = worst_per_group(gradient_gaps(grads_on, grads_off))
-    record = {"args": WIDE_ARGS, "clips": WIDE_BATCH, "size": [TRAIN_HEIGHT, TRAIN_WIDTH],
+    record = {"args": wide_args, "clips": WIDE_BATCH, "size": [TRAIN_HEIGHT, TRAIN_WIDTH],
               "k4_k6_calls_by_pair": pairs, "launches": counts, "loss_on": loss_on.item(),
               "loss_off": loss_off.item(), "loss_rel_gap": loss_gap, "max_grad_rel_gap": worst,
               "tolerances": {"loss": LOSS_RTOL, "grad": GRAD_RTOL, "grad_floor": GRAD_FLOOR}}
     if loss_gap > LOSS_RTOL or any(gap > GRAD_RTOL[g] for g, (gap, _) in worst.items()):
-        raise AssertionError(f"wide flagship through K4-K6 differs from plain autograd: {record}")
+        raise AssertionError(f"{label} flagship through K4-K6 differs from plain autograd: "
+                             f"{record}")
     del model, grads_on, grads_off
     torch.cuda.empty_cache()
     return record
@@ -1587,6 +1636,7 @@ def tools_phase(torch, dev):
     w1 = {k_: torch.from_numpy(v_).to(dev, bf16) for k_, v_ in weights(256, 64, 256, False).items()}
     x0 = (torch.randn(t2.BATCH, t2.HEIGHT, t2.WIDTH, 64, generator=gen, device=dev) * 0.1).to(bf16)
     blocks = blocks_from_numpy(blocks_np, bf16, dev)
+    v3_plan = fr.bottleneck_plan(True, 8, 64, True, bf16)
     # T2's yardsticks (K2's): cuDNN's convolutions of the same blocks
     yard1 = yardstick_weights(torch, w1, bf16)
     yard_blocks = [yardstick_weights(torch, bk, bf16) for bk in blocks]
@@ -1625,6 +1675,10 @@ def tools_phase(torch, dev):
         "bottleneck_v2": dict(
             per=f"one call at layer1's inner block {tuple(x1.shape)} -> 256, tile 8, im2col",
             ms=time_ms(torch, lambda: fr.fused_bottleneck_v2(x1, **w1, tile_h=8, im2col=True)),
+            im2col0_ms=time_ms(torch, lambda: fr.fused_bottleneck_v2(x1, **w1, tile_h=8,
+                                                                    im2col=False)),
+            cuda_core_ms=T2_CUDA_CORE_MS["bottleneck_v2"],
+            plan=fr.bottleneck_plan(False, 8, 64, True, bf16),
             plain_ms=time_ms(torch, lambda: fr.bottleneck_plain(x1, **w1)),
             library_ms=time_ms(torch, lambda: block_yardstick(torch, x1, **yard1)),
             library_is=f"a yardstick: {K2_YARDSTICK}",
@@ -1632,6 +1686,8 @@ def tools_phase(torch, dev):
         "fused_layer1": dict(
             per=f"one call over layer1's 3 blocks {tuple(x0.shape)} -> 256, tile 8",
             ms=time_ms(torch, lambda: fr.fused_layer1(x0, blocks, tile_h=8)),
+            cuda_core_ms=T2_CUDA_CORE_MS["fused_layer1"], plan=v3_plan,
+            recompute=fr.layer1_recompute(v3_plan["band_h"], v3_plan["tile_w"]),
             plain_ms=time_ms(torch, lambda: fr.layer1_plain(x0, blocks)),
             library_ms=time_ms(torch, lambda: layer1_yardstick(x0)),
             library_is=f"a yardstick: {K2_YARDSTICK}, for each of the 3 blocks in turn",
@@ -5224,6 +5280,7 @@ def main() -> int:
     log("0-k8-tensor-cores", **k8_tensor_core_report())
     log("0-t1-tensor-cores", **t1_tensor_core_report())
     log("0-t3d-tensor-cores", **t3d_tensor_core_report())
+    log("0-t2-tensor-cores", **t2_tensor_core_report())
 
     t0 = time.perf_counter()
     records = kernel_phase(torch, torch.device("cuda"))
@@ -5467,7 +5524,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in rec["calls"] if c["dtype"] == "bfloat16"),
             **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_is",
                                    "library_ms", "library_is", "mode_ms", "mode_bound",
-                                   "softmax_share_of_k1", "per") if k in rec},
+                                   "softmax_share_of_k1", "im2col0_ms", "cuda_core_ms", "plan",
+                                   "recompute", "per") if k in rec},
             "calls": rec["calls"],
         })
     for name, rec in stem_records.items():

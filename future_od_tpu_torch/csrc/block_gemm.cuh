@@ -1,6 +1,6 @@
-// The register-tiled block GEMM shared by the fused bottleneck kernels
-// (fused_bottleneck.cu, bottleneck_variants.cu): f32 on the CUDA cores, one
-// block of 256 threads laid out 16 x 16.
+// The register-tiled block GEMM of the stem study's CUDA-core kernels
+// (stem_variants.cu): f32 on the CUDA cores, one block of 256 threads laid out
+// 16 x 16.
 #pragma once
 
 #include "common.cuh"

@@ -12,7 +12,7 @@
 //
 // Layout. A block of 4 warps owns 64 query rows of one batch*head, 16 rows a warp,
 // in the fragment layout of mma.sync (m16n8k16 for bf16, m16n8k8 for tf32). Each
-// warp keeps its q fragments in registers for the whole call. The block walks the
+// warp keeps its q fragments in registers for the whole call (up to d 128). The block walks the
 // keys in tiles of 64, double-buffered in shared memory by cp.async (16 bytes a
 // copy; rows padded by 16 bytes so that ldmatrix and the f32 v reads hit 32
 // distinct banks). Keys past nk are zero-filled and scored -inf before the max;
@@ -55,17 +55,22 @@
 // logit; today the instructions around the products (the softmax, the hi + lo
 // split, the fragment moves) and their latencies bind it, not the ex2 unit.
 //
-// Grid: (ceil(nq / 64), batch*heads) blocks of 128 threads, 22 x 32 = 704 at the
-// flagship shape. The registers set the resident blocks an SM, not the shared
-// memory (20-52 KB a block of the 227 KB): bf16 d 32 at 80 registers (held there by
+// Grid: (ceil(nq / 64), batch*heads, dv / 128 above dv 128, else 1) blocks of 128
+// threads, 22 x 32 = 704 at the flagship shape. The registers set the resident
+// blocks an SM, not the shared memory (20-52 KB a block of the 227 KB at d 32):
+// bf16 d 32 at 80 registers (held there by
 // __launch_bounds__, a few bytes spilled) 6, f32 d 32 at 147 registers 3 (ptxas -v
 // and fod_flash_attention_info on an H100, which chip_smoke.py phase 0 prints).
 //
 // Head dims: the pairs (d, dv) below are built; ops/flash_attention.py zero-pads any
-// other pair up to 128 onto the smallest built one that holds it (zero columns add
+// other pair up to 256 onto the smallest built one that holds it (zero columns add
 // exact zeros to the logits and give zero output columns, which it slices off).
 // Past d + dv = 128 the accumulators take most of the registers, so those
-// instantiations set no resident-block floor (flash_forward.cuh's Geometry).
+// instantiations set no resident-block floor (flash_forward.cuh's Geometry). At d 256
+// q is staged in shared memory rather than held in registers, and above dv 128 each
+// block owns 128 output columns (a grid z of dv / 128 slices, each recomputing the
+// logits): f32's 3xTF32 q fragments at d 256 would take 256 registers a thread, and
+// the output accumulators at dv 256 128 more.
 #include "flash_forward.cuh"
 
 namespace {
@@ -81,8 +86,9 @@ int launch_full(const void* q, const void* k, const void* v, void* out, int bh, 
 // The instantiated (d, dv), as ops/flash_attention.py's SUPPORTED_HEAD_DIMS lists
 // them: the flagship encoder's 32/32 and conditional cross-attention's concat heads
 // 64/32, the same at heads of 16 (the single-frame debug config), 16/16 and 32/16,
-// an encoder's heads of 64, 64/64, and the widest: the concat heads of heads of 64
-// (hidden 512 over 8 heads), 128/64, and heads of 128, 128/128.
+// an encoder's heads of 64, 64/64, the concat heads of heads of 64 (hidden 512 over 8
+// heads), 128/64, heads of 128, 128/128, and the widest: the concat heads of heads of
+// 128 (hidden 1024 over 8 heads), 256/128, and heads of 256, 256/256.
 template <typename T, typename F>
 int dispatch_dims(int d, int dv, const F& f) {
   if (d == 32 && dv == 32) return f(std::integral_constant<int, 32>{}, std::integral_constant<int, 32>{});
@@ -92,6 +98,8 @@ int dispatch_dims(int d, int dv, const F& f) {
   if (d == 64 && dv == 64) return f(std::integral_constant<int, 64>{}, std::integral_constant<int, 64>{});
   if (d == 128 && dv == 64) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 64>{});
   if (d == 128 && dv == 128) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 128>{});
+  if (d == 256 && dv == 128) return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 128>{});
+  if (d == 256 && dv == 256) return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 256>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

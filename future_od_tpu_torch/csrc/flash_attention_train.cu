@@ -136,21 +136,45 @@ __device__ __forceinline__ T* at(const Operand& o, int b, int h, int n) {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTileK = 64;              // keys a staged tile
-constexpr int kTileN = kTileK / 8;      // n-tiles of 8 keys in a staged tile
+constexpr int kTileK = 64;              // keys a staged tile (32 at d 256: Geometry::kTile)
 constexpr int kPassN = 4;               // n-tiles a warp takes a pass: 32 keys
 constexpr int kPad = 16;                // bytes of padding after each staged row
 constexpr int kMaxRows = 16 * kWarps;   // query rows a block at split 1
+constexpr int kMaxSlice = 128;          // output columns a block at d 256 (grid z)
 
+// The tiles of K4-K6 at head dims (D, DV). Up to d 128 a block stages 64-key (K6:
+// 64-query) tiles and owns all of its rows' output columns. At d 256 (ROADMAP Queue 3's
+// remedy) the tiles take 32 rows so that two stages fit beside the staged q; a block owns
+// 128 output columns (a grid z of slices: K4 out's, K5 dq's, K6 dk's then dv's), so its
+// accumulators stay at d 128's, and every slice recomputes the logits bit for bit alike;
+// K5 stages its do rows in shared memory (v_dot) rather than holding 64-256 registers of
+// fragments; and at f32 256/256 K5 and K6 take 32 rows a block (split >= 2).
 template <typename T, int D, int DV>
 struct Geometry {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr bool kSliced = D > 128;
+  static constexpr int kTile = kSliced ? 32 : kTileK;       // keys (K6: queries) a tile
+  static constexpr int kTileN = kTile / 8;                  // n-tiles of 8 in a tile
+  // a warp takes kTileN / split n-tiles of a tile: at least 1, and an even count in bf16
+  // (its products take keys two n-tiles a k-step)
+  static constexpr int kSplitCap = kF32 ? kTileN : kTileN / 2;
+  static constexpr int kMaxSplit = kSplitCap < kWarps ? kSplitCap : kWarps;
+  static constexpr int kMinSplitGrad = kF32 && D + DV > 384 ? 2 : 1;  // K5, K6
+  static constexpr int kSliceD = kSliced ? kMaxSlice : D;   // dq, dk columns a block
+  static constexpr int kSliceV = DV > kMaxSlice ? kMaxSlice : DV;  // out, dv columns a block
   static constexpr int kRowK = D * (int)sizeof(T) + kPad;   // bytes a staged k row
-  static constexpr int kRowV = DV * (int)sizeof(T) + kPad;  // bytes a staged v row
-  static constexpr int kStage = kTileK * (kRowK + kRowV);   // bytes a k + v tile
+  static constexpr int kRowV = DV * (int)sizeof(T) + kPad;  // bytes a staged v (do) row
+  static constexpr int kRowVS = kSliceV * (int)sizeof(T) + kPad;  // K4's v slice row
+  static constexpr int kStageFwd = kTile * (kRowK + kRowVS);  // bytes a k + v tile, K4
+  static constexpr int kStage = kTile * (kRowK + kRowV);      // bytes a k + v tile, K5
   static constexpr int kRowQ = D + kPad / 4;                // floats a staged q row
-  static constexpr int kSmem = 2 * kStage + kMaxRows * kRowQ * 4;
-  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims");
-  static_assert(kSmem <= 232448, "a block's shared memory");
+  static constexpr int kRowsGrad = kMaxRows / kMinSplitGrad;  // K5's rows a block at most
+  static constexpr int kSmemFwd = 2 * kStageFwd + kMaxRows * kRowQ * 4;
+  static constexpr int kSmem =
+      2 * kStage + kRowsGrad * kRowQ * 4 + (kSliced ? kRowsGrad * kRowV : 0);
+  static_assert(D % 16 == 0 && DV % 16 == 0 && D % kSliceD == 0 && DV % kSliceV == 0,
+                "head dims");
+  static_assert(kSmem <= 232448 && kSmemFwd <= 232448, "a block's shared memory");
   // Past d + dv = 128 (d 128) the accumulators alone take 64-128 registers a thread: no
   // resident-block floor is set there, and ptxas may take up to 255 (PERF.md lists the
   // spills of those instantiations).
@@ -158,22 +182,23 @@ struct Geometry {
   static constexpr int kMinBlocksFwd = kWide ? 1 : 3;
   static constexpr int kMinBlocksGrad = kWide ? 1 : 2;
   // the split's merge reuses the two stages: a value a lane, kWarps x 32 lanes
-  static constexpr int kMergeVals = (D > DV ? D : DV) / 2 + 4;
-  static_assert(kWarps * 32 * kMergeVals * 4 <= 2 * kStage, "merge scratch");
+  static constexpr int kMergeVals = (kSliceD > kSliceV ? kSliceD : kSliceV) / 2 + 4;
+  static_assert(kWarps * 32 * kMergeVals * 4 <= 2 * (kStageFwd < kStage ? kStageFwd : kStage),
+                "merge scratch");
 };
 
-// Copy rows r0 .. r0 + kTileK of one (rows, kWidth)-element operand (row stride sn
+// Copy rows r0 .. r0 + kRows of one (rows, kWidth)-element operand (row stride sn
 // elements) into a staged tile (row pitch kRow bytes) in 16-byte pieces; rows past n
 // are zero-filled.
-template <typename T, int kWidth, int kRow>
+template <typename T, int kWidth, int kRow, int kRows = kTileK>
 __device__ __forceinline__ void stage_rows(unsigned char* dst, const T* src, long long sn, int n,
                                            int r0) {
   constexpr int kPieces = kWidth * (int)sizeof(T) / 16;  // a row
   constexpr int kRowsApart = kThreads / kPieces;
-  static_assert(kThreads % kPieces == 0 && kTileK % kRowsApart == 0, "tile copy");
+  static_assert(kThreads % kPieces == 0 && kRows % kRowsApart == 0, "tile copy");
   const int piece = threadIdx.x % kPieces, r = threadIdx.x / kPieces;
 #pragma unroll
-  for (int i = 0; i < kTileK / kRowsApart; ++i) {
+  for (int i = 0; i < kRows / kRowsApart; ++i) {
     const int row = r + i * kRowsApart;
     const bool real = r0 + row < n;
     cp_async16(smem_addr(dst + row * kRow + piece * 16),
@@ -181,13 +206,15 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const T* src, lon
   }
 }
 
-template <typename T, int D, int DV>
+// Key tile `tile` (k rows, and kVW columns of v's rows from vb) into stage buf of
+// kStage bytes.
+template <typename T, int D, int DV, int kVW, int kRowV, int kStage>
 __device__ __forceinline__ void load_tile(unsigned char* smem, const TrainArgs& a, const T* kb,
                                           const T* vb, int tile, int buf) {
   using G = Geometry<T, D, DV>;
-  unsigned char* ks = smem + buf * G::kStage;
-  stage_rows<T, D, G::kRowK>(ks, kb, a.k.sn, a.nk, tile * kTileK);
-  stage_rows<T, DV, G::kRowV>(ks + kTileK * G::kRowK, vb, a.v.sn, a.nk, tile * kTileK);
+  unsigned char* ks = smem + buf * kStage;
+  stage_rows<T, D, G::kRowK, G::kTile>(ks, kb, a.k.sn, a.nk, tile * G::kTile);
+  stage_rows<T, kVW, kRowV, G::kTile>(ks + G::kTile * G::kRowK, vb, a.v.sn, a.nk, tile * G::kTile);
 }
 
 // Rows row_base .. row_base + rows of a (rows, W)-element operand (row stride sn) as f32
@@ -385,320 +412,6 @@ __device__ __forceinline__ void do_vt(float (&ds)[kPassN][4], const DoFragments<
   }
 }
 
-// The warp layout of a block: `split` warps share each 16-row query slab and take
-// their part of every key tile.
-struct Layout {
-  int warp, lane, g, t;
-  int slabs, slab, part;  // slabs a block; this warp's slab and key part
-  int nt, np;             // n-tiles the warp takes of a tile; n-tiles a pass
-  int row_base, row0;     // the block's and the warp's first query row
-
-  __device__ __forceinline__ explicit Layout(int split) {
-    warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    slabs = kWarps / split, slab = warp % slabs, part = warp / slabs;
-    nt = kTileN / split, np = nt < kPassN ? nt : kPassN;
-    row_base = blockIdx.x * 16 * slabs, row0 = row_base + 16 * slab;
-  }
-};
-
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads, (Geometry<T, D, DV>::kMinBlocksFwd))
-train_fwd_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
-  using G = Geometry<T, D, DV>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + 2 * G::kStage);
-  const Layout L(split);
-  const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h;
-  const uint32_t gbh = dp.global_bh(bh);  // the mask's batch·head
-  const T* kb = at<T>(a.k, b, h, 0);
-  const T* vb = at<T>(a.v, b, h, 0);
-
-  load_tile<T, D, DV>(smem, a, kb, vb, 0, 0);
-  fod::cp_async_commit();
-  stage_f32<T, D>(qs, at<T>(a.q, b, h, 0), a.q.sn, a.nq, L.row_base, 16 * L.slabs, a.scale);
-  const float* q0 = qs + (16 * L.slab + L.g) * G::kRowQ;
-  const float* q1 = q0 + 8 * G::kRowQ;
-
-  float o[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float row_max[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float row_sum[2] = {0.f, 0.f};              // this lane's keys only, until the end
-
-  const int n_tiles = (a.nk + kTileK - 1) / kTileK;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) load_tile<T, D, DV>(smem, a, kb, vb, tile + 1, (tile + 1) & 1);
-    fod::cp_async_commit();  // possibly empty: the wait below then covers this tile
-    fod::cp_async_wait_one();
-    __syncthreads();
-    const unsigned char* ks = smem + (tile & 1) * G::kStage;
-    const unsigned char* vs = ks + kTileK * G::kRowK;
-    for (int jb = L.part * L.nt; jb < (L.part + 1) * L.nt; jb += L.np) {
-      float s[kPassN][4];
-      logits<T, D, G::kRowK>(s, q0, q1, ks, jb, L.np, L.t);
-      const int key0 = tile * kTileK + 8 * jb + 2 * L.t;  // the lane's key of n-tile 0
-      float corr[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float mx = row_max[hh];
-#pragma unroll
-        for (int jn = 0; jn < kPassN; ++jn) {
-          if (jn >= L.np) continue;
-#pragma unroll
-          for (int e1 = 0; e1 < 2; ++e1) {
-            if (key0 + 8 * jn + e1 >= a.nk) s[jn][2 * hh + e1] = -INFINITY;  // no key
-            mx = fmaxf(mx, s[jn][2 * hh + e1]);
-          }
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        // -inf: no real key of this warp yet, so nothing to correct
-        corr[hh] = mx == -INFINITY ? 1.f : __expf(row_max[hh] - mx);
-        row_max[hh] = mx;
-        row_sum[hh] *= corr[hh];
-      }
-#pragma unroll
-      for (int n = 0; n < DV / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
-#pragma unroll
-      for (int jn = 0; jn < kPassN; ++jn) {
-        if (jn >= L.np) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[jn][e];
-          float p = x == -INFINITY ? 0.f : __expf(x - row_max[e >> 1]);
-          row_sum[e >> 1] += p;  // the softmax denominator is taken before dropout
-          if (dp.active())
-            p *= fod::dropout_value(gbh, L.row0 + L.g + 8 * (e >> 1), key0 + 8 * jn + (e & 1), dp);
-          s[jn][e] = p;
-        }
-      }
-      product<T, DV, G::kRowV>(o, s, L.np, vs, jb, L.lane);
-    }
-    __syncthreads();  // the next iteration refills this stage
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
-    row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
-  }
-  if (split > 1) {  // merge the slab's parts into part 0: [warp][value][lane] in the stages
-    float* buf = reinterpret_cast<float*>(smem);
-    constexpr int kVals = DV / 2 + 4;
-    if (L.part > 0) {
-      float* w = buf + L.warp * kVals * 32 + L.lane;
-#pragma unroll
-      for (int n = 0; n < DV / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) w[(4 * n + e) * 32] = o[n][e];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        w[(DV / 2 + hh) * 32] = row_max[hh];
-        w[(DV / 2 + 2 + hh) * 32] = row_sum[hh];
-      }
-    }
-    __syncthreads();
-    if (L.part == 0) {
-      for (int p = 1; p < split; ++p) {
-        const float* w = buf + (L.warp + p * L.slabs) * kVals * 32 + L.lane;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          // part 0 holds key 0, so its max is finite; a part may have no real key
-          const float m = w[(DV / 2 + hh) * 32];
-          const float mx = fmaxf(row_max[hh], m);
-          const float fa = expf(row_max[hh] - mx);
-          const float fb = m == -INFINITY ? 0.f : expf(m - mx);
-          row_sum[hh] = row_sum[hh] * fa + w[(DV / 2 + 2 + hh) * 32] * fb;
-#pragma unroll
-          for (int n = 0; n < DV / 8; ++n)
-#pragma unroll
-            for (int e1 = 0; e1 < 2; ++e1) {
-              const int e = 2 * hh + e1;
-              o[n][e] = o[n][e] * fa + w[(4 * n + e) * 32] * fb;
-            }
-          row_max[hh] = mx;
-        }
-      }
-    }
-  }
-  if (L.part != 0) return;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = L.row0 + L.g + 8 * hh;
-    if (row >= a.nq) continue;
-    const float inv = 1.f / row_sum[hh];
-    T* orow = at<T>(a.o0, b, h, row) + 2 * L.t;
-#pragma unroll
-    for (int n = 0; n < DV / 8; ++n) store2<T>(orow + 8 * n, o[n][2 * hh] * inv, o[n][2 * hh + 1] * inv);
-    // row_sum >= 1 (the max's own p is exactly 1), so lse >= the row's max logit
-    if (L.t == 0) *at<float>(a.lse, b, h, row) = row_max[hh] + logf(row_sum[hh]);
-  }
-}
-
-template <typename T, int D, int DV>
-__global__ void __launch_bounds__(kThreads, (Geometry<T, D, DV>::kMinBlocksGrad))
-train_dq_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
-  using G = Geometry<T, D, DV>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem + 2 * G::kStage);
-  const Layout L(split);
-  const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h;
-  const uint32_t gbh = dp.global_bh(bh);  // the mask's batch·head
-  const T* kb = at<T>(a.k, b, h, 0);
-  const T* vb = at<T>(a.v, b, h, 0);
-
-  load_tile<T, D, DV>(smem, a, kb, vb, 0, 0);
-  fod::cp_async_commit();
-  stage_f32<T, D>(qs, at<T>(a.q, b, h, 0), a.q.sn, a.nq, L.row_base, 16 * L.slabs, a.scale);
-  const float* q0 = qs + (16 * L.slab + L.g) * G::kRowQ;
-  const float* q1 = q0 + 8 * G::kRowQ;
-  DoFragments<T, DV> dof;
-  dof.load(a, b, h, L.row0, L.lane);
-  float lse[2], delta[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = L.row0 + L.g + 8 * hh;
-    lse[hh] = row < a.nq ? *at<float>(a.lse, b, h, row) : 0.f;
-    delta[hh] = row < a.nq ? *at<float>(a.delta, b, h, row) : 0.f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  const int n_tiles = (a.nk + kTileK - 1) / kTileK;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) load_tile<T, D, DV>(smem, a, kb, vb, tile + 1, (tile + 1) & 1);
-    fod::cp_async_commit();
-    fod::cp_async_wait_one();
-    __syncthreads();
-    const unsigned char* ks = smem + (tile & 1) * G::kStage;
-    const unsigned char* vs = ks + kTileK * G::kRowK;
-    for (int jb = L.part * L.nt; jb < (L.part + 1) * L.nt; jb += L.np) {
-      float s[kPassN][4], ds[kPassN][4];
-      logits<T, D, G::kRowK>(s, q0, q1, ks, jb, L.np, L.t);
-      do_vt<T, DV, G::kRowV>(ds, dof, L.np, vs, jb, L.lane);
-      const int key0 = tile * kTileK + 8 * jb + 2 * L.t;
-#pragma unroll
-      for (int jn = 0; jn < kPassN; ++jn) {
-        if (jn >= L.np) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * jn + (e & 1);
-          float d = ds[jn][e];
-          if (dp.active()) d *= fod::dropout_value(gbh, L.row0 + L.g + 8 * (e >> 1), key, dp);
-          const float p = expf(s[jn][e] - lse[e >> 1]);
-          s[jn][e] = key < a.nk ? p * (d - delta[e >> 1]) : 0.f;  // dlogits
-        }
-      }
-      product<T, D, G::kRowK>(dq, s, L.np, ks, jb, L.lane);
-    }
-    __syncthreads();
-  }
-
-  if (split > 1) {  // sum the slab's parts into part 0: [warp][value][lane] in the stages
-    float* buf = reinterpret_cast<float*>(smem);
-    constexpr int kVals = D / 2;
-    if (L.part > 0) {
-      float* w = buf + L.warp * kVals * 32 + L.lane;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) w[(4 * n + e) * 32] = dq[n][e];
-    }
-    __syncthreads();
-    if (L.part == 0) {
-      for (int p = 1; p < split; ++p) {
-        const float* w = buf + (L.warp + p * L.slabs) * kVals * 32 + L.lane;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dq[n][e] += w[(4 * n + e) * 32];
-      }
-    }
-  }
-  if (L.part != 0) return;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = L.row0 + L.g + 8 * hh;
-    if (row >= a.nq) continue;
-    T* drow = at<T>(a.o0, b, h, row) + 2 * L.t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      store2<T>(drow + 8 * n, dq[n][2 * hh] * a.scale, dq[n][2 * hh + 1] * a.scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6
-// ---------------------------------------------------------------------------
-
-// K6's shared memory: two stages of a 64-query tile (q and do rows in the storage type,
-// then lse and delta of its queries), q * scale as f32 rows for the logits (for f32 the
-// stage's q tile itself, scaled in place; apart for bf16, whose product takes q as
-// stored), then the block's keys: k rows as f32 and a 64-row tile of v as stored.
-template <typename T, int D, int DV>
-struct DkvGeometry {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kRowQ = D * (int)sizeof(T) + kPad;   // bytes a staged q row
-  static constexpr int kRowDo = DV * (int)sizeof(T) + kPad; // bytes a staged do row
-  static constexpr int kRowV = DV * (int)sizeof(T) + kPad;  // bytes a staged v row
-  static constexpr int kRowS = D + kPad / 4;                // floats a q * scale or k row
-  static constexpr int kStage = kTileK * (kRowQ + kRowDo) + 2 * kTileK * 4;
-  static constexpr int kScaled = kF32 ? 0 : kTileK * kRowS * 4;
-  // bytes at `rows` keys a block (k rows as f32 for those, v staged as a 64-row tile)
-  static constexpr int smem(int rows) {
-    return 2 * kStage + kScaled + rows * kRowS * 4 + kTileK * kRowV;
-  }
-  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims");
-  static_assert(kThreads == 2 * kTileK, "a thread stages one lse or delta of a tile");
-  // the split's sum reuses the two stages: dk and dv a lane, kWarps x 32 lanes
-  static constexpr int kMergeVals = D / 2 + DV / 2;
-  static_assert(kWarps * 32 * kMergeVals * 4 <= 2 * kStage, "merge scratch");
-};
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :
-               : "r"(dst), "l"(src), "r"(src_bytes));
-}
-
-// Query tile `tile` into stage buf: its q and do rows (zero past nq) by 16-byte cp.async,
-// the lse and delta of its queries by 4-byte ones (zero past nq: a padded query's are
-// never read).
-template <typename T, int D, int DV>
-__device__ __forceinline__ void load_queries(unsigned char* smem, const TrainArgs& a, int b,
-                                             int h, int tile, int buf) {
-  using G = DkvGeometry<T, D, DV>;
-  unsigned char* st = smem + buf * G::kStage;
-  const int r0 = tile * kTileK;
-  stage_rows<T, D, G::kRowQ>(st, at<T>(a.q, b, h, 0), a.q.sn, a.nq, r0);
-  stage_rows<T, DV, G::kRowDo>(st + kTileK * G::kRowQ, at<T>(a.dout, b, h, 0), a.dout.sn, a.nq,
-                               r0);
-  const int i = threadIdx.x % kTileK, which = threadIdx.x / kTileK;  // 0 lse, 1 delta
-  const bool real = r0 + i < a.nq;
-  float* dst = reinterpret_cast<float*>(st + kTileK * (G::kRowQ + G::kRowDo)) + which * kTileK + i;
-  cp_async4(smem_addr(dst), at<float>(which ? a.delta : a.lse, b, h, real ? r0 + i : 0),
-            real ? 4 : 0);
-}
-
-// The stage's q tile (pitch kRowQ bytes) as f32 times scale into qs (pitch kRowS floats):
-// the rounding every kernel's logits take. For f32, qs is the tile itself.
-template <typename T, int D, int kRowQ, int kRowS>
-__device__ __forceinline__ void scale_queries(float* qs, const unsigned char* qt, float scale) {
-  constexpr int kChunks = D / 8;  // 8 elements a chunk
-  for (int i = threadIdx.x; i < kTileK * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    float x[8];
-    load8<T>(x, qt + r * kRowQ + c * (int)sizeof(T));
-    float4* d = reinterpret_cast<float4*>(qs + r * kRowS + c);
-    d[0] = make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
-    d[1] = make_float4(x[4] * scale, x[5] * scale, x[6] * scale, x[7] * scale);
-  }
-}
-
 // ds[jn] = v do^T for the pass's n-tiles of queries (C layout: keys g, g + 8 of the warp's
 // slab x queries 8 (jb + jn) + 2t, + 1): K5's do_vt with the roles swapped. v's A fragments
 // come by ldmatrix from the block's staged v rows (v_addr: this lane's address in the slab,
@@ -774,6 +487,391 @@ __device__ __forceinline__ void v_dot(float (&ds)[kPassN][4], uint32_t v_addr, i
   }
 }
 
+// The warp layout of a block: `split` warps share each 16-row query slab and take
+// their part of every key tile.
+struct Layout {
+  int warp, lane, g, t;
+  int slabs, slab, part;  // slabs a block; this warp's slab and key part
+  int nt, np;             // n-tiles the warp takes of a tile; n-tiles a pass
+  int row_base, row0;     // the block's and the warp's first query row
+
+  __device__ __forceinline__ Layout(int split, int tile_n) {
+    warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    slabs = kWarps / split, slab = warp % slabs, part = warp / slabs;
+    nt = tile_n / split, np = nt < kPassN ? nt : kPassN;
+    row_base = blockIdx.x * 16 * slabs, row0 = row_base + 16 * slab;
+  }
+};
+
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(kThreads, (Geometry<T, D, DV>::kMinBlocksFwd))
+train_fwd_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
+  using G = Geometry<T, D, DV>;
+  constexpr int kTile = G::kTile, DVS = G::kSliceV;  // this block's columns of out
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + 2 * G::kStageFwd);
+  const Layout L(split, G::kTileN);
+  const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h, slice = blockIdx.z;
+  const uint32_t gbh = dp.global_bh(bh);  // the mask's batch·head
+  const T* kb = at<T>(a.k, b, h, 0);
+  const T* vb = at<T>(a.v, b, h, 0) + slice * DVS;
+  const auto load = [&](int tile, int buf) {
+    load_tile<T, D, DV, DVS, G::kRowVS, G::kStageFwd>(smem, a, kb, vb, tile, buf);
+  };
+
+  load(0, 0);
+  fod::cp_async_commit();
+  stage_f32<T, D>(qs, at<T>(a.q, b, h, 0), a.q.sn, a.nq, L.row_base, 16 * L.slabs, a.scale);
+  const float* q0 = qs + (16 * L.slab + L.g) * G::kRowQ;
+  const float* q1 = q0 + 8 * G::kRowQ;
+
+  float o[DVS / 8][4];
+#pragma unroll
+  for (int n = 0; n < DVS / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  float row_sum[2] = {0.f, 0.f};              // this lane's keys only, until the end
+
+  const int n_tiles = (a.nk + kTile - 1) / kTile;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load(tile + 1, (tile + 1) & 1);
+    fod::cp_async_commit();  // possibly empty: the wait below then covers this tile
+    fod::cp_async_wait_one();
+    __syncthreads();
+    const unsigned char* ks = smem + (tile & 1) * G::kStageFwd;
+    const unsigned char* vs = ks + kTile * G::kRowK;
+    for (int jb = L.part * L.nt; jb < (L.part + 1) * L.nt; jb += L.np) {
+      float s[kPassN][4];
+      logits<T, D, G::kRowK>(s, q0, q1, ks, jb, L.np, L.t);
+      const int key0 = tile * kTile + 8 * jb + 2 * L.t;  // the lane's key of n-tile 0
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = row_max[hh];
+#pragma unroll
+        for (int jn = 0; jn < kPassN; ++jn) {
+          if (jn >= L.np) continue;
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            if (key0 + 8 * jn + e1 >= a.nk) s[jn][2 * hh + e1] = -INFINITY;  // no key
+            mx = fmaxf(mx, s[jn][2 * hh + e1]);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // -inf: no real key of this warp yet, so nothing to correct
+        corr[hh] = mx == -INFINITY ? 1.f : __expf(row_max[hh] - mx);
+        row_max[hh] = mx;
+        row_sum[hh] *= corr[hh];
+      }
+#pragma unroll
+      for (int n = 0; n < DVS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+#pragma unroll
+      for (int jn = 0; jn < kPassN; ++jn) {
+        if (jn >= L.np) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[jn][e];
+          float p = x == -INFINITY ? 0.f : __expf(x - row_max[e >> 1]);
+          row_sum[e >> 1] += p;  // the softmax denominator is taken before dropout
+          if (dp.active())
+            p *= fod::dropout_value(gbh, L.row0 + L.g + 8 * (e >> 1), key0 + 8 * jn + (e & 1), dp);
+          s[jn][e] = p;
+        }
+      }
+      product<T, DVS, G::kRowVS>(o, s, L.np, vs, jb, L.lane);
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
+    row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
+  }
+  if (split > 1) {  // merge the slab's parts into part 0: [warp][value][lane] in the stages
+    float* buf = reinterpret_cast<float*>(smem);
+    constexpr int kVals = DVS / 2 + 4;
+    if (L.part > 0) {
+      float* w = buf + L.warp * kVals * 32 + L.lane;
+#pragma unroll
+      for (int n = 0; n < DVS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[(4 * n + e) * 32] = o[n][e];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        w[(DVS / 2 + hh) * 32] = row_max[hh];
+        w[(DVS / 2 + 2 + hh) * 32] = row_sum[hh];
+      }
+    }
+    __syncthreads();
+    if (L.part == 0) {
+      for (int p = 1; p < split; ++p) {
+        const float* w = buf + (L.warp + p * L.slabs) * kVals * 32 + L.lane;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // part 0 holds key 0, so its max is finite; a part may have no real key
+          const float m = w[(DVS / 2 + hh) * 32];
+          const float mx = fmaxf(row_max[hh], m);
+          const float fa = expf(row_max[hh] - mx);
+          const float fb = m == -INFINITY ? 0.f : expf(m - mx);
+          row_sum[hh] = row_sum[hh] * fa + w[(DVS / 2 + 2 + hh) * 32] * fb;
+#pragma unroll
+          for (int n = 0; n < DVS / 8; ++n)
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int e = 2 * hh + e1;
+              o[n][e] = o[n][e] * fa + w[(4 * n + e) * 32] * fb;
+            }
+          row_max[hh] = mx;
+        }
+      }
+    }
+  }
+  if (L.part != 0) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = L.row0 + L.g + 8 * hh;
+    if (row >= a.nq) continue;
+    const float inv = 1.f / row_sum[hh];
+    T* orow = at<T>(a.o0, b, h, row) + slice * DVS + 2 * L.t;
+#pragma unroll
+    for (int n = 0; n < DVS / 8; ++n) store2<T>(orow + 8 * n, o[n][2 * hh] * inv, o[n][2 * hh + 1] * inv);
+    // row_sum >= 1 (the max's own p is exactly 1), so lse >= the row's max logit; every
+    // slice computes it alike, the first writes it
+    if (L.t == 0 && slice == 0) *at<float>(a.lse, b, h, row) = row_max[hh] + logf(row_sum[hh]);
+  }
+}
+
+template <typename T, int D, int DV>
+__global__ void __launch_bounds__(kThreads, (Geometry<T, D, DV>::kMinBlocksGrad))
+train_dq_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
+  using G = Geometry<T, D, DV>;
+  constexpr int kTile = G::kTile, DS = G::kSliceD;  // this block's columns of dq
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + 2 * G::kStage);
+  // d 256: the block's do rows, staged (v_dot's A operand) in place of DoFragments
+  unsigned char* dos = reinterpret_cast<unsigned char*>(qs + G::kRowsGrad * G::kRowQ);
+  const Layout L(split, G::kTileN);
+  const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h, slice = blockIdx.z;
+  const uint32_t gbh = dp.global_bh(bh);  // the mask's batch·head
+  const T* kb = at<T>(a.k, b, h, 0);
+  const T* vb = at<T>(a.v, b, h, 0);
+  const auto load = [&](int tile, int buf) {
+    load_tile<T, D, DV, DV, G::kRowV, G::kStage>(smem, a, kb, vb, tile, buf);
+  };
+
+  load(0, 0);
+  if constexpr (G::kSliced)
+    stage_rows<T, DV, G::kRowV, G::kRowsGrad>(dos, at<T>(a.dout, b, h, 0), a.dout.sn, a.nq,
+                                              L.row_base);
+  fod::cp_async_commit();
+  stage_f32<T, D>(qs, at<T>(a.q, b, h, 0), a.q.sn, a.nq, L.row_base, 16 * L.slabs, a.scale);
+  const float* q0 = qs + (16 * L.slab + L.g) * G::kRowQ;
+  const float* q1 = q0 + 8 * G::kRowQ;
+  const uint32_t do_addr =
+      smem_addr(dos + (16 * L.slab + (L.lane & 15)) * G::kRowV + (L.lane >> 4) * 16);
+  DoFragments<T, G::kSliced ? 16 : DV> dof;  // unused at d 256
+  if constexpr (!G::kSliced) dof.load(a, b, h, L.row0, L.lane);
+  float lse[2], delta[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = L.row0 + L.g + 8 * hh;
+    lse[hh] = row < a.nq ? *at<float>(a.lse, b, h, row) : 0.f;
+    delta[hh] = row < a.nq ? *at<float>(a.delta, b, h, row) : 0.f;
+  }
+
+  float dq[DS / 8][4];
+#pragma unroll
+  for (int n = 0; n < DS / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  const int n_tiles = (a.nk + kTile - 1) / kTile;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (tile + 1 < n_tiles) load(tile + 1, (tile + 1) & 1);
+    fod::cp_async_commit();
+    fod::cp_async_wait_one();
+    __syncthreads();
+    const unsigned char* ks = smem + (tile & 1) * G::kStage;
+    const unsigned char* vs = ks + kTile * G::kRowK;
+    for (int jb = L.part * L.nt; jb < (L.part + 1) * L.nt; jb += L.np) {
+      float s[kPassN][4], ds[kPassN][4];
+      logits<T, D, G::kRowK>(s, q0, q1, ks, jb, L.np, L.t);
+      if constexpr (G::kSliced) {
+        v_dot<T, DV, G::kRowV>(ds, do_addr, L.np, vs, jb, L.lane);  // the same sums as do_vt
+      } else {
+        do_vt<T, DV, G::kRowV>(ds, dof, L.np, vs, jb, L.lane);
+      }
+      const int key0 = tile * kTile + 8 * jb + 2 * L.t;
+#pragma unroll
+      for (int jn = 0; jn < kPassN; ++jn) {
+        if (jn >= L.np) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * jn + (e & 1);
+          float d = ds[jn][e];
+          if (dp.active()) d *= fod::dropout_value(gbh, L.row0 + L.g + 8 * (e >> 1), key, dp);
+          const float p = expf(s[jn][e] - lse[e >> 1]);
+          s[jn][e] = key < a.nk ? p * (d - delta[e >> 1]) : 0.f;  // dlogits
+        }
+      }
+      product<T, DS, G::kRowK>(dq, s, L.np, ks + slice * DS * (int)sizeof(T), jb, L.lane);
+    }
+    __syncthreads();
+  }
+
+  if (split > 1) {  // sum the slab's parts into part 0: [warp][value][lane] in the stages
+    float* buf = reinterpret_cast<float*>(smem);
+    constexpr int kVals = DS / 2;
+    if (L.part > 0) {
+      float* w = buf + L.warp * kVals * 32 + L.lane;
+#pragma unroll
+      for (int n = 0; n < DS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[(4 * n + e) * 32] = dq[n][e];
+    }
+    __syncthreads();
+    if (L.part == 0) {
+      for (int p = 1; p < split; ++p) {
+        const float* w = buf + (L.warp + p * L.slabs) * kVals * 32 + L.lane;
+#pragma unroll
+        for (int n = 0; n < DS / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[n][e] += w[(4 * n + e) * 32];
+      }
+    }
+  }
+  if (L.part != 0) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = L.row0 + L.g + 8 * hh;
+    if (row >= a.nq) continue;
+    T* drow = at<T>(a.o0, b, h, row) + slice * DS + 2 * L.t;
+#pragma unroll
+    for (int n = 0; n < DS / 8; ++n)
+      store2<T>(drow + 8 * n, dq[n][2 * hh] * a.scale, dq[n][2 * hh + 1] * a.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
+
+// K6's shared memory: two stages of a 64-query tile (q and do rows in the storage type,
+// then lse and delta of its queries), q * scale as f32 rows for the logits (for f32 the
+// stage's q tile itself, scaled in place; apart for bf16, whose product takes q as
+// stored), then the block's keys: k rows as f32 and a 64-row tile of v as stored.
+template <typename T, int D, int DV>
+struct DkvGeometry {
+  using G = Geometry<T, D, DV>;
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kTile = G::kTile;                    // queries a staged tile
+  static constexpr int kRowQ = D * (int)sizeof(T) + kPad;   // bytes a staged q row
+  static constexpr int kRowDo = DV * (int)sizeof(T) + kPad; // bytes a staged do row
+  static constexpr int kRowV = DV * (int)sizeof(T) + kPad;  // bytes a staged v row
+  static constexpr int kRowS = D + kPad / 4;                // floats a q * scale or k row
+  static constexpr int kStage = kTile * (kRowQ + kRowDo) + 2 * kTile * 4;
+  static constexpr int kScaled = kF32 ? 0 : kTile * kRowS * 4;
+  static constexpr int kVRows = kMaxRows / G::kMinSplitGrad;  // v rows staged, a block's most
+  // bytes at `rows` keys a block (k rows as f32 for those, v staged as a kVRows-row tile)
+  static constexpr int smem(int rows) {
+    return 2 * kStage + kScaled + rows * kRowS * 4 + kVRows * kRowV;
+  }
+  // d 256: dk's slices of 128 columns, then dv's (grid z)
+  static constexpr int kSlicesD = D / G::kSliceD;
+  static constexpr int kSlices = G::kSliced ? kSlicesD + DV / G::kSliceV : 1;
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims");
+  static_assert(kThreads >= 2 * kTile, "a thread stages one lse or delta of a tile");
+  // the split's sum reuses the two stages: dk and dv a lane (d 256: one slice), kWarps x
+  // 32 lanes
+  static constexpr int kMergeVals = G::kSliced ? kMaxSlice / 2 : D / 2 + DV / 2;
+  static_assert(kWarps * 32 * kMergeVals * 4 <= 2 * kStage, "merge scratch");
+};
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+// Query tile `tile` into stage buf: its q and do rows (zero past nq) by 16-byte cp.async,
+// the lse and delta of its queries by 4-byte ones (zero past nq: a padded query's are
+// never read).
+template <typename T, int D, int DV>
+__device__ __forceinline__ void load_queries(unsigned char* smem, const TrainArgs& a, int b,
+                                             int h, int tile, int buf) {
+  using G = DkvGeometry<T, D, DV>;
+  constexpr int kTile = G::kTile;
+  unsigned char* st = smem + buf * G::kStage;
+  const int r0 = tile * kTile;
+  stage_rows<T, D, G::kRowQ, kTile>(st, at<T>(a.q, b, h, 0), a.q.sn, a.nq, r0);
+  stage_rows<T, DV, G::kRowDo, kTile>(st + kTile * G::kRowQ, at<T>(a.dout, b, h, 0), a.dout.sn,
+                                      a.nq, r0);
+  if (threadIdx.x >= 2 * kTile) return;
+  const int i = threadIdx.x % kTile, which = threadIdx.x / kTile;  // 0 lse, 1 delta
+  const bool real = r0 + i < a.nq;
+  float* dst = reinterpret_cast<float*>(st + kTile * (G::kRowQ + G::kRowDo)) + which * kTile + i;
+  cp_async4(smem_addr(dst), at<float>(which ? a.delta : a.lse, b, h, real ? r0 + i : 0),
+            real ? 4 : 0);
+}
+
+// The stage's q tile (pitch kRowQ bytes) as f32 times scale into qs (pitch kRowS floats):
+// the rounding every kernel's logits take. For f32, qs is the tile itself.
+template <typename T, int D, int kRowQ, int kRowS, int kTile>
+__device__ __forceinline__ void scale_queries(float* qs, const unsigned char* qt, float scale) {
+  constexpr int kChunks = D / 8;  // 8 elements a chunk
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    float x[8];
+    load8<T>(x, qt + r * kRowQ + c * (int)sizeof(T));
+    float4* d = reinterpret_cast<float4*>(qs + r * kRowS + c);
+    d[0] = make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+    d[1] = make_float4(x[4] * scale, x[5] * scale, x[6] * scale, x[7] * scale);
+  }
+}
+
+// K6's end at d 256: sum the slab's parts of its one slice (acc: 128 columns of dk or dv)
+// into part 0, then write them (dk times scale in bf16, as below).
+template <typename T, int D, int DV>
+__device__ __forceinline__ void sliced_dkv_epilogue(const TrainArgs& a, int b, int h,
+                                                    const Layout& L, int split,
+                                                    float (&acc)[kMaxSlice / 8][4],
+                                                    bool dk_slice, int col_d, int col_v,
+                                                    unsigned char* smem) {
+  if (split > 1) {  // [warp][value][lane] in the stages
+    float* buf = reinterpret_cast<float*>(smem);
+    constexpr int kVals = kMaxSlice / 2;
+    if (L.part > 0) {
+      float* w = buf + L.warp * kVals * 32 + L.lane;
+#pragma unroll
+      for (int n = 0; n < kMaxSlice / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[(4 * n + e) * 32] = acc[n][e];
+    }
+    __syncthreads();
+    if (L.part == 0) {
+      for (int p = 1; p < split; ++p) {
+        const float* w = buf + (L.warp + p * L.slabs) * kVals * 32 + L.lane;
+#pragma unroll
+        for (int n = 0; n < kMaxSlice / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += w[(4 * n + e) * 32];
+      }
+    }
+  }
+  if (L.part != 0) return;
+  const float mul = dk_slice && !std::is_same<T, float>::value ? a.scale : 1.f;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = L.row0 + L.g + 8 * hh;
+    if (key >= a.nk) continue;
+    T* row = dk_slice ? at<T>(a.o0, b, h, key) + col_d : at<T>(a.o1, b, h, key) + col_v;
+#pragma unroll
+    for (int n = 0; n < kMaxSlice / 8; ++n)
+      store2<T>(row + 8 * n + 2 * L.t, acc[n][2 * hh] * mul, acc[n][2 * hh + 1] * mul);
+  }
+}
+
 // K6 (redesigned for the tensor cores): K5 mirrored, keys in the place of queries. A block
 // of 4 warps; each warp owns a 16-key slab as the M rows of mma.sync and walks the queries
 // in 8-query n-tiles. The block stages its keys once (k as f32 for the logits, v as stored
@@ -803,16 +901,23 @@ template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, (Geometry<T, D, DV>::kMinBlocksGrad))
 train_dkv_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
   using G = DkvGeometry<T, D, DV>;
+  using GG = Geometry<T, D, DV>;
+  constexpr int kTile = G::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(split);  // rows are keys here, parts split the queries
+  const Layout L(split, GG::kTileN);  // rows are keys here, parts split the queries
   const int rows = 16 * L.slabs;
   float* kf = reinterpret_cast<float*>(smem + 2 * G::kStage + G::kScaled);
   unsigned char* vs = reinterpret_cast<unsigned char*>(kf + rows * G::kRowS);
   const int bh = blockIdx.y, b = bh / a.h, h = bh - b * a.h;
   const uint32_t gbh = dp.global_bh(bh);  // the mask's batch·head
+  // d 256: this block's output, dk's slice z (its 128 columns) or dv's slice z - kSlicesD
+  const int slice = blockIdx.z;
+  const bool dk_slice = slice < G::kSlicesD;
+  const int col_d = dk_slice ? slice * GG::kSliceD : 0;
+  const int col_v = dk_slice ? 0 : (slice - G::kSlicesD) * GG::kSliceV;
 
-  // v's 64 rows from the block's first key (past its `rows` keys they go unread)
-  stage_rows<T, DV, G::kRowV>(vs, at<T>(a.v, b, h, 0), a.v.sn, a.nk, L.row_base);
+  // v's kVRows rows from the block's first key (past its `rows` keys they go unread)
+  stage_rows<T, DV, G::kRowV, G::kVRows>(vs, at<T>(a.v, b, h, 0), a.v.sn, a.nk, L.row_base);
   load_queries<T, D, DV>(smem, a, b, h, 0, 0);
   fod::cp_async_commit();
   stage_f32<T, D>(kf, at<T>(a.k, b, h, 0), a.k.sn, a.nk, L.row_base, rows, 1.f);
@@ -821,37 +926,45 @@ train_dkv_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
   const uint32_t v_addr =
       smem_addr(vs + (16 * L.slab + (L.lane & 15)) * G::kRowV + (L.lane >> 4) * 16);
 
-  float dk[D / 8][4], dv[DV / 8][4];
+  // up to d 128 one block writes dk and dv; at d 256 one slice of 128 columns (acc)
+  float dk[D / 8][4], dv[DV / 8][4], acc[kMaxSlice / 8][4];  // dk, dv unused at d 256
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
 #pragma unroll
   for (int n = 0; n < DV / 8; ++n) dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kMaxSlice / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const int n_tiles = (a.nq + kTileK - 1) / kTileK;
+  const int n_tiles = (a.nq + kTile - 1) / kTile;
   for (int tile = 0; tile < n_tiles; ++tile) {
     if (tile + 1 < n_tiles) load_queries<T, D, DV>(smem, a, b, h, tile + 1, (tile + 1) & 1);
     fod::cp_async_commit();  // possibly empty: the wait below then covers this tile
     fod::cp_async_wait_one();
     __syncthreads();
     unsigned char* qt = smem + (tile & 1) * G::kStage;
-    const unsigned char* dos = qt + kTileK * G::kRowQ;
-    const float* lses = reinterpret_cast<const float*>(dos + kTileK * G::kRowDo);
-    const float* deltas = lses + kTileK;
+    const unsigned char* dos = qt + kTile * G::kRowQ;
+    const float* lses = reinterpret_cast<const float*>(dos + kTile * G::kRowDo);
+    const float* deltas = lses + kTile;
     float* qs = reinterpret_cast<float*>(G::kF32 ? qt : smem + 2 * G::kStage);
-    scale_queries<T, D, G::kRowQ, G::kRowS>(qs, qt, a.scale);
+    scale_queries<T, D, G::kRowQ, G::kRowS, kTile>(qs, qt, a.scale);
     __syncthreads();
     for (int jb = L.part * L.nt; jb < (L.part + 1) * L.nt; jb += L.np) {
       float s[kPassN][4], ds[kPassN][4];
       logits<float, D, G::kRowS * 4>(s, k0, k1, reinterpret_cast<const unsigned char*>(qs), jb,
                                      L.np, L.t);
-      v_dot<T, DV, G::kRowDo>(ds, v_addr, L.np, dos, jb, L.lane);
+      if (!GG::kSliced || dk_slice) {  // dv's slices need no dS
+        v_dot<T, DV, G::kRowDo>(ds, v_addr, L.np, dos, jb, L.lane);
+      } else {
+#pragma unroll
+        for (int jn = 0; jn < kPassN; ++jn) ds[jn][0] = ds[jn][1] = ds[jn][2] = ds[jn][3] = 0.f;
+      }
       const int col0 = 8 * jb + 2 * L.t;  // the lane's query of n-tile 0, in the tile
 #pragma unroll
       for (int jn = 0; jn < kPassN; ++jn) {
         if (jn >= L.np) continue;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = col0 + 8 * jn + (e & 1), query = tile * kTileK + col;
+          const int col = col0 + 8 * jn + (e & 1), query = tile * kTile + col;
           const int key = L.row0 + L.g + 8 * (e >> 1);
           float p = 0.f, dl = 0.f;
           if (query < a.nq && key < a.nk) {
@@ -870,10 +983,22 @@ train_dkv_kernel(const TrainArgs a, const fod::Dropout dp, int split) {
           ds[jn][e] = dl;  // dlogits^T
         }
       }
-      product<T, DV, G::kRowDo>(dv, s, L.np, dos, jb, L.lane);
-      product<T, D, G::kRowQ>(dk, ds, L.np, qt, jb, L.lane);
+      if constexpr (GG::kSliced) {
+        if (dk_slice) {
+          product<T, kMaxSlice, G::kRowQ>(acc, ds, L.np, qt + col_d * (int)sizeof(T), jb, L.lane);
+        } else {
+          product<T, kMaxSlice, G::kRowDo>(acc, s, L.np, dos + col_v * (int)sizeof(T), jb, L.lane);
+        }
+      } else {
+        product<T, DV, G::kRowDo>(dv, s, L.np, dos, jb, L.lane);
+        product<T, D, G::kRowQ>(dk, ds, L.np, qt, jb, L.lane);
+      }
     }
     __syncthreads();  // the next iteration refills this stage
+  }
+  if constexpr (GG::kSliced) {
+    sliced_dkv_epilogue<T, D, DV>(a, b, h, L, split, acc, dk_slice, col_d, col_v, smem);
+    return;
   }
 
   if (split > 1) {  // sum the slab's parts into part 0: [warp][value][lane] in the stages
@@ -969,20 +1094,31 @@ struct Launch {
   int threads, smem, split;
 };
 
+// The split (within the geometry's bounds: d 256's 32-row tiles cap it, and f32 256/256
+// takes 32 rows a block in K5 and K6), the grid (z: the output's column slices) and the
+// shared memory of a launch.
 template <typename T, int D, int DV>
 Launch plan(Which which, int bh, int nq, int nk) {
-  const int split = split_for(which == kDkv ? nk : nq, bh);
+  using G = Geometry<T, D, DV>;
+  int split = split_for(which == kDkv ? nk : nq, bh);
+  split = split > G::kMaxSplit ? G::kMaxSplit : split;
+  if (which != kFwd && split < G::kMinSplitGrad) split = G::kMinSplitGrad;
   const int rows = 16 * (kWarps / split);
   if (which == kDkv)
-    return {dim3((nk + rows - 1) / rows, bh), kThreads, DkvGeometry<T, D, DV>::smem(rows), split};
-  return {dim3((nq + rows - 1) / rows, bh), kThreads, Geometry<T, D, DV>::kSmem, split};
+    return {dim3((nk + rows - 1) / rows, bh, DkvGeometry<T, D, DV>::kSlices), kThreads,
+            DkvGeometry<T, D, DV>::smem(rows), split};
+  if (which == kFwd)
+    return {dim3((nq + rows - 1) / rows, bh, DV / G::kSliceV), kThreads, G::kSmemFwd, split};
+  return {dim3((nq + rows - 1) / rows, bh, D / G::kSliceD), kThreads, G::kSmem, split};
 }
 
 // The most dynamic shared memory a launch of the kernel takes (K6's shrinks with its split).
 template <typename T, int D, int DV>
 int max_smem(Which which) {
-  static_assert(DkvGeometry<T, D, DV>::smem(kMaxRows) <= 232448, "a block's shared memory");
-  return which == kDkv ? DkvGeometry<T, D, DV>::smem(kMaxRows) : Geometry<T, D, DV>::kSmem;
+  using K6 = DkvGeometry<T, D, DV>;
+  static_assert(K6::smem(K6::kVRows) <= 232448, "a block's shared memory");
+  if (which == kDkv) return K6::smem(K6::kVRows);
+  return which == kFwd ? Geometry<T, D, DV>::kSmemFwd : Geometry<T, D, DV>::kSmem;
 }
 
 template <typename T, int D, int DV>
@@ -1045,9 +1181,10 @@ int info(Which which, int bh, int nq, int nk, int* out) {
 }
 
 // The head dims of ops/flash_attention.py's SUPPORTED_HEAD_DIMS, as K1 takes them
-// (flash_attention.cu); the wrappers zero-pad any other pair up to 128 onto the
+// (flash_attention.cu); the wrappers zero-pad any other pair up to 256 onto the
 // smallest of them that holds it. At (128, 128) in f32 K6 takes 203,776 bytes of shared
-// memory a block and K4/K5 168,960, of the 232,448 a block may have.
+// memory a block and K4/K5 168,960, of the 232,448 a block may have; at d 256 the
+// geometry's 32-row tiles and slices keep every kernel near 200,000 (Geometry).
 template <typename T, typename F>
 int dispatch_dims(int d, int dv, const F& f) {
   if (d == 32 && dv == 32) return f(std::integral_constant<int, 32>{}, std::integral_constant<int, 32>{});
@@ -1057,6 +1194,8 @@ int dispatch_dims(int d, int dv, const F& f) {
   if (d == 64 && dv == 64) return f(std::integral_constant<int, 64>{}, std::integral_constant<int, 64>{});
   if (d == 128 && dv == 64) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 64>{});
   if (d == 128 && dv == 128) return f(std::integral_constant<int, 128>{}, std::integral_constant<int, 128>{});
+  if (d == 256 && dv == 128) return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 128>{});
+  if (d == 256 && dv == 256) return f(std::integral_constant<int, 256>{}, std::integral_constant<int, 256>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,7 +6,13 @@
 //
 // A block of 4 warps owns 64 query rows of one batch*head, 16 rows a warp, in the
 // fragment layout of mma.sync (m16n8k16 for bf16, m16n8k8 for tf32), its q fragments
-// in registers for the whole call. The block walks the keys in steps of 64-key tiles,
+// in registers for the whole call up to d 128; at d 256 (64 registers a thread of bf16
+// fragments, 256 of f32's big and small parts) q is staged once in shared memory and
+// each key tile ldmatrix'es its fragments, a 32-column chunk at a time. Above dv 128 a
+// block owns 128 of the output's columns (grid z: the slice), so its accumulators stay
+// at dv 128's; each slice recomputes the logits and the softmax, bit for bit alike.
+// The block walks the keys in steps of 64-key tiles (32 for f32 at d 256, to fit the
+// staged q beside two stages),
 // double-buffered in shared memory by cp.async (16 bytes a copy; rows padded by 16
 // bytes so that ldmatrix and the f32 v reads hit 32 distinct banks). Per tile and
 // warp: S = q k^T as 16 x 64 f32 accumulators (k fragments by ldmatrix), then the
@@ -37,9 +43,8 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBlockQ = 16 * kWarps;    // query rows per block, 16 a warp
-constexpr int kBlockK = 64;             // keys per shared-memory tile
-constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of 8 keys in S
 constexpr int kPad = 16;                // bytes of padding after each staged row
+constexpr int kMaxSlice = 128;          // output columns a block at most (grid z above)
 
 enum Mode : int { kDots = 0, kUnsafe = 1, kBf16Softmax = 2, kFull = 3 };
 
@@ -48,10 +53,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int D, int DV>
 struct Geometry {
-  static constexpr int kRowK = D * (int)sizeof(T) + kPad;   // bytes a staged k row
-  static constexpr int kRowV = DV * (int)sizeof(T) + kPad;  // bytes a staged v row
+  // q staged in shared memory (d 256) rather than held in registers
+  static constexpr bool kQSmem = D > 128;
+  // keys a staged tile: f32 at d 256 takes 32 so that two stages and q fit
+  static constexpr int kBlockK = std::is_same<T, float>::value && D > 128 ? 32 : 64;
+  static constexpr int kKeyTiles = kBlockK / 8;             // n-tiles of 8 keys in S
+  static constexpr int kSliceV = DV > kMaxSlice ? kMaxSlice : DV;  // output columns a block
+  static constexpr int kSlices = DV / kSliceV;              // grid z
+  static constexpr int kRowK = D * (int)sizeof(T) + kPad;   // bytes a staged k (or q) row
+  static constexpr int kRowV = kSliceV * (int)sizeof(T) + kPad;  // bytes a staged v row
   static constexpr int kStage = kBlockK * (kRowK + kRowV);  // bytes a k + v tile
-  static constexpr int kSmem = 2 * kStage;                  // double-buffered
+  static constexpr int kQBytes = kQSmem ? kBlockQ * kRowK : 0;
+  static constexpr int kSmem = 2 * kStage + kQBytes;        // double-buffered, then q
   // Resident blocks an SM the registers must allow. The flagship grid, 704 blocks of
   // d 32, is one wave of 132 SMs at 6 an SM (792 slots) and two at 5 (660), so bf16
   // d 32 is held to 80 registers; f32 takes two waves at 3 or 4. Past d + dv = 128
@@ -60,7 +73,8 @@ struct Geometry {
   static constexpr bool kWide = D + DV > 128;
   static constexpr int kMinBlocks =
       kWide ? 1 : std::is_same<T, float>::value ? (D <= 32 ? 3 : 2) : (D <= 32 ? 6 : 4);
-  static_assert(D % 16 == 0 && DV % 16 == 0, "head dims");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DV % kSliceV == 0, "head dims");
+  static_assert(kSmem <= 232448, "a block's shared memory");
 };
 
 using fod::cp_async16;
@@ -97,34 +111,36 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 __device__ __forceinline__ float bf16r(float x) { return fod::round_to<__nv_bfloat16>(x); }
 
-// Copy rows k0 .. k0 + kBlockK of one (rows, width)-element array into a staged tile
-// (row stride kRow bytes) in 16-byte pieces; rows past n are zero-filled. 128 is a
-// multiple of the pieces a row, so each thread copies one fixed piece of every
-// (kThreads / pieces)-th row, a count known at compile time.
-template <typename T, int kWidth, int kRow>
+// Copy rows k0 .. k0 + kRows of one array (kLd elements a row) into a staged tile (kWidth
+// elements of each row from src, row stride kRow bytes) in 16-byte pieces; rows past n
+// are zero-filled. 128 is a multiple of the pieces a row, so each thread copies one
+// fixed piece of every (kThreads / pieces)-th row, a count known at compile time.
+template <typename T, int kWidth, int kRow, int kRows, int kLd = kWidth>
 __device__ __forceinline__ void stage_rows(unsigned char* dst, const T* src, int n, int k0) {
   constexpr int kPieces = kWidth * (int)sizeof(T) / 16;  // a row
   constexpr int kRowsApart = kThreads / kPieces;
-  static_assert(kThreads % kPieces == 0 && kBlockK % kRowsApart == 0, "tile copy");
+  static_assert(kThreads % kPieces == 0 && kRows % kRowsApart == 0, "tile copy");
   const int piece = threadIdx.x % kPieces, r0 = threadIdx.x / kPieces;
   const char* base = reinterpret_cast<const char*>(src) + piece * 16;
 #pragma unroll
-  for (int i = 0; i < kBlockK / kRowsApart; ++i) {
+  for (int i = 0; i < kRows / kRowsApart; ++i) {
     const int r = r0 + i * kRowsApart;
     const bool real = k0 + r < n;
     cp_async16(smem_addr(dst + r * kRow + piece * 16),
-               base + (size_t)(real ? k0 + r : 0) * kWidth * sizeof(T), real ? 16 : 0);
+               base + (size_t)(real ? k0 + r : 0) * kLd * sizeof(T), real ? 16 : 0);
   }
 }
 
-// Stage the key tile from key k0 (k rows, and v rows unless with_v is false) into `stage`.
+// Stage the key tile from key k0 (k rows, and v rows unless with_v is false) into
+// `stage`; vb points at the block's slice of v's columns.
 template <typename T, int D, int DV>
 __device__ __forceinline__ void load_tile(unsigned char* smem, const T* kb, const T* vb,
                                           int nk, int k0, int stage, bool with_v) {
   using G = Geometry<T, D, DV>;
   unsigned char* ks = smem + stage * G::kStage;
-  stage_rows<T, D, G::kRowK>(ks, kb, nk, k0);
-  if (with_v) stage_rows<T, DV, G::kRowV>(ks + kBlockK * G::kRowK, vb, nk, k0);
+  stage_rows<T, D, G::kRowK, G::kBlockK>(ks, kb, nk, k0);
+  if (with_v)
+    stage_rows<T, G::kSliceV, G::kRowV, G::kBlockK, DV>(ks + G::kBlockK * G::kRowK, vb, nk, k0);
 }
 
 // q[row][col] of one batch*head times mul as f32, rounded to bf16 when kRound (the
@@ -144,8 +160,9 @@ __device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qb, int nq, int 
                    q_at<__nv_bfloat16, D, kRound>(qb, nq, row, col + 1, mul));
 }
 
-// The walk over the keys as steps of one 64-key tile each: K1, kDots and kUnsafe take
-// one pass over [0, end); kBf16Softmax two passes over each TPU block of block_k keys.
+// The walk over the keys as steps of one tile of kTile keys each: K1, kDots and kUnsafe
+// take one pass over [0, end); kBf16Softmax two passes over each TPU block of block_k keys.
+template <int kTile>
 struct Walk {
   int end, per_pass, steps;
   bool two_pass;
@@ -153,18 +170,18 @@ struct Walk {
   __device__ __forceinline__ Walk(int mode, int nk, int nk_pad, int block_k) {
     two_pass = mode == kBf16Softmax;
     end = mode == kFull ? nk : nk_pad;
-    per_pass = ((two_pass ? block_k : end) + kBlockK - 1) / kBlockK;
+    per_pass = ((two_pass ? block_k : end) + kTile - 1) / kTile;
     steps = two_pass ? (nk_pad / block_k) * 2 * per_pass : per_pass;
   }
   // the step's first key, its keys' end (exclusive), and its pass (0 or 1)
   __device__ __forceinline__ void at(int step, int block_k, int& k0, int& k1, int& pass) const {
     if (!two_pass) {
-      k0 = step * kBlockK, k1 = end, pass = 1;
+      k0 = step * kTile, k1 = end, pass = 1;
       return;
     }
     const int blk = step / (2 * per_pass), r = step % (2 * per_pass);
     pass = r / per_pass;
-    k0 = blk * block_k + (r % per_pass) * kBlockK;
+    k0 = blk * block_k + (r % per_pass) * kTile;
     k1 = (blk + 1) * block_k;
   }
 };
@@ -175,15 +192,17 @@ flash_attention_kernel(const Args<T> a) {
   using G = Geometry<T, D, DV>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr bool kFloor = MODE != kFull;
+  constexpr int kBlockK = G::kBlockK, kKeyTiles = G::kKeyTiles, kSliceV = G::kSliceV;
+  static_assert(!(kFloor && G::kQSmem), "the floor modes keep q in registers");
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y, slice = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in quad
   const int row0 = blockIdx.x * kBlockQ + warp * 16;
   const int nq = a.nq, nk = a.nk;
   const T* kb = a.k + (size_t)bh * nk * D;
-  const T* vb = a.v + (size_t)bh * nk * DV;
+  const T* vb = a.v + (size_t)bh * nk * DV + slice * kSliceV;
   // K1: a negative scale is folded into q (exact), so the max is taken of s * |scale|.
   // The floor modes: q' = bf16(q * scale * log2 e), the logits already in log2 units.
   const float c = fabsf(a.scale_log2);
@@ -195,9 +214,19 @@ flash_attention_kernel(const Args<T> a) {
   const T* qb = a.q + (size_t)bh * nq * D;
   const int r0 = row0 + g, r1 = row0 + g + 8;
   constexpr int kSteps = kF32 ? D / 8 : D / 16;
-  uint32_t qa[kSteps][4], qs[kF32 && !kFloor ? kSteps : 1][4];
+  uint32_t qa[kSteps][4], qs[kF32 && !kFloor ? kSteps : 1][4];  // unused at d 256
+  // d 256: the block's q rows times mul (+-1: exact) in the storage type, once
+  unsigned char* qsm = smem + 2 * G::kStage;
+  if constexpr (G::kQSmem) {
+    const int qrow0 = blockIdx.x * kBlockQ;
+    for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
+      const int r = i / D, col = i % D;
+      reinterpret_cast<T*>(qsm + r * G::kRowK)[col] =
+          fod::from_float<T>(q_at<T, D, false>(qb, nq, qrow0 + r, col, mul));
+    }
+  }
 #pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
+  for (int ks = 0; ks < (G::kQSmem ? 0 : kSteps); ++ks) {
     if constexpr (kF32) {
       const int col = 8 * ks + t;
       const float x[4] = {q_at<T, D, kFloor>(qb, nq, r0, col, mul),
@@ -221,16 +250,16 @@ flash_attention_kernel(const Args<T> a) {
     }
   }
 
-  float o[DV / 8][4];
+  float o[kSliceV / 8][4];
 #pragma unroll
-  for (int n = 0; n < DV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < kSliceV / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   // rows g and g + 8: K1's running max (unscaled), kBf16Softmax's (bf16, log2 units)
   float row_max[2];
   row_max[0] = row_max[1] = MODE == kBf16Softmax ? bf16r(-30000.f) : -INFINITY;
   float row_sum[2] = {0.f, 0.f};  // this thread's columns only (kBf16Softmax: the row's)
   float blk[2] = {-INFINITY, -INFINITY};  // kBf16Softmax: the block's max, then its sum
 
-  const Walk walk(MODE, nk, a.nk_pad, a.block_k);
+  const Walk<kBlockK> walk(MODE, nk, a.nk_pad, a.block_k);
   int k0, k1, pass;
   walk.at(0, a.block_k, k0, k1, pass);
   load_tile<T, D, DV>(smem, kb, vb, nk, k0, 0, pass == 1);
@@ -251,8 +280,43 @@ flash_attention_kernel(const Args<T> a) {
     // S = q k^T: kKeyTiles n-tiles of 8 keys. ldmatrix.x4 brings 4 16-byte
     // chunks of 8 key rows: lanes 8m..8m+7 address chunk m of rows 0..7.
     float s[kKeyTiles][4];
+    if constexpr (G::kQSmem) {
+      // q's fragments of two k-steps a 64-byte chunk by ldmatrix (row lane & 15, 16 bytes
+      // on for lanes 16-31: the bf16 A fragment of 16 columns, or read as f32 bits the
+      // tf32 one of 8), then every key n-tile's: the same chain a logit as held fragments
+      const uint32_t qrow = smem_addr(qsm + (warp * 16 + (lane & 15)) * G::kRowK + (lane >> 4) * 16);
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
+      for (int j = 0; j < kKeyTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 1
+      for (int ch = 0; ch < D * (int)sizeof(T) / 64; ++ch) {
+        uint32_t qf[2][4], qsf[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          ldmatrix_x4(qf[h], qrow + ch * 64 + h * 32);
+          if constexpr (kF32) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(qf[h][e]), qf[h][e], qsf[h][e]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j) {
+          uint32_t b[4];
+          ldmatrix_x4(b, smem_addr(ks + (8 * j + (lane & 7)) * G::kRowK + (lane >> 3) * 16 + ch * 64));
+          if constexpr (kF32) {
+            uint32_t bb[4], bs[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(b[e]), bb[e], bs[e]);
+            mma_3xtf32(s[j], qf[0], qsf[0], bb[0], bb[1], bs[0], bs[1]);
+            mma_3xtf32(s[j], qf[1], qsf[1], bb[2], bb[3], bs[2], bs[3]);
+          } else {
+            mma_bf16(s[j], qf[0], b[0], b[1]);
+            mma_bf16(s[j], qf[1], b[2], b[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < (G::kQSmem ? 0 : kKeyTiles); ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       const unsigned char* krow = ks + (8 * j + (lane & 7)) * G::kRowK + (lane >> 3) * 16;
 #pragma unroll
@@ -339,7 +403,7 @@ flash_attention_kernel(const Args<T> a) {
             blk[h] = 0.f;  // now the block's sum of p
           }
 #pragma unroll
-          for (int n = 0; n < DV / 8; ++n)
+          for (int n = 0; n < kSliceV / 8; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
         }
@@ -378,7 +442,7 @@ flash_attention_kernel(const Args<T> a) {
       // The tile's P v goes to a fresh accumulator, added to O on the CUDA cores
       // (round to nearest): the tensor cores' f32 sums truncate, and one chain of
       // 24 mma a tile through every key tile lets that bias grow (flash_attention.cu).
-      float pv[DV / 8][4] = {};
+      float pv[kSliceV / 8][4] = {};
 #pragma unroll
       for (int j = 0; j < kKeyTiles; ++j) {
         // A slots (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4) hold keys
@@ -391,7 +455,7 @@ flash_attention_kernel(const Args<T> a) {
         const float* v0 = reinterpret_cast<const float*>(vs + (8 * j + 2 * t) * G::kRowV);
         const float* v1 = reinterpret_cast<const float*>(vs + (8 * j + 2 * t + 1) * G::kRowV);
 #pragma unroll
-        for (int n = 0; n < DV / 8; ++n) {
+        for (int n = 0; n < kSliceV / 8; ++n) {
           uint32_t b0b, b0s, b1b, b1s;
           split_tf32(v0[8 * n + g], b0b, b0s);
           split_tf32(v1[8 * n + g], b1b, b1s);
@@ -404,13 +468,13 @@ flash_attention_kernel(const Args<T> a) {
         }
       }
 #pragma unroll
-      for (int n = 0; n < DV / 8; ++n)
+      for (int n = 0; n < kSliceV / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], corr[e >> 1], pv[n][e]);
     } else {
       if constexpr (MODE == kFull) {
 #pragma unroll
-        for (int n = 0; n < DV / 8; ++n)
+        for (int n = 0; n < kSliceV / 8; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
       }
@@ -433,7 +497,7 @@ flash_attention_kernel(const Args<T> a) {
         const unsigned char* vrow =
             vs + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * G::kRowV + (lane >> 4) * 16;
 #pragma unroll
-        for (int n2 = 0; n2 < DV / 16; ++n2) {
+        for (int n2 = 0; n2 < kSliceV / 16; ++n2) {
           uint32_t b[4];
           ldmatrix_x4_trans(b, smem_addr(vrow + n2 * 32));
           if constexpr (!kFloor) mma_bf16(o[2 * n2], pl, b[0], b[1]);
@@ -472,9 +536,9 @@ flash_attention_kernel(const Args<T> a) {
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
     if (row >= nq) continue;
-    T* orow = a.out + ((size_t)bh * nq + row) * DV + 2 * t;
+    T* orow = a.out + ((size_t)bh * nq + row) * DV + slice * kSliceV + 2 * t;
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
+    for (int n = 0; n < kSliceV / 8; ++n) {
       const float x0 = o[n][2 * h] * inv[h], x1 = o[n][2 * h + 1] * inv[h];
       if constexpr (kF32) {
         *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
@@ -499,7 +563,7 @@ template <typename T, int D, int DV, int MODE>
 int launch(const Args<T>& a, int bh, cudaStream_t stream) {
   const cudaError_t err = prepare<T, D, DV, MODE>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.nq + kBlockQ - 1) / kBlockQ, bh);
+  const dim3 grid((a.nq + kBlockQ - 1) / kBlockQ, bh, Geometry<T, D, DV>::kSlices);
   flash_attention_kernel<T, D, DV, MODE>
       <<<grid, kThreads, Geometry<T, D, DV>::kSmem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -85,13 +85,13 @@ KERNELS: Dict[str, Dict[str, list]] = {
         "fod_attention_floor_info": [_I, _I, _P],
     },
     "bottleneck_variants": {
-        # x, w1, b1, w2, b2, w3, b3, wd, bd, out, B, H, W, cin, cmid, cout, tile_h,
-        # im2col, dtype, stream
-        "fod_bottleneck_v2": [_P] * 10 + [_I] * 9 + [_P],
-        # x, 24 weight pointers, out, scratch, grid, B, H, W, cin, tile_h, dtype, stream
-        "fod_fused_layer1": [_P] * 4 + [_I] * 7 + [_P],
-        # layer1, tile_h, cmid, im2col, dtype, int[4] out (launches nothing)
-        "fod_bottleneck_plan": [_I] * 5 + [_P],
+        # x, w1, b1, w2, b2, w3, b3, wd, bd, w1t, w2t, out, B, H, W, cin, cmid, cout,
+        # tile_h, im2col, dtype, stream
+        "fod_bottleneck_v2": [_P] * 12 + [_I] * 9 + [_P],
+        # x, 30 weight pointers, out, B, H, W, cin, tile_h, dtype, stream
+        "fod_fused_layer1": [_P] * 3 + [_I] * 6 + [_P],
+        # layer1, tile_h, cmid, im2col, downsample, dtype, int[8] out (launches nothing)
+        "fod_bottleneck_plan": [_I] * 6 + [_P],
     },
     # q, w, zp, sw, bias, out, B, H, W, Cin, Ho, Wo, Cout, KH, KW, sh, sw, pt, pl, dh,
     # dw, Kp, pad_value, relu, dtype, stream

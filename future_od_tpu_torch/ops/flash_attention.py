@@ -61,12 +61,14 @@ LOG2E = 1.4426950408889634
 # cross-attention's concat heads 64/32, the same at heads of 16
 # (runs/nuim_single_frame.py --debug: hidden 64 over 4 heads) 16/16 and 32/16,
 # an encoder's heads of 64 (hidden 512 over 8 heads) 64/64 and that config's
-# concat heads 128/64, and heads of 128, 128/128. The wrappers take any pair
-# up to MAX_HEAD_DIM on the card by zero-padding it onto the smallest built
-# pair that holds it (`kernel_head_dims`); above it they raise. They never
-# take the plain version there.
-SUPPORTED_HEAD_DIMS = ((32, 32), (64, 32), (16, 16), (32, 16), (64, 64), (128, 64), (128, 128))
-MAX_HEAD_DIM = 128
+# concat heads 128/64, heads of 128, 128/128, the concat heads of heads of 128
+# (hidden 1024 over 8 heads) 256/128, and heads of 256, 256/256. The wrappers
+# take any pair up to MAX_HEAD_DIM on the card by zero-padding it onto the
+# smallest built pair that holds it (`kernel_head_dims`); above it they raise
+# (no config of the family reaches it). They never take the plain version there.
+SUPPORTED_HEAD_DIMS = ((32, 32), (64, 32), (16, 16), (32, 16), (64, 64), (128, 64), (128, 128),
+                       (256, 128), (256, 256))
+MAX_HEAD_DIM = 256
 
 
 def kernel_head_dims(d: int, dv: int, name: str = NAME) -> Tuple[int, int]:

@@ -15,8 +15,9 @@
 - `fused_bottleneck_v2` and `fused_layer1` launch `csrc/bottleneck_variants.cu`,
   which replaces the kernel-study tool's `_v2_kernel` and `_v3_kernel`
   (tools/bench_fused_bottleneck.py): the bottleneck with a choice of row tile
-  and of im2col for the 3x3, and all of layer1's three chained bottlenecks in
-  one kernel.
+  and of the 3x3's reduction order (im2col), and all of layer1's three chained
+  bottlenecks in one kernel with the chain on chip. Both run K2's tile stages
+  (`csrc/bottleneck_tile.cuh`) on the tensor cores.
 
 All take NHWC tensors and HWIO / (in, out) weights as the JAX functions do.
 On CPU tensors they run `bottleneck_plain` / `stem_plain` / `layer1_plain`,
@@ -45,8 +46,8 @@ BOTTLENECK_COUT_STEP = 128  # output channels a pass of the kernel (bf16; f32 64
 BOTTLENECK_CIN_STEP = 64  # its staged reduction chunk (bf16; f32 32)
 VARIANTS = "bottleneck_variants"
 V2_CMIDS = (64, 128, 256)  # widths fod_bottleneck_v2 is instantiated for
-V2_CIN_STEP = 16  # the reduction slice of the variants' block GEMM
-LAYER1_CMID, LAYER1_COUT, LAYER1_BLOCKS = 64, 256, 3  # the shape fod_fused_layer1 takes
+# the shape fod_fused_layer1 takes: layer1's input from the stem, 64 channels
+LAYER1_CIN, LAYER1_CMID, LAYER1_COUT, LAYER1_BLOCKS = 64, 64, 256, 3
 STEM_CIN, STEM_COUT = 12, 64
 STEM_TAPS = 7 * 7 * 3  # taps of the 7x7/2 conv; the s2d 4x4 kernel's other 45 are zeros
 STEM_K = 16 * STEM_CIN  # the s2d kernel's reduction rows, (dy, dx, c) order: 192
@@ -229,15 +230,19 @@ def fused_bottleneck_info(cmid: int, dtype: torch.dtype, downsample: bool) -> Di
 
 
 def bottleneck_plan(layer1: bool, tile_h: int, cmid: int, im2col: bool,
-                    dtype: torch.dtype) -> Dict[str, int]:
+                    dtype: torch.dtype, downsample: bool = False) -> Dict[str, int]:
     """How `fused_bottleneck_v2` (layer1 False) or `fused_layer1` (True)
     lays out a launch on the current card: the column tile a block owns with
-    its tile_h rows, the patch-matrix columns staged at once (0: nine tap
-    products), shared memory bytes a block, and blocks resident at once."""
-    out = (ctypes.c_int * 4)()
+    its tile_h rows, the 3x3's reduction rows a chain (k_chunk: 9 cmid with
+    im2col, cmid for nine tap chains), shared memory bytes a block, blocks
+    resident at once, the rows of a band (a block computes its tile_h rows
+    band_h at a time), and the kernel's registers, local (spill) bytes a
+    thread and blocks an SM."""
+    out = (ctypes.c_int * 8)()
     _kernels.call(VARIANTS, "fod_bottleneck_plan", int(layer1), tile_h, cmid, int(im2col),
-                  _kernels.DTYPE_CODES[dtype], ctypes.addressof(out))
-    return dict(zip(("tile_w", "k_chunk", "smem_bytes", "resident_blocks"), out))
+                  int(downsample), _kernels.DTYPE_CODES[dtype], ctypes.addressof(out))
+    return dict(zip(("tile_w", "k_chunk", "smem_bytes", "resident_blocks", "band_h",
+                     "registers", "local_bytes", "blocks_per_sm"), out))
 
 
 def fused_bottleneck_v2(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, tile_h: int = 8,
@@ -245,18 +250,20 @@ def fused_bottleneck_v2(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, tile_h: int
     """`fused_bottleneck`'s function (its plain version is `bottleneck_plain`),
     with the study tool's choices: a block owns tile_h output rows (by a
     column tile `bottleneck_plan` gives), and the 3x3 runs as one product
-    over a patch matrix staged in shared memory (im2col) or as 9 tap
-    products. cmid 64, 128 or 256."""
+    chain over its 9 cmid reduction rows (im2col) or as 9 tap chains summed
+    in f32. cmid 64, 128 or 256. The weights are packed at each call
+    (`pack_bottleneck`: in bf16, w1 and w2 transposed too)."""
     if x.device.type == "cpu":
         return bottleneck_plain(x, w1, b1, w2, b2, w3, b3, wd, bd)
     name = "bottleneck_v2"
-    _check_bottleneck(name, x.shape[3], x.dtype, w1, w2, w3, wd, bd, V2_CMIDS, V2_CIN_STEP)
+    _check_bottleneck(name, x.shape[3], x.dtype, w1, w2, w3, wd, bd, V2_CMIDS,
+                      BOTTLENECK_CIN_STEP)
     if tile_h <= 0:
         raise ValueError(f"{name}: tile_h {tile_h}")
     B, H, W, cin = x.shape
     cmid, cout = w1.shape[1], w3.shape[1]
     x = x.contiguous()
-    ops = _bottleneck_operands(x.dtype, w1, b1, w2, b2, w3, b3, wd, bd)
+    ops = list(pack_bottleneck(x.dtype, w1, b1, w2, b2, w3, b3, wd, bd))
     _kernels.check_cuda_operands(name, x, *(t for t in ops if t is not None))
     out = torch.empty((B, H, W, cout), dtype=x.dtype, device=x.device)
     _kernels.call(
@@ -283,42 +290,38 @@ def layer1_plain(x, blocks) -> torch.Tensor:
 
 
 def fused_layer1(x, blocks, tile_h: int = 8) -> torch.Tensor:
-    """ResNet-50 layer1 in one kernel: x (B, H, W, cin) through three chained
+    """ResNet-50 layer1 in one kernel: x (B, H, W, 64) through three chained
     stride-1 bottlenecks (`blocks`: dicts w1, b1, w2 (3, 3, 64, 64), b2, w3,
     b3, and wd, bd in block 0 only; cmid 64, cout 256), each block's output
     rounded to x's dtype. A block of the kernel owns tile_h output rows by
-    `bottleneck_plan`'s column tile; the two inner outputs live in a scratch
-    this wrapper allocates, one region per resident block."""
+    `bottleneck_plan`'s column tile, computed in bands of its band_h rows
+    with the two inner outputs in shared memory."""
     if x.device.type == "cpu":
         return layer1_plain(x, blocks)
     name = "fused_layer1"
     if len(blocks) != LAYER1_BLOCKS or "wd" not in blocks[0] or any("wd" in b for b in blocks[1:]):
         raise ValueError(f"{name}: want {LAYER1_BLOCKS} blocks, a downsample in block 0 only")
     cin = x.shape[3]
+    if cin != LAYER1_CIN:
+        raise ValueError(f"{name}: x has {cin} channels; want layer1's {LAYER1_CIN}")
     for i, bk in enumerate(blocks):
         _check_bottleneck(name, cin if i == 0 else LAYER1_COUT, x.dtype, bk["w1"], bk["w2"],
-                          bk["w3"], bk.get("wd"), bk.get("bd"), (LAYER1_CMID,), V2_CIN_STEP)
+                          bk["w3"], bk.get("wd"), bk.get("bd"), (LAYER1_CMID,),
+                          BOTTLENECK_CIN_STEP)
         if bk["w3"].shape[1] != LAYER1_COUT:
             raise ValueError(f"{name}: block {i} cout {bk['w3'].shape[1]}; want {LAYER1_COUT}")
     if tile_h <= 0:
         raise ValueError(f"{name}: tile_h {tile_h}")
     B, H, W, _ = x.shape
     x = x.contiguous()
-    ops = [t for bk in blocks for t in _bottleneck_operands(x.dtype, *_block_args(bk))]
+    ops = [t for bk in blocks for t in pack_bottleneck(x.dtype, *_block_args(bk))]
     _kernels.check_cuda_operands(name, x, *(t for t in ops if t is not None))
-    plan = bottleneck_plan(True, tile_h, LAYER1_CMID, True, x.dtype)
-    tw = plan["tile_w"]
-    tiles = B * -(-H // tile_h) * -(-W // tw)
-    grid = min(tiles, plan["resident_blocks"])
-    per_block = ((tile_h + 4) * (tw + 4) + (tile_h + 2) * (tw + 2)) * LAYER1_COUT
-    scratch = torch.empty(grid * per_block, dtype=x.dtype, device=x.device)
     weights = (ctypes.c_void_p * len(ops))(*(_ptr(t) for t in ops))
     out = torch.empty((B, H, W, LAYER1_COUT), dtype=x.dtype, device=x.device)
     _kernels.call(
         VARIANTS, "fod_fused_layer1",
-        x.data_ptr(), ctypes.addressof(weights), out.data_ptr(), scratch.data_ptr(), grid,
-        B, H, W, cin, tile_h, _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x),
-        device=x.device,
+        x.data_ptr(), ctypes.addressof(weights), out.data_ptr(), B, H, W, cin, tile_h,
+        _kernels.DTYPE_CODES[x.dtype], _kernels.stream_of(x), device=x.device,
     )
     _kernels.launch_counts[name] += 1
     return out

@@ -14,9 +14,10 @@ section (relmax: max |Δ| over max |first|):
 - all of layer1: plain, three fused v1 calls, three v2 calls, and
   `fused_layer1` (the three blocks chained in one kernel) at tile 8 and 16.
 
-A v2 row names the column tile (tw) the kernel chose and the patch-matrix
-columns it stages at once (kp; 0: nine tap products); a v3 row its column
-tile and the operations it does over those layer1 needs (halo recompute). Times are device time
+A v2 row names the column tile (tw) and the band rows (band) the kernel
+chose and the 3x3's reduction rows a chain (chain: 9 cmid with im2col, cmid
+for nine tap chains); a v3 row its column tile, its band and the operations
+it does over those layer1 needs (halo recompute). Times are device time
 per call (utils/timing.py); activations are made on the card from seed 0,
 weights with numpy from seed 0 as the TPU tool makes them.
 
@@ -110,11 +111,12 @@ def run(batch: int = BATCH, hw=(HEIGHT, WIDTH), stages=STAGES, device: DeviceLik
         print(f"  {name:44s} {shown}   relmax={relmax:.2e}", flush=True)
         rows.append(dict(section=section, name=name, ms=ms, relmax=relmax))
 
-    def v2_name(tile, im2col, cmid):
+    def v2_name(tile, im2col, cmid, downsample=False):
         name = f"v2 tile={tile} im2col={int(im2col)}"
         if device.type == "cuda":
-            plan = bottleneck_plan(False, tile, cmid, im2col, dtype)
-            name += f" (tw={plan['tile_w']} kp={plan['k_chunk']})"
+            plan = bottleneck_plan(False, tile, cmid, im2col, dtype, downsample)
+            name += (f" (tw={plan['tile_w']} band={plan['band_h']} "
+                     f"chain={plan['k_chunk']})")
         return name
 
     H, W = hw
@@ -133,7 +135,7 @@ def run(batch: int = BATCH, hw=(HEIGHT, WIDTH), stages=STAGES, device: DeviceLik
     w0 = dict(w, w1=r(64, 64), wd=r(64, 256), bd=r(256))
     check("plain", bottleneck_plain, x0, **w0)
     check("fused v1 (shipped, tile 8)", fused_bottleneck, x0, **w0)
-    check(v2_name(8, True, 64), fused_bottleneck_v2, x0, **w0, tile_h=8, im2col=True)
+    check(v2_name(8, True, 64, True), fused_bottleneck_v2, x0, **w0, tile_h=8, im2col=True)
 
     for stage, (h, sw, cin, cmid) in stages.items():
         start(f"{stage} inner block ({h}x{sw} cin={cin} cmid={cmid})")
@@ -151,8 +153,9 @@ def run(batch: int = BATCH, hw=(HEIGHT, WIDTH), stages=STAGES, device: DeviceLik
     for tile in V3_TILES:
         name = f"v3 chained tile={tile}"
         if device.type == "cuda":
-            tw = bottleneck_plan(True, tile, 64, True, dtype)["tile_w"]
-            name += f" (tw={tw}, {layer1_recompute(tile, tw):.2f}x ops)"
+            plan = bottleneck_plan(True, tile, 64, True, dtype)
+            tw, band = plan["tile_w"], plan["band_h"]
+            name += f" (tw={tw} band={band}, {layer1_recompute(band, tw):.2f}x ops)"
         check(name, fused_layer1, x0, blocks, tile_h=tile)
     print("DONE", flush=True)
     return rows

@@ -60,7 +60,7 @@ from test_torch_flash_tc_rounding import (  # noqa: F401 (one_torch_thread: auto
 )
 
 FRESH_ROWS = 32  # reduction rows the kernel sums into a fresh accumulator
-NEAR_TIE = 2.0**-18  # csrc/fused_bottleneck.cu's kNearTie
+NEAR_TIE = 2.0**-18  # csrc/bottleneck_tile.cuh's kNearTie
 K_STEP = {torch.float32: 8, torch.bfloat16: 16}
 # (parts, a fresh accumulator every FRESH_ROWS rows) by storage type: the kernel's
 DESIGNS = {torch.float32: (parts_3xtf32, True), torch.bfloat16: (parts_as_stored, True)}

@@ -176,7 +176,13 @@ REPO_CONFIGS = {
     "flagship": dict(num_classes=8, num_queries=128),
     "single_frame_debug": dict(num_classes=2, num_queries=16, hidden_dim=64,
                                dim_feedforward=128, enc_nheads=4, nheads=4),
+    # a wider member of the family: heads of 128, its cross-attention's concat
+    # heads 256/128 (K4-K6 take the decoder's ones in training)
+    "hidden_1024": dict(num_classes=8, num_queries=16, hidden_dim=1024, enc_nheads=8,
+                        nheads=8),
 }
+# a pair each config must reach (the widest it asks for)
+WIDEST_PAIR = {"flagship": (64, 32), "single_frame_debug": (32, 16), "hidden_1024": (256, 128)}
 
 
 @pytest.mark.parametrize("config", sorted(REPO_CONFIGS))
@@ -205,6 +211,7 @@ def test_repo_configs_reach_built_head_dims(config, monkeypatch):
         model(to_device_batch(batch, torch.device("cpu")))
     assert {name for name, _, _ in pairs} == {"flash_attention", "flash_attention_train"}
     assert {(d, dv) for _, d, dv in pairs} <= set(SUPPORTED_HEAD_DIMS), pairs
+    assert ("flash_attention_train", *WIDEST_PAIR[config]) in pairs, pairs
 
 
 class TestFlagshipWidths:

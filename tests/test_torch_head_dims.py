@@ -8,7 +8,8 @@ back, the scale the caller's 1/sqrt(d). The CUDA kernels cannot run here, but
 the route can: this file pads, runs the kernels' plain versions at (D, DV)
 and slices, through the wrappers' own helpers, and holds the result to JAX's
 `flash_attention` and to `flash_attention_train` with `jax.grad`, which take
-any head dims, at (24, 40), (128, 64) and (96, 128): 2 heads of 40 queries
+any head dims, at (24, 40), (128, 64), (96, 128), the widest built pairs
+(256, 128) and (256, 256), and (200, 136), padded onto (256, 256): 2 heads of 40 queries
 against 72 keys, dropout 0.1 in training (the mask hashes (batch·head, row,
 column), never d, so padding leaves it alone). Tolerance: 2e-6 of the
 reference's largest |value|, f32 on both sides (sums reassociated, the
@@ -16,7 +17,7 @@ padded columns' exact zeros among them; measured up to 1.2e-6).
 tests/test_torch_kernels_cuda.py holds the CUDA kernels at these and other
 padded pairs against the plain versions on a card.
 
-About 13 s alone (`JAX_PLATFORMS=cpu python -m pytest
+About 16 s alone (`JAX_PLATFORMS=cpu python -m pytest
 tests/test_torch_head_dims.py -q`).
 """
 import math
@@ -35,7 +36,7 @@ from future_od_tpu_torch.ops import flash_attention as fa
 from test_torch_flash_tc_rounding import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-6
-PAIRS = [(24, 40), (128, 64), (96, 128)]
+PAIRS = [(24, 40), (128, 64), (96, 128), (256, 128), (256, 256), (200, 136)]
 B, H, NQ, NK = 1, 2, 40, 72
 SEED, RATE = 777, 0.1
 
@@ -54,7 +55,8 @@ def within(out, ref):
 
 def test_routes():
     """Each pair runs on the pair the wrappers pad it to."""
-    assert [fa.kernel_head_dims(d, dv) for d, dv in PAIRS] == [(64, 64), (128, 64), (128, 128)]
+    assert [fa.kernel_head_dims(d, dv) for d, dv in PAIRS] == [
+        (64, 64), (128, 64), (128, 128), (256, 128), (256, 256), (256, 256)]
 
 
 @pytest.mark.parametrize("d,dv", PAIRS)

@@ -98,9 +98,13 @@ def assert_close(out, ref, dtype, tol_dtype=None, atol=None):
      # that config's concat heads and heads of 128, built
      (1, 8, 1024, 1024, 128, 64), (1, 2, 70, 130, 128, 64), (1, 4, 300, 1024, 128, 128),
      (1, 2, 70, 130, 128, 128),
+     # hidden 1024 over 8 heads: concat heads 256/128; heads of 256, 256/256
+     (1, 8, 300, 1024, 256, 128), (1, 2, 70, 130, 256, 128), (1, 4, 350, 350, 256, 256),
+     (1, 2, 70, 130, 256, 256),
      # pairs that are not built: zero-padded onto the smallest built pair that holds them
      (1, 2, 70, 130, 24, 40), (1, 2, 70, 130, 96, 96), (1, 2, 70, 130, 80, 128),
-     (1, 1, 17, 65, 8, 8), (2, 4, 300, 1024, 48, 16)],
+     (1, 1, 17, 65, 8, 8), (2, 4, 300, 1024, 48, 16), (1, 2, 70, 130, 200, 136),
+     (1, 2, 70, 130, 256, 64)],
 )
 def test_flash_attention(cuda, np_rng, dtype, B, H, Nq, Nk, d, dv):
     q, k, v = on(cuda, dtype, np_rng.normal(size=(B, H, Nq, d)),
@@ -113,9 +117,9 @@ def test_flash_attention(cuda, np_rng, dtype, B, H, Nq, Nk, d, dv):
     assert_close(out, reference_attention(q, k, v, 1.0 / math.sqrt(d)), dtype)
 
 
-@pytest.mark.parametrize("d,dv", [(256, 128), (136, 64), (64, 160)])
+@pytest.mark.parametrize("d,dv", [(264, 128), (272, 256), (64, 288)])
 def test_head_dims_above_the_widest_pair_raise(cuda, d, dv):
-    """Above 128 no pair is built: every wrapper raises before a launch."""
+    """Above 256 no pair is built: every wrapper raises before a launch."""
     q, k, v = (torch.zeros((1, 2, 64, n), device=cuda) for n in (d, d, dv))
     before = dict(_kernels.launch_counts)
     with pytest.raises(ValueError, match="head dims"):
@@ -285,8 +289,9 @@ def test_bottleneck_v2(cuda, np_rng, dtype, im2col, tile_h, B, H, W, cin, cmid, 
     torch.cuda.synchronize()
     assert _kernels.launch_counts["bottleneck_v2"] == before + 1
     assert_close(out, bottleneck_plain(x, **w), dtype)
-    plan = bottleneck_plan(False, tile_h, cmid, im2col, dtype)
-    assert plan["tile_w"] >= 1 and (plan["k_chunk"] > 0) == im2col
+    plan = bottleneck_plan(False, tile_h, cmid, im2col, dtype, downsample)
+    assert plan["tile_w"] in (8, 16) and tile_h % plan["band_h"] == 0
+    assert plan["k_chunk"] == (9 if im2col else 1) * cmid
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -331,9 +336,12 @@ RAGGED_TRAIN_SHAPES = [(BH, Nq, Nk, d, dv) for d, dv in fa.SUPPORTED_HEAD_DIMS
 # hidden 512 over 8 heads at the stage-1 shapes (its decoder's concat heads
 # 128/64), heads of 128, and pairs that are not built (zero-padded onto the
 # smallest built pair that holds them)
-WIDE_TRAIN_SHAPES = [(16, 128, 350, 128, 64), (8, 350, 350, 128, 128)]
+WIDE_TRAIN_SHAPES = [(16, 128, 350, 128, 64), (8, 350, 350, 128, 128),
+                     # hidden 1024 over 8 heads at stage 1 (its concat heads 256/128) and heads
+                     # of 256; the decoder's few batch·heads split its slabs
+                     (16, 128, 350, 256, 128), (8, 350, 350, 256, 256), (2, 128, 350, 256, 256)]
 PADDED_TRAIN_SHAPES = [(2, 17, 129, 24, 40), (3, 129, 17, 96, 96), (2, 70, 130, 80, 128),
-                       (4, 40, 72, 8, 8)]
+                       (4, 40, 72, 8, 8), (2, 70, 130, 200, 136), (3, 129, 17, 256, 64)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

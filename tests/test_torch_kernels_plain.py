@@ -123,13 +123,13 @@ class TestFlashAttentionPlain:
 
     def test_wrapper_never_falls_back_off_cpu(self):
         """Off the CPU the wrapper launches or raises: at head dims it pads
-        (8) it stops at the missing card; above 128 it raises on them."""
+        (8) it stops at the missing card; above 256 it raises on them."""
         q = torch.empty((1, 2, 8, 32), device="meta")
         with pytest.raises(ValueError, match="CUDA"):
             flash_attention(q, q, q, 1.0)
         with pytest.raises(ValueError, match="CUDA"):
             flash_attention(q[..., :8], q[..., :8], q[..., :8], 1.0)
-        wide = torch.empty((1, 2, 8, 256), device="meta")
+        wide = torch.empty((1, 2, 8, 264), device="meta")
         with pytest.raises(ValueError, match="head dims"):
             flash_attention(wide, wide, wide, 1.0)
 
@@ -138,7 +138,7 @@ class TestHeadDimDispatch:
     """The flash gates (models/layers.py) look at sizes only: attention at any
     head dims past them goes to the kernels' wrappers, which take their plain
     versions on the CPU and, off it, launch a built pair (padding any pair up
-    to 128 onto one) or raise. Nothing in front of a wrapper gives way to the
+    to 256 onto one) or raise. Nothing in front of a wrapper gives way to the
     plain attention on the card."""
 
     @pytest.mark.parametrize("d,dv", SUPPORTED_HEAD_DIMS)
@@ -153,12 +153,12 @@ class TestHeadDimDispatch:
             fa.flash_train_fwd(q, k, v, 7, 1.0, 0.0, 256, 512)
 
     @pytest.mark.parametrize("d,dv", [(8, 8), (16, 8), (16, 32), (128, 64), (128, 128),
-                                      (256, 128), (136, 64)])
+                                      (256, 128), (136, 64), (264, 128), (64, 272)])
     def test_wrappers_raise_on_other_pairs(self, d, dv):
-        """Off the CPU (meta tensors) every pair up to 128, built or not
+        """Off the CPU (meta tensors) every pair up to 256, built or not
         (the wrappers pad it onto a built one), passes the head-dim check
-        and stops only at the missing card; above 128 the wrappers raise on
-        the head dims (the decoder concat of heads of 128, 256/128)."""
+        and stops only at the missing card; above 256 the wrappers raise on
+        the head dims."""
         match = "head dims" if max(d, dv) > fa.MAX_HEAD_DIM else "CUDA"
         q, k, v = (torch.empty((1, 2, 64, n), device="meta") for n in (d, d, dv))
         with pytest.raises(ValueError, match=match):

@@ -172,10 +172,10 @@ class TestWrappers:
             fa.flash_dq(q, q, q, q, row, row, *args)
         with pytest.raises(ValueError, match="CUDA"):
             fa.flash_dkv(q, q, q, q, row, row, *args)
-        # head dims 8 are padded onto a built pair; above 128 none is built
+        # head dims 8 are padded onto a built pair; above 256 none is built
         with pytest.raises(ValueError, match="CUDA"):
             fa.flash_train_fwd(q[..., :8], q[..., :8], q[..., :8], *args)
-        wide = torch.empty((2, 8, 256), device="meta")
+        wide = torch.empty((2, 8, 264), device="meta")
         with pytest.raises(ValueError, match="head dims"):
             fa.flash_train_fwd(wide, wide, wide, *args)
 
