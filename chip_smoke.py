@@ -78,8 +78,9 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    layer1 and at tile 8 at block 0, layer2 and layer3, v3 at tile 8 and 16;
    and each kernel's time at the tools' full bf16 shapes beside its plain
    version's and a yardstick (T1: SDPA's forward; T2 v2 and v3: K2's,
-   cuDNN's convolutions of the same blocks, channels-last), T2's beside its
-   CUDA-core kernels' times (T2_CUDA_CORE_MS), v2 with im2col 0 too.
+   cuDNN's convolutions of the same blocks, channels-last), v2 with im2col 0
+   too, and v3's recompute in its plan; a line of its own repeats T2's times
+   before the tensor cores (T2_CUDA_CORE_RECORD_MS), a record, not measured.
 1d. the stem study (future_od_tpu_torch/tools/bench_stem.py, the main path
    of its slice): `run()` whole at its full bf16 shape (24 x 896x1600) with
    the launch counts reset before and read after (T3 A, B, B16 and D must
@@ -212,9 +213,9 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    checkpoint's eval at stage 2's size (1400 tokens: K1 6 a forward) on
    both ranks against one process's eval (rank 0) within DIST_AP_ATOL, one
    step at dropout 0 (the reduced gradients and loss against one process's
-   on the same 16 clips and weights, within DIST_LOSS_RTOL and
-   DIST_GRAD_RTOL); each rank's step ms, the all-reduce's ms (timed, and
-   its events under torch.profiler), peak GB a rank.
+   on the same 32 clips and weights, within DIST_LOSS_RTOL and
+   DIST_GRAD_RTOL); each rank's step ms (one step timed), the all-reduce's
+   ms (timed, and its events under torch.profiler), peak GB a rank.
    10b. torchrun with one rank: the NCCL init, an all-reduce, and a step
    through the one-rank mesh against the same step without a mesh.
    10c. the session and the server over a mesh of two devices (both cards,
@@ -233,8 +234,9 @@ build/torch_kernels/. Phases, one line each, every failure fatal:
    backward without its sum) must exceed; both ranks' assignments equal,
    and the one process's own recorded beside them. Then an eval at stage 2's size (1400
    tokens: K1 on 4 heads a rank) against one process's within phase 3's
-   tolerances. K4-K6 and K1 must launch on both ranks; each rank's step ms,
-   its sums over the model group a step (count and MB) and its peak GB
+   tolerances. K4-K6 and K1 must launch on both ranks; each rank's step ms
+   (one step timed a rate), its sums over the model group a step (count and
+   MB) and its peak GB
    beside one process's.
 11. the int8 PTQ backbone (ops/quant.py; every trunk convolution on K8,
    csrc/int8_conv.cu, an implicit GEMM on wgmma m64nNk32 s8 with int32 sums,
@@ -451,9 +453,9 @@ TOOL_SOURCES = {"attention_floor": "attention_floor.cu", "bottleneck_v2": "bottl
 # tile 8 on an H100: 1.17e-2 absolute, past 2^-8 of max).
 BOTTLENECK_BF16_ATOL = {"bottleneck_v2": 2.0**-8, "fused_layer1": 3 * 2.0**-8}
 # T2's times at phase 1c's shapes before their tensor-core redesign (the f32
-# CUDA-core block GEMM; phase 1c on an H100 80GB HBM3 at 700 W), printed
-# beside this run's
-T2_CUDA_CORE_MS = {"bottleneck_v2": 12.305, "fused_layer1": 79.841}
+# CUDA-core block GEMM; phase 1c on an H100 80GB HBM3 at 700 W): a record,
+# logged on a line of its own and kept out of the kernels line
+T2_CUDA_CORE_RECORD_MS = {"bottleneck_v2": 12.305, "fused_layer1": 79.841}
 # Phase 1d: the stem study's kernels, with the TPU tool's file:line.
 STEM_KERNELS = {
     "stem_a": "tools/bench_stem.py:112",
@@ -615,16 +617,18 @@ INT8_TIME_S = 0.1
 INT8_EVAL_SCRIPT = "future_od_tpu_torch.runs.eval.nusc_500ms_attendprev_decoder_eval"
 DIST_RANKS = 2
 DIST_ARGV = ["--synthetic", "--debug", "--disable_wandb", "--epochs", "1"]
-DIST_BATCH = 16  # 10a's step comparison: cut from 32 to pay for phase 1e's hidden-1024 check
+DIST_BATCH = 32
 DIST_TIMEOUT_S = 480
-# The 2-rank step (8 rows a rank, the gradients summed over the ranks)
-# against one process's on the same 16 clips and weights, dropout 0: the
+# steps timed after the compared one in 10a's ranks and in 10d's at each
+# dropout rate: one (from two) pays for phase 1e's hidden-1024 check
+DIST_TIMED_STEPS = 1
+# The 2-rank step (16 rows a rank, the gradients summed over the ranks)
+# against one process's on the same 32 clips and weights, dropout 0: the
 # loss, and each group's largest gradient difference over its largest
 # gradient (phase 6b's form); the half batch changes cuDNN's algorithms and
-# K4-K6's split as --accum 2 does. 10x the gaps measured on an H100 at 32
-# clips (two ranks sharing the card over gloo: loss 1.33e-7; encoder 9.4e-6,
-# detector 2.8e-5); 10b's one-rank mesh step against no mesh is held to the
-# same.
+# K4-K6's split as --accum 2 does. 10x the gaps measured on an H100 (two
+# ranks sharing the card over gloo: loss 1.33e-7; encoder 9.4e-6, detector
+# 2.8e-5); 10b's one-rank mesh step against no mesh is held to the same.
 DIST_LOSS_RTOL = 1.4e-6
 DIST_GRAD_RTOL = {"separate_encoder": 9.4e-5, "detector": 2.8e-4}
 # the 2-rank eval's AP dict against one process's on the same checkpoint
@@ -1301,8 +1305,9 @@ def head_dims_phase(torch, dev):
     from future_od_tpu_torch.train.step import make_inference_fn
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    errs = {}
+    errs, row_seconds = {}, {}
     for label, B, H, Nq, Nk, d, dv in HEAD16_ATTENTIONS:
+        t0 = time.perf_counter()
         q32, k32, do32 = (torch.randn(*s, generator=gen, device=dev)
                           for s in ((B, H, Nq, d), (B, H, Nk, d), (B, H, Nq, dv)))
         v32 = torch.randn(B, H, Nk, dv, generator=gen, device=dev)
@@ -1330,6 +1335,7 @@ def head_dims_phase(torch, dev):
                                        check_close(f"flash_train_dkv dv {tag}", dvv, ref_dv, dtype)[0])
             e["kernel_pair"] = list(fa.kernel_head_dims(d, dv))
             errs[tag] = e
+        row_seconds[label] = time.perf_counter() - t0
 
     # above 256 no pair is built: every wrapper refuses before a launch
     wide = torch.zeros(1, 2, 64, 264, device=dev)
@@ -1377,7 +1383,7 @@ def head_dims_phase(torch, dev):
         raise AssertionError(f"4 heads of 16: kernels vs plain {gaps}, tolerances {NARROW_TOLS}")
     del model, infer
     torch.cuda.empty_cache()
-    return {"max_abs_err": errs, "refused": "(264, 128): head dims",
+    return {"max_abs_err": errs, "row_seconds": row_seconds, "refused": "(264, 128): head dims",
             "narrow_flagship": {"launches": counts, **gaps, "tolerances": NARROW_TOLS},
             "wide_flagship": wide_flagship_check(torch, dev, "hidden 512", WIDE_ARGS),
             "wider_flagship": wide_flagship_check(torch, dev, "hidden 1024", WIDER_ARGS)}
@@ -1401,6 +1407,7 @@ def wide_flagship_check(torch, dev, label, wide_args):
     from future_od_tpu_torch.ops import flash_attention as fa
     from future_od_tpu_torch.train.step import to_device_batch
 
+    t0 = time.perf_counter()
     args = SpatioTemporalDETRArgs(num_classes=8, num_queries=128, lr_backbone=1e-4,
                                   freeze_stem=True, matcher="auction", cost_slots=128,
                                   **wide_args)
@@ -1453,6 +1460,7 @@ def wide_flagship_check(torch, dev, label, wide_args):
                              f"{record}")
     del model, grads_on, grads_off
     torch.cuda.empty_cache()
+    record["seconds"] = time.perf_counter() - t0
     return record
 
 
@@ -1677,7 +1685,6 @@ def tools_phase(torch, dev):
             ms=time_ms(torch, lambda: fr.fused_bottleneck_v2(x1, **w1, tile_h=8, im2col=True)),
             im2col0_ms=time_ms(torch, lambda: fr.fused_bottleneck_v2(x1, **w1, tile_h=8,
                                                                     im2col=False)),
-            cuda_core_ms=T2_CUDA_CORE_MS["bottleneck_v2"],
             plan=fr.bottleneck_plan(False, 8, 64, True, bf16),
             plain_ms=time_ms(torch, lambda: fr.bottleneck_plain(x1, **w1)),
             library_ms=time_ms(torch, lambda: block_yardstick(torch, x1, **yard1)),
@@ -1686,8 +1693,8 @@ def tools_phase(torch, dev):
         "fused_layer1": dict(
             per=f"one call over layer1's 3 blocks {tuple(x0.shape)} -> 256, tile 8",
             ms=time_ms(torch, lambda: fr.fused_layer1(x0, blocks, tile_h=8)),
-            cuda_core_ms=T2_CUDA_CORE_MS["fused_layer1"], plan=v3_plan,
-            recompute=fr.layer1_recompute(v3_plan["band_h"], v3_plan["tile_w"]),
+            plan=dict(v3_plan, recompute=fr.layer1_recompute(v3_plan["band_h"],
+                                                             v3_plan["tile_w"])),
             plain_ms=time_ms(torch, lambda: fr.layer1_plain(x0, blocks)),
             library_ms=time_ms(torch, lambda: layer1_yardstick(x0)),
             library_is=f"a yardstick: {K2_YARDSTICK}, for each of the 3 blocks in turn",
@@ -1705,6 +1712,11 @@ def tools_phase(torch, dev):
         row.update(ops=ops, bytes=nbytes)
         log("kernel", kernel=name, **row)
         records[name] = dict(row, calls=records[name])
+        if name in T2_CUDA_CORE_RECORD_MS:
+            log("kernel-record", kernel=name, record_ms=T2_CUDA_CORE_RECORD_MS[name],
+                record_is="the CUDA-core kernel's phase-1c time at these shapes, a record; "
+                          "not measured in this run", ms=row["ms"],
+                speedup=T2_CUDA_CORE_RECORD_MS[name] / row["ms"])
     return records, counts
 
 
@@ -3830,7 +3842,7 @@ def dist_train_rank(torch, out: str) -> dict:
     if launches != {name: 18 for name in TRAIN_KERNELS}:
         raise AssertionError(f"10a rank {rank}: a dropout-0 step launched {launches}")
     timed = []
-    for _ in range(2):
+    for _ in range(DIST_TIMED_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(local, 0)
@@ -3971,7 +3983,7 @@ def tp_train_rank(torch, out: str) -> dict:
         if launches != TP_STEP_LAUNCHES:
             raise AssertionError(f"10d rank {rank} {label}: a step launched {launches}")
         timed, reduces = [], []
-        for _ in range(2):
+        for _ in range(DIST_TIMED_STEPS):
             distributed.MODEL_REDUCES.update(count=0, bytes=0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5524,8 +5536,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in rec["calls"] if c["dtype"] == "bfloat16"),
             **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_is",
                                    "library_ms", "library_is", "mode_ms", "mode_bound",
-                                   "softmax_share_of_k1", "im2col0_ms", "cuda_core_ms", "plan",
-                                   "recompute", "per") if k in rec},
+                                   "softmax_share_of_k1", "im2col0_ms", "plan", "per")
+               if k in rec},
             "calls": rec["calls"],
         })
     for name, rec in stem_records.items():

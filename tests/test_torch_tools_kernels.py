@@ -271,12 +271,3 @@ def test_tools_run_on_cuda_by_default(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tool.main([])
-
-
-def test_t2_ablation_finds_its_texts():
-    """Each of the T2 ablation tool's removals finds its text in its source."""
-    from future_od_tpu_torch.tools import t2_ablation
-
-    for name, edits in t2_ablation.ABLATIONS.items():
-        for file, old, _ in edits:
-            assert old in (_kernels.CSRC_DIR / file).read_text(), name
